@@ -1,0 +1,69 @@
+// Strip energy update after one seam removal: one thread per (row, strip
+// column), writing in place into the compacted energy.
+//
+// Replaces the packed strip pipeline of dct_carver_tpu/pallas/strip_kernel.py
+// reached through strip_update_packed :828: the slab gather
+// (_gather2_slabs_call, pl.pallas_call at :583), the chains on the slabs
+// (_strip_energy2_call :715) and the read-modify-write scatter
+// (_scatter2_strips_call :681).
+//
+// What bounds it on an H100: launch latency.  At 1080p and n=8 a strip is
+// 1080 rows x 20 columns, ~2e4 pixels: a few microseconds of arithmetic,
+// less than the cost of launching the kernel.
+//
+// Simple design: row i recomputes columns [start_i, start_i + strip_w) with
+// start_i = clamp(seam_i - half, 0, W - strip_w) (ops/carve.py::
+// _strip_bounds), reading the compacted, edge-filled luma directly with the
+// same energy_at as the full map.  A per-row strip is exact because the
+// seam moves at most delta_x columns a row; the TPU's block-shared slabs,
+// 64-lane slot packing and pair groups exist for its vector layout and are
+// not needed here.  Threads only read luma and each writes its own energy
+// cell, so the update is race free in place.
+
+#include <cuda_runtime.h>
+
+#include "energy_chain.cuh"
+
+namespace dct_carver {
+
+template <int N>
+__global__ void strip_kernel(const float* __restrict__ luma,
+                             float* __restrict__ energy,
+                             const int* __restrict__ seam,
+                             const float* __restrict__ taps, int H, int W,
+                             int co, int half, int strip_w, float edges,
+                             float textures) {
+  __shared__ float s_taps[N * N];
+  load_taps(taps, s_taps, N);
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  const int row = blockIdx.y * blockDim.y + threadIdx.y;
+  if (row >= H || c >= strip_w) return;
+  const int start = min(max(seam[row] - half, 0), max(W - strip_w, 0));
+  const int col = start + c;
+  if (col >= W) return;
+  energy[row * W + col] =
+      energy_at<N>(luma, H, W, row, col, co, s_taps, edges, textures);
+}
+
+}  // namespace dct_carver
+
+// luma, energy: (H, W) f32 row-major (energy updated in place); seam: (H,)
+// int32; taps: (n, n) f32.  Returns the cudaError_t of the launch.
+extern "C" int dc_strip(const float* luma, float* energy, const int* seam,
+                        const float* taps, int H, int W, int n, int co,
+                        int half, int strip_w, float edges, float textures,
+                        void* stream) {
+  using namespace dct_carver;
+  const dim3 block(32, 8);
+  const dim3 grid((strip_w + block.x - 1) / block.x,
+                  (H + block.y - 1) / block.y);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (n) {
+    case 2: strip_kernel<2><<<grid, block, 0, s>>>(luma, energy, seam, taps, H, W, co, half, strip_w, edges, textures); break;
+    case 4: strip_kernel<4><<<grid, block, 0, s>>>(luma, energy, seam, taps, H, W, co, half, strip_w, edges, textures); break;
+    case 8: strip_kernel<8><<<grid, block, 0, s>>>(luma, energy, seam, taps, H, W, co, half, strip_w, edges, textures); break;
+    case 16: strip_kernel<16><<<grid, block, 0, s>>>(luma, energy, seam, taps, H, W, co, half, strip_w, edges, textures); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,65 @@
+"""Seam apply: the CUDA kernel `csrc/apply.cu` and its plain version
+(`ops/dp.py::remove_seam` on the three planes + `ops/carve.py::_edge_fill`).
+
+Counterpart of `dct_carver_tpu/pallas/apply_kernel.py::apply_seam_pallas`
+together with its `new_edge_value`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.carve import _edge_fill
+from ..ops.dp import remove_seam
+from .build import Kernel, check_plane, launch
+
+__all__ = ["apply_seam", "KERNEL"]
+
+KERNEL = Kernel(name="apply",
+                source="dct_carver_tpu_torch/csrc/apply.cu",
+                replaces="dct_carver_tpu/pallas/apply_kernel.py:105")
+
+
+def _apply_cuda(luma, origcol, energy, seam, width, out):
+    dev = luma.device
+    H, W = luma.shape
+    for name, t, dtype in (("luma", luma, torch.float32),
+                           ("origcol", origcol, torch.int32),
+                           ("energy", energy, torch.float32),
+                           ("seam", seam, torch.int32)):
+        check_plane(name, t, dtype, dev)
+    if out is None:
+        out = (torch.empty_like(luma), torch.empty_like(origcol),
+               torch.empty_like(energy))
+    for name, o, src in zip(("luma out", "origcol out", "energy out"), out,
+                            (luma, origcol, energy)):
+        check_plane(name, o, src.dtype, dev)
+        if o.shape != src.shape or o.data_ptr() == src.data_ptr():
+            raise ValueError(f"{name}: needs a separate buffer of shape "
+                             f"{tuple(src.shape)}")
+    if H > 65535:
+        raise ValueError(f"apply kernel: {H} rows exceed the grid's 65535")
+    with torch.cuda.device(dev):
+        launch(KERNEL, "dc_apply", luma.data_ptr(), origcol.data_ptr(),
+               energy.data_ptr(), seam.data_ptr(), out[0].data_ptr(),
+               out[1].data_ptr(), out[2].data_ptr(), H, W, width,
+               torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+def apply_seam(luma: torch.Tensor, origcol: torch.Tensor,
+               energy: torch.Tensor, seam: torch.Tensor, width: int, *,
+               out=None, use_pallas: bool = True):
+    """Compact (luma, origcol, energy) around `seam` and edge-fill luma from
+    `width - 1` on.  `width` is the logical width BEFORE the removal.
+
+    With CUDA tensors and `use_pallas`, the kernel writes into `out` (a
+    (luma, origcol, energy) set of separate buffers, allocated when None);
+    the plain version returns new tensors and ignores `out`.
+    """
+    if not 2 <= width <= luma.shape[1]:
+        raise ValueError(f"width {width} outside [2, {luma.shape[1]}]")
+    if luma.is_cuda and use_pallas:
+        return _apply_cuda(luma, origcol, energy, seam, int(width), out)
+    return (_edge_fill(remove_seam(luma, seam), width - 1),
+            remove_seam(origcol, seam), remove_seam(energy, seam))

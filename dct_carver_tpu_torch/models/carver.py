@@ -1,0 +1,154 @@
+"""The Carver — lifecycle object mirroring the liblqr carver the plugin drives.
+
+Counterpart of `dct_carver_tpu/models/carver.py` (reference call surface
+`src/render.c:286-325`):
+    lqr_carver_new(buffer, w, h, bpp)        -> Carver(image, config)
+    lqr_carver_resize(w', h')                -> .resize(w', h')
+    lqr_carver_get_energy_image(...)         -> .energy_image()
+    lqr_vmap_get_data                        -> CarveResult.visibility_map
+
+The image stays a host numpy array; each pass moves it to `device`, carves
+there and brings the results back.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..ops import carve as carve_ops
+from ..ops.energy import normalize_to_u8, to_luma
+from ..utils.config import CarverConfig
+
+__all__ = ["Carver", "CarveResult", "default_device"]
+
+
+def default_device() -> torch.device:
+    """The first CUDA card when there is one, else the CPU."""
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+@dataclasses.dataclass
+class CarveResult:
+    """Outputs of one resize (render()'s outputs, src/main.c:79-105)."""
+    image: np.ndarray                 # retargeted image (H', W'[, C])
+    visibility_map: np.ndarray | None # int32 (H, W) original coords, or None
+    energy_image: np.ndarray | None   # u8 normalized first-energy, or None
+
+
+class Carver:
+    """Seam carver over one image.  Width-wise carving is canonical; height
+    retargeting transposes internally (src/render.c:358-364)."""
+
+    def __init__(self, image, config: CarverConfig | None = None, *,
+                 device=None, progress=None,
+                 checkpoint_path: str | None = None,
+                 checkpoint_every: int = 0, resume_from: str | None = None,
+                 **overrides):
+        """`device`: where the carve runs (default: `default_device()`).
+        `progress`, `checkpoint_*` and `resume_from` are not ported yet."""
+        if (progress is not None or checkpoint_path is not None
+                or checkpoint_every or resume_from is not None):
+            raise NotImplementedError(
+                "progress and checkpoints are not ported yet (ROADMAP "
+                "Queue 1 item 6)")
+        if config is None:
+            config = CarverConfig(**overrides)
+        elif overrides:
+            config = dataclasses.replace(config, **overrides)
+        self.config = config
+        self.device = torch.device(device) if device is not None \
+            else default_device()
+        self.image = np.asarray(image)
+        if self.image.ndim not in (2, 3):
+            raise ValueError("image must be (H, W) or (H, W, C)")
+        self._h, self._w = self.image.shape[:2]
+
+    def _to_device(self, img: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
+
+    def _energy_u8(self, luma: torch.Tensor, center: str = "carve"):
+        cfg = self.config
+        e = carve_ops.full_energy_map(luma, cfg.blocksize, cfg.edges,
+                                      cfg.textures, center=center,
+                                      use_pallas=cfg.use_pallas)
+        return normalize_to_u8(e).cpu().numpy()
+
+    # -- lqr_carver_get_energy_image (src/render.c:175-202) ------------------
+    def energy_image(self, *, vertically: bool | None = None) -> np.ndarray:
+        """Full-image energy, min-max normalized to u8 grayscale."""
+        if vertically is None:
+            vertically = self.config.vertically
+        img = np.swapaxes(self.image, 0, 1) if vertically else self.image
+        out = self._energy_u8(to_luma(self._to_device(img), self.config.luma))
+        return np.swapaxes(out, 0, 1) if vertically else out
+
+    # -- dct_energy_preview (src/render.c:421-479): BT.601-studio luma
+    #    (render.h:5) and the preview window centering (dct.h:8-9)
+    def energy_preview(self) -> np.ndarray:
+        luma = to_luma(self._to_device(self.image), "bt601_studio")
+        return self._energy_u8(luma, center="preview")
+
+    # -- lqr_carver_resize (src/render.c:377) ---------------------------------
+    def resize(self, new_width: int, new_height: int) -> CarveResult:
+        """Retarget to (new_width, new_height): the width pass first, then
+        the height pass on its result (liblqr's order)."""
+        result_img = self.image
+        vmap = None
+        energy = None
+        if new_width != self._w:
+            result_img, vmap, energy = self._carve_axis(
+                result_img, new_width - self._w, transpose=False)
+        if new_height != self._h:
+            result_img, vmap2, energy2 = self._carve_axis(
+                result_img, new_height - self._h, transpose=True)
+            if vmap is None:
+                vmap, energy = vmap2, energy2
+        if not self.config.resize_canvas:
+            # src/main.h:19 resize_canvas=FALSE: the retargeted layer sits at
+            # the top-left of the original canvas; shrunk dimensions
+            # zero-fill, grown ones crop
+            canvas = np.zeros((self._h, self._w) + result_img.shape[2:],
+                              result_img.dtype)
+            h = min(self._h, result_img.shape[0])
+            w = min(self._w, result_img.shape[1])
+            canvas[:h, :w] = result_img[:h, :w]
+            result_img = canvas
+        return CarveResult(
+            image=result_img,
+            visibility_map=vmap if self.config.output_seams else None,
+            energy_image=energy if self.config.output_energy else None,
+        )
+
+    # -- the single-axis carve (vertical seams over a possibly-transposed img)
+    def _carve_axis(self, image: np.ndarray, delta: int, transpose: bool):
+        cfg = self.config
+        img = np.swapaxes(image, 0, 1) if transpose else image
+        n = abs(delta)
+        if n >= img.shape[1]:
+            raise ValueError(
+                f"cannot change dimension by {delta}: image is "
+                f"{img.shape[1]} wide")
+        dev_img = self._to_device(img)
+        luma = to_luma(dev_img, cfg.luma)
+        state = carve_ops.carve_n_seams(
+            luma, n, cfg.blocksize, cfg.edges, cfg.textures,
+            strip_update=cfg.strip_update, use_pallas=cfg.use_pallas,
+            delta_x=cfg.delta_x, rigidity=cfg.rigidity, tie=cfg.tie)
+        if delta < 0:
+            out = carve_ops.reconstruct_removed(dev_img, state.vmap, n)
+        else:
+            out = carve_ops.reconstruct_enlarged(dev_img, state.vmap, n)
+        out = out.cpu().numpy()
+        vmap_np = state.vmap.cpu().numpy()
+        # the reference exports the PRE-carve energy (display_carver_energy
+        # runs before lqr_carver_resize, src/render.c:370-377)
+        energy_np = self._energy_u8(luma) if cfg.output_energy else None
+        if transpose:
+            out = np.swapaxes(out, 0, 1)
+            vmap_np = np.swapaxes(vmap_np, 0, 1)
+            if energy_np is not None:
+                energy_np = np.swapaxes(energy_np, 0, 1)
+        return out, vmap_np, energy_np

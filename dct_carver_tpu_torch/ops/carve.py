@@ -1,0 +1,241 @@
+"""The multi-seam carve loop — fixed-width buffers, logical width.
+
+Counterpart of `dct_carver_tpu/ops/carve.py`.  Buffers keep the original
+width W; `width` (a Python int) tracks the logical width, and columns
+>= width form a dead region that is (a) edge-filled in the luma plane, so
+window clamping matches the reference's border behaviour
+(`src/render.c:122-132`), and (b) masked to +inf by the DP.
+
+Seam bookkeeping matches liblqr's visibility maps (`src/render.c:204-240`):
+`vmap[y, x_original] = k` if the pixel was removed by the k-th seam, else 0.
+
+Each seam runs four steps, each one kernel on CUDA tensors (`use_pallas`)
+and its plain PyTorch version otherwise: find the seam
+(`kernels/dp_kernel.py`), record it in the vmap (plain gather + scatter),
+compact the buffers around it (`kernels/apply_kernel.py`), and recompute
+the energy in a strip around it (`kernels/strip_kernel.py`).  The seam loop
+is a Python loop that never waits for the device.
+
+Strip update: a pixel's energy can only change if its window overlaps a
+changed column, and the seam drifts <= delta_x columns a row, so row i
+recomputes the `strip_w` columns from clip(seam_i - half, 0, W - strip_w).
+Every recomputed value goes through the same energy chain as a full
+recompute, so strip == full bit for bit (docs/PARITY.md S5).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .dct import energy_from_bands, window_offset
+from .dp import check_tie, find_seam as find_seam_plain, mask_energy
+
+__all__ = ["CarveState", "make_state", "carve_n_seams", "full_energy_map",
+           "reconstruct_removed", "reconstruct_enlarged"]
+
+
+class CarveState(NamedTuple):
+    luma: torch.Tensor     # (H, W) float — current image, dead region edge-filled
+    origcol: torch.Tensor  # (H, W) int32 — original column of each current pixel
+    vmap: torch.Tensor     # (H, W) int32 — visibility map in ORIGINAL coordinates
+    width: int             # logical width
+    energy: torch.Tensor   # (H, W) float32 — current energy (dead region garbage)
+
+
+def make_state(luma: torch.Tensor, width: int | None = None) -> CarveState:
+    """`width`: logical width when the buffer carries right padding (the
+    pad columns must replicate the last live column)."""
+    H, W = luma.shape
+    dev = luma.device
+    return CarveState(
+        luma=luma,
+        origcol=torch.arange(W, dtype=torch.int32, device=dev).expand(H, W)
+        .contiguous(),
+        vmap=torch.zeros((H, W), dtype=torch.int32, device=dev),
+        width=W if width is None else int(width),
+        energy=torch.zeros((H, W), dtype=torch.float32, device=dev),
+    )
+
+
+def _edge_fill(luma: torch.Tensor, width: int) -> torch.Tensor:
+    """Replicate column width-1 into the dead region (border clamp)."""
+    col = torch.arange(luma.shape[1], device=luma.device)[None, :]
+    return torch.where(col < width, luma, luma[:, width - 1 : width])
+
+
+def _strip_extent(blocksize: int, delta_x: int = 1) -> tuple[int, int]:
+    """(half, strip_w) of the per-row strip around a removed seam.
+
+    After removing column s_i in row i, pixel (i, j) has a changed window
+    iff some row r within the window's vertical extent has |j - s_r| <=
+    r_blk (+1 for the index shift), and |s_r - s_i| <= delta_x *
+    blocksize/2 within the extent, so half = blocksize/2 * (1 + delta_x) + 1
+    suffices; strip_w = 2 * half + 2 leaves a little slack.
+    """
+    half = (blocksize // 2) * (1 + delta_x) + 1
+    return half, 2 * half + 2
+
+
+def _strip_bounds(seam: torch.Tensor, blocksize: int, W: int,
+                  delta_x: int = 1):
+    """(start (H,) int64, strip_w): row i's strip is columns
+    [start_i, start_i + strip_w)."""
+    half, strip_w = _strip_extent(blocksize, delta_x)
+    start = (seam.to(torch.int64) - half).clamp(0, max(W - strip_w, 0))
+    return start, strip_w
+
+
+def _recompute_strip(luma: torch.Tensor, energy: torch.Tensor,
+                     seam: torch.Tensor, blocksize: int, edges, textures,
+                     delta_x: int = 1) -> torch.Tensor:
+    """The plain version of the strip kernel: overwrite, in place, each
+    row's strip of the compacted `energy` with the energy of the compacted,
+    edge-filled `luma`.  Returns `energy`."""
+    H, W = luma.shape
+    n = blocksize
+    dev = luma.device
+    start, strip_w = _strip_bounds(seam, n, W, delta_x)
+    co = window_offset(n, "carve")
+    cols = (start[:, None] + co
+            + torch.arange(strip_w + n - 1, device=dev)[None, :]).clamp(0, W - 1)
+    rows = (torch.arange(H, device=dev)[:, None] + co
+            + torch.arange(n, device=dev)[None, :]).clamp(0, H - 1)
+    bands = luma[rows[:, :, None], cols[:, None, :]]  # (H, n, strip_w+n-1)
+    strip = energy_from_bands(bands, n, edges, textures).to(torch.float32)
+    idx = start[:, None] + torch.arange(strip_w, device=dev)[None, :]
+    return energy.scatter_(1, idx, strip)
+
+
+def full_energy_map(luma: torch.Tensor, blocksize: int, edges, textures,
+                    center: str = "carve",
+                    use_pallas: bool = True) -> torch.Tensor:
+    """Full-image energy, f32: the energy kernel on CUDA tensors, the plain
+    version otherwise."""
+    from ..kernels.energy_kernel import dct_energy
+
+    return dct_energy(luma, blocksize, edges, textures, center=center,
+                      use_pallas=use_pallas)
+
+
+def _one_seam(state: CarveState, k: int, blocksize: int, edges, textures,
+              strip_update: bool, use_pallas: bool = True, delta_x: int = 1,
+              rigidity: float = 0.0, tie: str = "leftmost",
+              out=None) -> CarveState:
+    """Remove the k-th seam.  Updates `state.vmap` in place; with kernels
+    the compacted buffers are written into `out` (a (luma, origcol,
+    energy) set the size of the state's) when given."""
+    from ..kernels.apply_kernel import apply_seam
+    from ..kernels.dp_kernel import find_seam
+    from ..kernels.strip_kernel import strip_update as update_strip
+
+    if delta_x == 1 and rigidity == 0.0:
+        seam = find_seam(state.energy, state.width, tie=tie,
+                         use_pallas=use_pallas)
+    else:
+        seam = find_seam_plain(mask_energy(state.energy, state.width),
+                               delta_x, rigidity, tie).to(torch.int32)
+
+    # record the k-th seam at original coordinates (src/render.c:204-240)
+    orig = state.origcol.gather(1, seam[:, None].to(torch.int64))
+    state.vmap.scatter_(1, orig.to(torch.int64), k)
+
+    luma, origcol, energy = apply_seam(state.luma, state.origcol,
+                                       state.energy, seam, state.width,
+                                       out=out, use_pallas=use_pallas)
+    new_width = state.width - 1
+    if strip_update:
+        update_strip(luma, energy, seam, blocksize, edges, textures,
+                     delta_x=delta_x, use_pallas=use_pallas)
+    else:
+        energy = full_energy_map(luma, blocksize, edges, textures,
+                                 use_pallas=use_pallas)
+    return CarveState(luma, origcol, state.vmap, new_width, energy)
+
+
+def carve_n_seams(luma: torch.Tensor, n_seams: int, blocksize: int, edges,
+                  textures, strip_update: bool = True,
+                  use_pallas: bool = True, delta_x: int = 1,
+                  rigidity: float = 0.0,
+                  tie: str = "leftmost") -> CarveState:
+    """Remove `n_seams` vertical seams from a (H, W) luma plane.
+
+    Returns the final CarveState; the caller reconstructs outputs from
+    `vmap` (`reconstruct_removed` / `reconstruct_enlarged`).  The first
+    energy map is computed in full; later seams use strip updates when
+    enabled.  `use_pallas`: hand-written kernels for CUDA tensors (the plain
+    versions run for CPU tensors, or on the card when False).
+    `delta_x`/`rigidity` other than (1, 0) take the plain DP.
+    """
+    check_tie(tie)
+    H, W = luma.shape
+    if delta_x < 1:
+        raise ValueError(f"delta_x must be >= 1, got {delta_x}")
+    if not 0 <= n_seams < W:
+        raise ValueError(f"cannot remove {n_seams} seams from width {W}")
+    # the kernels write into the spare set and the sets swap every seam, so
+    # the carve owns its luma buffer
+    state = make_state(luma.clone())
+    state = state._replace(energy=full_energy_map(
+        state.luma, blocksize, edges, textures, use_pallas=use_pallas))
+    # strips wider than the buffer would index out of bounds: full
+    # recompute for tiny images
+    if W < _strip_extent(blocksize, delta_x)[1]:
+        strip_update = False
+    spare = None
+    for i in range(n_seams):
+        new = _one_seam(state, i + 1, blocksize, edges, textures,
+                        strip_update, use_pallas, delta_x, rigidity, tie,
+                        out=spare)
+        spare = (state.luma, state.origcol, state.energy)
+        state = new
+    return state
+
+
+def reconstruct_removed(image: torch.Tensor, vmap: torch.Tensor,
+                        n_seams: int) -> torch.Tensor:
+    """Apply all removal seams in `vmap` to the full-channel image.
+
+    image: (H, W[, C]); returns (H, W-n_seams[, C]).  A stable argsort keeps
+    the surviving columns in order (one gather per carve).
+    """
+    W = image.shape[1]
+    removed = (vmap > 0).to(torch.uint8)
+    order = torch.argsort(removed, dim=1, stable=True)[:, : W - n_seams]
+    if image.ndim == 3:
+        order = order[..., None].expand(-1, -1, image.shape[2])
+    return torch.gather(image, 1, order)
+
+
+def reconstruct_enlarged(image: torch.Tensor, vmap: torch.Tensor,
+                         n_seams: int) -> torch.Tensor:
+    """Insert a duplicate after every seam pixel (liblqr enlargement).
+
+    Inserted value = mean of the seam pixel and its right neighbour
+    (border-clamped); round-half-up for integer dtypes.
+    """
+    H, W = image.shape[:2]
+    dev = image.device
+    s = (vmap > 0).to(torch.int64)
+    offs = torch.cumsum(s, dim=1) - s                    # exclusive cumsum
+    pos = torch.arange(W, device=dev)[None, :] + offs    # out position of originals
+    rows = torch.arange(H, device=dev)[:, None].expand(H, W)
+
+    nbr = torch.cat([image[:, 1:], image[:, -1:]], dim=1)
+    if image.dtype.is_floating_point:
+        avg = (image + nbr) / 2
+    else:
+        avg = torch.div(image.to(torch.int32) + nbr.to(torch.int32) + 1, 2,
+                        rounding_mode="floor").to(image.dtype)
+
+    seam_px = s == 1
+    dup_pos = torch.where(seam_px, pos + 1, pos)
+    if image.ndim == 3:
+        seam_px = seam_px[..., None]
+    dup_val = torch.where(seam_px, avg, image)
+    out = torch.zeros((H, W + n_seams) + tuple(image.shape[2:]),
+                      dtype=image.dtype, device=dev)
+    out[rows, pos] = image
+    out[rows, dup_pos] = dup_val
+    return out

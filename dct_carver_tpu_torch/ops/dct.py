@@ -1,0 +1,140 @@
+"""Blockwise sliding-window DCT energy — the plain PyTorch version.
+
+Counterpart of `dct_carver_tpu/ops/dct.py`, and the plain version of the
+energy kernel (`csrc/energy.cu`, wrapped by `kernels/energy_kernel.py`).
+
+Both DCT stages are explicit chains of separate multiplies and adds on
+whole tensors, never `matmul`, `einsum`, `addcmul` or `torch.compile`:
+each elementwise op is one exactly rounded IEEE op, so the result is fixed
+by the op order alone, on any device.  The CUDA kernels replay the same
+order with `__fmul_rn`/`__fadd_rn`, and the two agree bit for bit.
+
+DCT conventions (oracle/reference.py of the JAX package):
+  * N in {8,16}: orthonormal DCT-II (src/fft2d/shrtdct.c:190-205).
+  * N in {2,4}:  unnormalized case-2 ddct2d (src/fft2d/fftsg2d.c:200-211).
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+__all__ = ["dct_energy_map", "energy_from_bands", "rows_to_bands",
+           "window_offset", "BLOCKSIZES"]
+
+BLOCKSIZES = (2, 4, 8, 16)
+
+
+@functools.lru_cache(maxsize=None)
+def _dct_matrix_np(n: int) -> np.ndarray:
+    if n not in BLOCKSIZES:
+        raise ValueError(f"blocksize must be one of {BLOCKSIZES}, got {n}")
+    j = np.arange(n, dtype=np.float64)
+    k = np.arange(n, dtype=np.float64)
+    D = np.cos(np.pi * (j[None, :] + 0.5) * k[:, None] / n)
+    if n in (8, 16):
+        s = np.full(n, math.sqrt(2.0 / n))
+        s[0] = math.sqrt(1.0 / n)
+        D = D * s[:, None]
+    return D
+
+
+def _taps(n: int, dtype: torch.dtype) -> list[list[float]]:
+    """The taps rounded to `dtype`, as Python floats (exactly representable
+    in `dtype`, so the scalar multiply rounds nothing further)."""
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    return _dct_matrix_np(n).astype(np_dtype).tolist()
+
+
+def energy_from_bands(bands: torch.Tensor, n: int, edges,
+                      textures) -> torch.Tensor:
+    """Energy for every sliding window of a per-row vertical band.
+
+    bands: (H, n, C) — for output row i, bands[i, dy, :] is the image row
+    i + dy + co (edge-clamped) over C contiguous columns.  Output
+    (H, C - n + 1): energy of the window whose LEFT tap starts at each
+    column.
+
+    Semantics (src/dct.c:96-110): max |coefficient| over non-DC atoms with
+    last-tie-wins in rank = kx*n + ky, weighted by `edges` for atoms
+    (0,1)/(1,0) else `textures`.
+    """
+    H, nb, C = bands.shape
+    if nb != n:
+        raise ValueError(f"bands hold {nb} rows, expected {n}")
+    Cout = C - n + 1
+    D = _taps(n, bands.dtype)
+
+    # stage 1 — vertical 1-D DCT: V[ky][i, c] = sum_dy D[ky, dy] * bands[i, dy, c]
+    V = []
+    for ky in range(n):
+        v = D[ky][0] * bands[:, 0, :]
+        for dy in range(1, n):
+            v = v + D[ky][dy] * bands[:, dy, :]
+        V.append(v)
+
+    # stage 2 — horizontal sliding DCT + running argmax: DC excluded,
+    # last tie wins in rank = kx*n + ky
+    maxval = torch.full((H, Cout), -math.inf, dtype=bands.dtype,
+                        device=bands.device)
+    winner = torch.full((H, Cout), -1, dtype=torch.int32, device=bands.device)
+    for ky in range(n):
+        sh = [V[ky][:, dx : dx + Cout] for dx in range(n)]
+        kx0 = 1 if ky == 0 else 0  # DC atom (0,0) excluded (src/dct.c:103)
+        for kx in range(kx0, n):
+            t = D[kx][0] * sh[0]
+            for dx in range(1, n):
+                t = t + D[kx][dx] * sh[dx]
+            a = torch.abs(t)
+            rank = kx * n + ky
+            take_new = a > maxval
+            tie = a == maxval
+            winner = torch.where(
+                take_new, rank,
+                torch.where(tie, winner.clamp(min=rank), winner),
+            )
+            maxval = torch.maximum(maxval, a)
+
+    is_edge = (winner == 1) | (winner == n)  # atoms (0,1),(1,0) (src/dct.c:10-43)
+    w = torch.where(
+        is_edge,
+        torch.tensor(edges, dtype=bands.dtype, device=bands.device),
+        torch.tensor(textures, dtype=bands.dtype, device=bands.device),
+    )
+    return maxval * w
+
+
+def window_offset(n: int, center: str = "carve") -> int:
+    """First window offset relative to the pixel: "carve" = liblqr reading
+    window (src/render.c:146-151); "preview" = the GUI preview centering
+    (CENTER_ROW/COL, src/dct.h:8-9)."""
+    if center == "carve":
+        return -(n // 2 - 1)
+    if center == "preview":
+        return -((n - 1) // 2 - 1)
+    raise ValueError(f"center must be 'carve' or 'preview', got {center!r}")
+
+
+def rows_to_bands(luma: torch.Tensor, n: int,
+                  center: str = "carve") -> torch.Tensor:
+    """(H, W) -> (H, n, W + n - 1): per-output-row vertical band with
+    edge-clamped rows and columns (window offsets co..co+n-1)."""
+    H, W = luma.shape
+    co = window_offset(n, center)
+    dev = luma.device
+    col_idx = (torch.arange(W + n - 1, device=dev) + co).clamp(0, W - 1)
+    padded = luma[:, col_idx]  # (H, W+n-1)
+    row_idx = (torch.arange(H, device=dev)[:, None] + co
+               + torch.arange(n, device=dev)[None, :]).clamp(0, H - 1)
+    return padded[row_idx]  # (H, n, W+n-1)
+
+
+def dct_energy_map(luma: torch.Tensor, blocksize: int, edges, textures, *,
+                   center: str = "carve") -> torch.Tensor:
+    """Per-pixel DCT energy of a (H, W) luma plane, in `luma.dtype`."""
+    n = blocksize
+    return energy_from_bands(rows_to_bands(luma, n, center), n, edges,
+                             textures)

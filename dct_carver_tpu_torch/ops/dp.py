@@ -1,0 +1,128 @@
+"""Seam dynamic programming + seam removal (plain PyTorch).
+
+Counterpart of `dct_carver_tpu/ops/dp.py`, and the plain version of the
+find-seam kernel (`csrc/find_seam.cu`, wrapped by `kernels/dp_kernel.py`).
+It is also the only DP for `delta_x != 1` or `rigidity != 0`, which the
+kernel does not implement.
+
+* Cumulative energy ``M[i,j] = E[i,j] + min(M[i-1,j-1], M[i-1,j], M[i-1,j+1])``
+  (delta_x=1, rigidity=0 per `src/render.c:313`), one row at a time.
+* Backtracking row by row with a (2*delta_x+1)-wide window; the column stays
+  a device tensor, so the loop never waits for the device.
+* Seam removal as a branch-free roll + select over a fixed-width buffer.
+
+Tie conventions: `tie` picks the leftmost (default) or rightmost minimum at
+the last row AND among the backtrack candidates (docs/PARITY.md S1/S2).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+__all__ = ["cumulative_energy", "backtrack", "find_seam", "remove_seam",
+           "mask_energy", "check_tie", "TIES"]
+
+TIES = ("leftmost", "rightmost")
+
+
+def check_tie(tie: str) -> str:
+    if tie not in TIES:
+        raise ValueError(f"tie must be one of {TIES}, got {tie!r}")
+    return tie
+
+
+def _argmin_tie(x: torch.Tensor, tie: str) -> torch.Tensor:
+    """Index (0-dim int64 tensor) of the `tie`-most minimum of a 1-D tensor."""
+    idx = torch.arange(x.shape[0], device=x.device)
+    hit = x == x.min()
+    if tie == "leftmost":
+        return torch.where(hit, idx, x.shape[0]).min()
+    return torch.where(hit, idx, -1).max()
+
+
+def _rigidity_penalties(delta_x: int, rigidity: float) -> list[float]:
+    """A step of |dx| costs ``rigidity * |dx| / delta_x`` (the JAX package's
+    spec of liblqr's `lqr_carver_init(delta_x, rigidity)`)."""
+    return [rigidity * abs(dx) / delta_x for dx in range(-delta_x, delta_x + 1)]
+
+
+def _shift_row(row: torch.Tensor, dx: int) -> torch.Tensor:
+    """row shifted so index j holds row[j + dx]; vacated slots are +inf."""
+    if dx == 0:
+        return row
+    fill = torch.full((abs(dx),), math.inf, dtype=row.dtype, device=row.device)
+    if dx < 0:
+        return torch.cat([fill, row[:dx]])
+    return torch.cat([row[dx:], fill])
+
+
+def cumulative_energy(E: torch.Tensor, delta_x: int = 1,
+                      rigidity: float = 0.0) -> torch.Tensor:
+    """(H, W) energy -> (H, W) DP cumulative energy, op order
+    E + min(min(left, centre), right) at the default (1, 0)."""
+    pen = _rigidity_penalties(delta_x, rigidity)
+    M = torch.empty_like(E)
+    M[0] = E[0]
+    prev = E[0]
+    for i in range(1, E.shape[0]):
+        best = None
+        for k, dx in enumerate(range(-delta_x, delta_x + 1)):
+            cand = _shift_row(prev, dx)
+            if pen[k] != 0.0:
+                cand = cand + pen[k]
+            best = cand if best is None else torch.minimum(best, cand)
+        prev = E[i] + best
+        M[i] = prev
+    return M
+
+
+def backtrack(M: torch.Tensor, delta_x: int = 1, rigidity: float = 0.0,
+              tie: str = "leftmost") -> torch.Tensor:
+    """(H, W) cumulative energy -> (H,) int32 seam columns."""
+    check_tie(tie)
+    H, W = M.shape
+    k = 2 * delta_x + 1
+    Mp = torch.nn.functional.pad(M, (delta_x, delta_x), value=math.inf)
+    pen = torch.tensor(_rigidity_penalties(delta_x, rigidity), dtype=M.dtype,
+                       device=M.device)
+    offs = torch.arange(k, device=M.device)
+    j = _argmin_tie(M[-1], tie)
+    seam = [j]
+    for i in range(H - 2, -1, -1):
+        # padded window [j-delta_x .. j+delta_x]; borders +inf, never chosen
+        win = Mp[i].gather(0, j + offs)
+        if rigidity != 0.0:
+            win = win + pen
+        j = j - delta_x + _argmin_tie(win, tie)
+        seam.append(j)
+    return torch.stack(seam[::-1]).to(torch.int32)
+
+
+def find_seam(E: torch.Tensor, delta_x: int = 1, rigidity: float = 0.0,
+              tie: str = "leftmost") -> torch.Tensor:
+    return backtrack(cumulative_energy(E, delta_x, rigidity), delta_x,
+                     rigidity, tie)
+
+
+def mask_energy(E: torch.Tensor, width: int) -> torch.Tensor:
+    """+inf beyond the logical width so DP never enters the dead region."""
+    col = torch.arange(E.shape[1], device=E.device)
+    return torch.where(col[None, :] < width, E,
+                       torch.tensor(math.inf, dtype=E.dtype, device=E.device))
+
+
+def remove_seam(arr: torch.Tensor, seam: torch.Tensor) -> torch.Tensor:
+    """Compact one pixel per row out of a fixed-width buffer.
+
+    arr: (H, W[, C]); seam: (H,) int.  Column j of the result is arr[:, j]
+    for j < seam and arr[:, j+1] for j >= seam; the last column wraps to
+    column 0 and falls in the caller's dead region.
+    """
+    W = arr.shape[1]
+    shifted = torch.roll(arr, -1, dims=1)
+    keep = torch.arange(W, device=arr.device)[None, :] < seam[:, None]
+    if arr.ndim == 3:
+        keep = keep[..., None]
+    return torch.where(keep, arr, shifted)
