@@ -3,13 +3,21 @@
 
     python3 chip_smoke.py
 
-Phase 0 builds the four CUDA kernels from `dct_carver_tpu_torch/csrc/`.
-Phase 1 holds each kernel against its plain PyTorch version on the card,
-bit for bit, at the main path's shapes (1080x1920, and 2160x3840 at n=16),
-and times both.  Phase 2 runs the main path through the public API: a
-64-seam removal from a 1080x1920 RGB image with the launch counters read
-around it, compared element for element with the plain path on the card
-and with the CPU on a small image; then a bidirectional 4K resize at n=16.
+Phase 0 builds the CUDA kernels from `dct_carver_tpu_torch/csrc/`, one
+nvcc a source, all at once.  Phase 1 holds each kernel against its plain
+PyTorch version on the card, bit for bit, at the main path's shapes
+(1080x1920, and 2160x3840 at n=16), and times both; phase 1b runs whole
+4-seam carves at 4320x7680 and 4096x4096 (the shapes of the TPU's streamed
+and folded DP routes) against the plain path.  Phase 2 runs the main path
+through the public API: a 64-seam removal from a 1080x1920 RGB image with
+the launch counters read around it, compared element for element with the
+plain path on the card and with the CPU on a small image; then a
+bidirectional 4K resize at n=16.  Phase 3 runs the batch route (BASELINE
+config 4's images): the batched kernels against their plain versions on 8
+1024x1024 planes, a 128-seam `api.carve(parallel="batch")` of 8 RGB images
+with the launch counters read around it, compared with the plain path and
+with the single-image route, and a timed, profiled `carve_batch` of 256
+such images.
 
 The last stdout line is {"ok": true, "device": {...}}; before it come the
 kernels' JSON line and the card's name and power limit.  Any failed phase
@@ -29,6 +37,14 @@ SEED = 20261016
 H, W = 1080, 1920          # the headline shape (BASELINE config 1)
 H4, W4 = 2160, 3840        # BASELINE config 3
 SEAMS = 64
+WHOLE_SEAMS = 4            # phase 1b: whole carves at the shapes that the
+# TPU sends down its streamed and folded DP routes
+WHOLE_SHAPES = ((4320, 7680, "streamed"), (4096, 4096, "folded"))
+NB, HB, WB = 8, 1024, 1024  # phase 3: BASELINE config 4's image size
+SEAMS_B = 128              # config 4's seam count
+# the timed batch, cut from config 4's 1024 images to bound the smoke's time
+NB_TIMED = 256
+TIES = ("leftmost", "rightmost")
 
 
 def log(msg: str) -> None:
@@ -94,7 +110,8 @@ def cuda_ms(fn, reps: int) -> float:
 def device_profile(fn, top: int = 8):
     """Run fn() once warm under torch.profiler: (wall seconds, device
     microseconds summed over kernels, the `top` kernels by device time as
-    (name, us, count))."""
+    (name, us, count)).  The rows of torch's own ops ("aten::...") repeat
+    the device time of the kernels they launched, so they are left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -107,9 +124,189 @@ def device_profile(fn, top: int = 8):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
+            for e in prof.key_averages()
+            if e.self_device_time_total > 0 and not e.key.startswith("aten::")]
     rows.sort(key=lambda r: -r[1])
     return wall, sum(r[1] for r in rows), rows[:top]
+
+
+def phase_1b(dev, chk: Checks, card: str, rng) -> None:
+    """Whole carves at the single-image shapes that the TPU sends down its
+    streamed (4320x7680) and folded (4096x4096) DP routes: the kernel path
+    equals the plain path on the card."""
+    import torch
+
+    from dct_carver_tpu_torch.ops.carve import carve_n_seams
+
+    log(f"phase 1b: whole {WHOLE_SEAMS}-seam carves at n=8, kernel path vs "
+        "plain path on the card")
+    for h, w, route in WHOLE_SHAPES:
+        luma = torch.from_numpy(rng.random((h, w), dtype=np.float32)).to(dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        k = carve_n_seams(luma, WHOLE_SEAMS, 8, 0.0, 1.0)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        p = carve_n_seams(luma, WHOLE_SEAMS, 8, 0.0, 1.0, use_pallas=False)
+        live = w - WHOLE_SEAMS
+        chk.require(k.width == p.width == live, f"{h}x{w} logical width")
+        case = f"{h}x{w} ({route} DP on the TPU)"
+        chk.equal("carve", f"{case} vmap", k.vmap, p.vmap)
+        chk.equal("carve", f"{case} luma", k.luma, p.luma)
+        chk.equal("carve", f"{case} energy, live columns",
+                  k.energy[:, :live].contiguous(),
+                  p.energy[:, :live].contiguous())
+        log(f"  {case}: kernel path {sec!r} s, first call included ({card})")
+        del luma, k, p
+
+
+def phase_3(dev, chk: Checks, card: str, rng, times: dict) -> dict:
+    """The batch route; returns the launch counts of its api.carve run."""
+    import torch
+
+    from dct_carver_tpu_torch import api, kernels
+    from dct_carver_tpu_torch.kernels.apply_kernel import apply_seam
+    from dct_carver_tpu_torch.kernels.dp_kernel import find_seams
+    from dct_carver_tpu_torch.kernels.energy_kernel import dct_energy
+    from dct_carver_tpu_torch.kernels.strip_kernel import strip_update
+    from dct_carver_tpu_torch.parallel.mesh import carve_batch
+
+    edges, textures = 0.3, 0.7
+
+    def on_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    log(f"phase 3: the batch route; kernels vs plain versions on B={NB} "
+        f"{HB}x{WB} planes")
+    lumas = on_dev(rng.random((NB, HB, WB), dtype=np.float32))
+    for n in (8, 16):
+        chk.equal("energy", f"B={NB} {HB}x{WB} n={n}",
+                  dct_energy(lumas, n, edges, textures),
+                  dct_energy(lumas, n, edges, textures, use_pallas=False))
+    E = dct_energy(lumas, 8, edges, textures)
+    E_q = on_dev((rng.integers(0, 4, (NB, HB, WB)) / 4).astype(np.float32))
+    # windows W, W-37, 517 and 17 wide; lo + width <= W
+    widths = on_dev(np.resize([WB, WB - 37, WB // 2 + 5, 17], NB)
+                    .astype(np.int32))
+    los = {"lo=0": on_dev(np.zeros(NB, np.int32)),
+           "lo>0": on_dev(np.resize([0, 37, WB // 2 - 12, WB - 24], NB)
+                          .astype(np.int32))}
+    for lo_name, lo in los.items():
+        for e_name, e in (("random", E), ("quantized", E_q)):
+            for tie in TIES:
+                chk.equal("find_seams",
+                          f"B={NB} {e_name}, widths W/W-37/{WB // 2 + 5}/17, "
+                          f"{lo_name}, {tie}",
+                          find_seams(e, widths, lo, tie=tie),
+                          find_seams(e, widths, lo, tie=tie,
+                                     use_pallas=False))
+    chk.equal("find_seams", f"B={NB} one shared width W-5",
+              find_seams(E, WB - 5), find_seams(E, WB - 5, use_pallas=False))
+
+    seam = find_seams(E, WB)
+    origcol = torch.arange(WB, dtype=torch.int32, device=dev).expand(
+        NB, HB, WB).contiguous()
+    got = apply_seam(lumas, origcol, E, seam, WB)
+    want = apply_seam(lumas, origcol, E, seam, WB, use_pallas=False)
+    for part, g, w_ in zip(("luma", "origcol", "energy"), got, want):
+        chk.equal("apply", f"B={NB} after one batched seam, {part}", g, w_)
+    l1, _, e1 = want
+    k = strip_update(l1, e1.clone(), seam, 8, edges, textures)
+    p = strip_update(l1, e1.clone(), seam, 8, edges, textures,
+                     use_pallas=False)
+    chk.equal("strip", f"B={NB} after one batched seam", k, p)
+    full = dct_energy(l1, 8, edges, textures, use_pallas=False)
+    chk.equal("strip", f"B={NB} == full recompute (live columns)",
+              k[..., :WB - 1].contiguous(), full[..., :WB - 1].contiguous())
+    times["find_seams"] = (
+        cuda_ms(lambda: find_seams(E, WB), 20),
+        cuda_ms(lambda: find_seams(E, WB, use_pallas=False), 2))
+    log(f"  find_seams kernel {times['find_seams'][0]!r} ms, plain "
+        f"{times['find_seams'][1]!r} ms (B={NB} x {HB}x{WB}; {card})")
+    del lumas, E, E_q, got, want, l1, e1, k, p, full
+
+    log(f"phase 3b: api.carve(({NB}, {HB}, {WB}, 3), -{SEAMS_B}, "
+        "parallel='batch') on the card")
+    imgs = rng.integers(0, 256, (NB, HB, WB, 3), dtype=np.uint8)
+    kw = dict(blocksize=8, output_seams=True, output_energy=True,
+              device=dev.type)
+    api.carve(imgs[:2, :64, :256], -4, parallel="batch", **kw)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    res = api.carve(imgs, -SEAMS_B, parallel="batch", **kw)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    log(f"  launches on the batch route: {launches}")
+    for name in ("find_seams", "apply", "strip"):
+        chk.require(launches[name] == SEAMS_B,
+                    f"{name} kernel launched {SEAMS_B} times for {NB} images")
+    chk.require(launches["energy"] == 2,
+                "energy kernel launched twice (export, first map), not once "
+                "an image")
+    chk.require(launches["find_seam"] == 0,
+                "no single-image find_seam launch on the batch route")
+    t = time.perf_counter()
+    plain = api.carve(imgs, -SEAMS_B, parallel="batch", use_pallas=False,
+                      **kw)
+    log(f"  plain path on the card: {time.perf_counter() - t!r} s ({card})")
+    for field in ("image", "visibility_map", "energy_image"):
+        a, b = getattr(res, field), getattr(plain, field)
+        chk.require(a.shape == b.shape and np.array_equal(a, b),
+                    f"batch api.carve {field} == plain path on the card")
+    vm = res.visibility_map
+    chk.require(res.image.shape == (NB, HB, WB - SEAMS_B, 3)
+                and vm.shape == (NB, HB, WB)
+                and res.energy_image.shape == (NB, HB, WB)
+                and res.energy_image.dtype == np.uint8,
+                "batch output shapes and types")
+    chk.require(np.array_equal(np.sort(vm, axis=2)[..., WB - SEAMS_B:],
+                               np.broadcast_to(np.arange(1, SEAMS_B + 1),
+                                               (NB, HB, SEAMS_B))),
+                "every image: one removed pixel per row per seam")
+    for b in (0, NB - 1):
+        one = api.carve(imgs[b], -SEAMS_B, **kw)
+        chk.require(all(np.array_equal(getattr(one, f), getattr(res, f)[b])
+                        for f in ("image", "visibility_map", "energy_image")),
+                    f"image {b} of the batch == its single-image api.carve")
+    del imgs, res, plain, vm
+
+    log(f"phase 3c: carve_batch of {NB_TIMED} {HB}x{WB} RGB images, "
+        f"{SEAMS_B} seams, n=8, reconstruct=True")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    big = torch.randint(0, 256, (NB_TIMED, HB, WB, 3), dtype=torch.uint8,
+                        device=dev, generator=gen)
+
+    def run():
+        return carve_batch(big, SEAMS_B, devices=[dev])
+
+    run()
+    torch.cuda.synchronize()
+    secs = []
+    for _ in range(2):
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out, vmaps = run()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated(dev)
+    chk.require(out.shape == (NB_TIMED, HB, WB - SEAMS_B, 3)
+                and vmaps.shape == (NB_TIMED, HB, WB)
+                and bool(((vmaps > 0).sum(dim=2) == SEAMS_B).all()),
+                f"carve_batch output shapes, {SEAMS_B} removed pixels a row")
+    px = NB_TIMED * HB * WB * SEAMS_B
+    log(f"  carve_batch B={NB_TIMED}: {secs!r} s, best "
+        f"{px / min(secs) / 1e6!r} Mpix/s; peak device memory {peak} bytes "
+        f"({peak / NB_TIMED / 2**20!r} MiB an image; {card})")
+    del out, vmaps
+    wall, busy_us, top = device_profile(run, top=10)
+    log(f"  profiled carve_batch: wall {wall * 1e3!r} ms, device busy "
+        f"{busy_us / 1e3!r} ms ({100 * busy_us / 1e6 / wall!r} % of wall; "
+        f"{card})")
+    for name, us, count in top:
+        log(f"    {us / 1e3:10.4f} ms  {count:5d} x  {name[:90]}")
+    return launches
 
 
 def main() -> int:
@@ -266,6 +463,8 @@ def main() -> int:
         log(f"  {name:9s} kernel {k_ms!r} ms, plain {p_ms!r} ms "
             f"(1080x1920 n=8; {card})")
 
+    phase_1b(dev, chk, card, rng)
+
     # ---------------------------------------------------------- phase 2 --
     log(f"phase 2: api.carve({H}x{W}x3, -{SEAMS}, blocksize=8) on the card")
     img = rng.integers(0, 256, (H, W, 3), dtype=np.uint8)
@@ -354,13 +553,19 @@ def main() -> int:
         f"{px / sec / 1e6!r} Mpix/s (kernel path, host round trip "
         f"included; {card})")
 
+    del img4, ka, pa, big
+    batch_launches = phase_3(dev, chk, card, rng, times)
+
     if chk.failures:
         print("chip_smoke FAILED:\n  " + "\n  ".join(chk.failures),
               file=sys.stderr)
         return 1
+    # each kernel's launches on the main paths: the single-image carve of
+    # phase 2 and the batch carve of phase 3b, each counted from 0
     log(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
-         "replaces": k.replaces, "launches": launches[k.name],
+         "replaces": k.replaces,
+         "launches": launches[k.name] + batch_launches[k.name],
          "max_abs_err": chk.max_err[k.name], "ms": times[k.name][0],
          "plain_ms": times[k.name][1]}
         for k in kernels.KERNELS]}))

@@ -5,8 +5,9 @@
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from .models.carver import Carver, CarveResult
+from .models.carver import Carver, CarveResult, default_device
 from .utils.config import CarverConfig
 
 __all__ = ["carve", "CarveResult", "CarverConfig"]
@@ -21,20 +22,23 @@ def carve(image, seams_number: int, *, blocksize: int = 8,
     inserts; `vertically=True` changes the HEIGHT — src/render.c:358-364).
 
     Defaults mirror the plugin's (src/main.c:30-40).  `device`: where the
-    carve runs (default: the first CUDA card, else the CPU).  Only the
-    single-image route is ported: a (B, H, W[, C]) stack raises.
+    carve runs (default: the first CUDA card, else the CPU).
+
+    Routing (`parallel=`): "batch" carves an image STACK — a (B, H, W[, C])
+    array, whose result fields come back stacked over B — with one launch
+    per kernel and seam for the whole stack; "auto" takes the batch route
+    for a 4-D input and the single-image route otherwise.  Every knob keeps
+    its single-image meaning on both routes.
     """
     image = np.asarray(image)
-    if image.ndim == 4:
-        raise NotImplementedError(
-            "image stacks (the batch route) are not ported yet (ROADMAP "
-            "Queue 1 item 8)")
     cfg = CarverConfig(
         edges=edges, textures=textures, blocksize=blocksize,
         seams_number=seams_number, vertically=vertically,
         output_energy=output_energy, output_seams=output_seams,
         **framework_knobs,
     )
+    if cfg.parallel == "batch" or (cfg.parallel == "auto" and image.ndim == 4):
+        return _carve_stack(image, seams_number, cfg, device)
     carver = Carver(image, cfg, device=device)
     h, w = image.shape[:2]
     if seams_number == 0:
@@ -47,3 +51,78 @@ def carve(image, seams_number: int, *, blocksize: int = 8,
     if vertically:
         return carver.resize(w, h + seams_number)
     return carver.resize(w + seams_number, h)
+
+
+def _stack_energy_u8(images: torch.Tensor, cfg: CarverConfig) -> np.ndarray:
+    """Each image's full energy, min-max normalized to u8 on its own."""
+    from .ops.carve import full_energy_map
+    from .ops.energy import normalize_to_u8, to_luma
+
+    e = full_energy_map(to_luma(images, cfg.luma, stack=True), cfg.blocksize,
+                        cfg.edges, cfg.textures, use_pallas=cfg.use_pallas)
+    return normalize_to_u8(e).cpu().numpy()
+
+
+def _carve_stack(images: np.ndarray, seams_number: int, cfg: CarverConfig,
+                 device) -> CarveResult:
+    """Carve of a (B, H, W[, C]) stack on one device (`parallel.mesh` —
+    BASELINE config 4), following JAX `api.py::_carve_stack` knob by knob.
+    Every image is carved independently, exactly as `render()` treats each
+    invocation (src/render.c:327); results stack over B.
+
+    One deliberate deviation: with `seams_number == 0` and
+    `output_energy=True` the energies are returned, where JAX returns None
+    (ROADMAP Queue 3)."""
+    from .ops.carve import reconstruct_enlarged
+    from .parallel.mesh import carve_batch
+
+    if images.ndim not in (3, 4):
+        raise ValueError(
+            f"parallel='batch' needs a (B, H, W[, C]) stack; got shape "
+            f"{images.shape}")
+    if cfg.vertically:
+        images = np.swapaxes(images, 1, 2)
+    B, h0, w0 = images.shape[:3]
+    n = abs(seams_number)
+    if n >= w0:
+        raise ValueError(
+            f"cannot change dimension by {seams_number}: images are "
+            f"{w0} wide")
+    dev = torch.device(device) if device is not None else default_device()
+    stack = torch.from_numpy(np.ascontiguousarray(images)).to(dev)
+    energy = None
+    if cfg.output_energy:
+        # pre-carve energy export, per image (src/render.c:370-377 ordering)
+        energy = _stack_energy_u8(stack, cfg)
+    kw = dict(blocksize=cfg.blocksize, edges=cfg.edges,
+              textures=cfg.textures, devices=[dev],
+              strip_update=cfg.strip_update, energy=cfg.energy,
+              luma=cfg.luma, delta_x=cfg.delta_x, rigidity=cfg.rigidity,
+              tie=cfg.tie, use_pallas=cfg.use_pallas)
+    if seams_number == 0:
+        out, vmaps = images.copy(), np.zeros((B, h0, w0), np.int32)
+    else:
+        if seams_number < 0:
+            out, vmaps = carve_batch(stack, n, **kw)
+        else:
+            _, vmaps = carve_batch(stack, n, reconstruct=False, **kw)
+            out = reconstruct_enlarged(stack, vmaps, n)
+        out, vmaps = out.cpu().numpy(), vmaps.cpu().numpy()
+    if not cfg.resize_canvas:
+        # resize_canvas=FALSE analog (src/main.h:19), per image: removals
+        # zero-fill the vacated region on the original canvas, enlargements
+        # crop — the single-image route's semantics
+        canvas = np.zeros((B, h0, w0) + out.shape[3:], out.dtype)
+        w = min(w0, out.shape[2])
+        canvas[:, :, :w] = out[:, :, :w]
+        out = canvas
+    if cfg.vertically:
+        out = np.swapaxes(out, 1, 2)
+        vmaps = np.swapaxes(vmaps, 1, 2)
+        if energy is not None:
+            energy = np.swapaxes(energy, 1, 2)
+    return CarveResult(
+        image=out,
+        visibility_map=vmaps if cfg.output_seams else None,
+        energy_image=energy,
+    )

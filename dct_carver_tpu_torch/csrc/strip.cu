@@ -1,5 +1,6 @@
-// Strip energy update after one seam removal: one thread per (row, strip
-// column), writing in place into the compacted energy.
+// Strip energy update after one seam removal from each of B images: one
+// thread per (image, row, strip column), writing in place into the
+// compacted energy.
 //
 // Replaces the packed strip pipeline of dct_carver_tpu/pallas/strip_kernel.py
 // reached through strip_update_packed :828: the slab gather
@@ -9,7 +10,10 @@
 //
 // What bounds it on an H100: launch latency.  At 1080p and n=8 a strip is
 // 1080 rows x 20 columns, ~2e4 pixels: a few microseconds of arithmetic,
-// less than the cost of launching the kernel.
+// less than the cost of launching the kernel.  A batch of B images makes it
+// arithmetic: 256 1-Mpix images at n=8 are ~5.2e6 strip pixels a seam, at
+// 2*n^3 multiplies and as many adds each ~1.1e10 separately rounded ops,
+// about 0.3 ms of the float32 pipe.
 //
 // Simple design: row i recomputes columns [start_i, start_i + strip_w) with
 // start_i = clamp(seam_i - half, 0, W - strip_w) (ops/carve.py::
@@ -18,7 +22,9 @@
 // seam moves at most delta_x columns a row; the TPU's block-shared slabs,
 // 64-lane slot packing and pair groups exist for its vector layout and are
 // not needed here.  Threads only read luma and each writes its own energy
-// cell, so the update is race free in place.
+// cell, so the update is race free in place.  The image is the grid's z
+// dimension; its base offset is a size_t (B * H * W passes INT_MAX near
+// B = 1024 1-Mpix images).
 
 #include <cuda_runtime.h>
 
@@ -38,25 +44,27 @@ __global__ void strip_kernel(const float* __restrict__ luma,
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   const int row = blockIdx.y * blockDim.y + threadIdx.y;
   if (row >= H || c >= strip_w) return;
-  const int start = min(max(seam[row] - half, 0), max(W - strip_w, 0));
+  const int s = seam[static_cast<size_t>(blockIdx.z) * H + row];
+  const int start = min(max(s - half, 0), max(W - strip_w, 0));
   const int col = start + c;
   if (col >= W) return;
-  energy[row * W + col] =
-      energy_at<N>(luma, H, W, row, col, co, s_taps, edges, textures);
+  const size_t plane = static_cast<size_t>(blockIdx.z) * H * W;
+  energy[plane + static_cast<size_t>(row) * W + col] =
+      energy_at<N>(luma + plane, H, W, row, col, co, s_taps, edges, textures);
 }
 
 }  // namespace dct_carver
 
-// luma, energy: (H, W) f32 row-major (energy updated in place); seam: (H,)
-// int32; taps: (n, n) f32.  Returns the cudaError_t of the launch.
+// luma, energy: (B, H, W) f32 row-major (energy updated in place); seam:
+// (B, H) int32; taps: (n, n) f32.  Returns the cudaError_t of the launch.
 extern "C" int dc_strip(const float* luma, float* energy, const int* seam,
-                        const float* taps, int H, int W, int n, int co,
+                        const float* taps, int B, int H, int W, int n, int co,
                         int half, int strip_w, float edges, float textures,
                         void* stream) {
   using namespace dct_carver;
   const dim3 block(32, 8);
   const dim3 grid((strip_w + block.x - 1) / block.x,
-                  (H + block.y - 1) / block.y);
+                  (H + block.y - 1) / block.y, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n) {
     case 2: strip_kernel<2><<<grid, block, 0, s>>>(luma, energy, seam, taps, H, W, co, half, strip_w, edges, textures); break;

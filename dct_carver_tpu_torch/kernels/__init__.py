@@ -4,15 +4,17 @@ Each module holds one kernel's wrapper and its plain PyTorch version behind
 one public function: a CUDA tensor with `use_pallas` goes to the kernel
 (built from `csrc/` at first use, see `build.py`), or raises; any other
 tensor goes to the plain version.  Each wrapper counts its launches on its
-module's `KERNEL`.
+module's `KERNEL`; `dp_kernel.find_seams`, the batch route's DP, counts on
+`dp_kernel.BATCH_KERNEL`.  Every wrapper takes a (H, W) plane or a
+(B, H, W) stack, one launch for the whole stack.
 """
 
 from . import apply_kernel, dp_kernel, energy_kernel, strip_kernel
 
 __all__ = ["KERNELS", "reset_launches", "launch_counts"]
 
-KERNELS = (energy_kernel.KERNEL, dp_kernel.KERNEL, apply_kernel.KERNEL,
-           strip_kernel.KERNEL)
+KERNELS = (energy_kernel.KERNEL, dp_kernel.KERNEL, dp_kernel.BATCH_KERNEL,
+           apply_kernel.KERNEL, strip_kernel.KERNEL)
 
 
 def reset_launches() -> None:

@@ -1,10 +1,11 @@
 """Build the CUDA kernels of `csrc/` at first use and bind them with ctypes.
 
-The four `.cu` files compile with `nvcc` into one shared library with a
-plain C interface under `build/dct_carver_tpu_torch/<source hash>/` at the
-repository root, so a changed source builds anew and an unchanged one loads
-the library already built.  Importing this module needs no compiler:
-`load()` builds on its first call, which comes with the first CUDA tensor.
+Each `.cu` file compiles with its own `nvcc`, all started together, and
+the objects link into one shared library with a plain C interface under
+`build/dct_carver_tpu_torch/<source hash>/` at the repository root, so a
+changed source builds anew and an unchanged one loads the library already
+built.  Importing this module needs no compiler: `load()` builds on its
+first call, which comes with the first CUDA tensor.
 
 Every C entry point takes its pointers and the stream as `void*` and returns
 the `cudaError_t` of its launch; `launch()` raises on anything but 0.
@@ -30,21 +31,23 @@ LIB_NAME = "libdct_carver_kernels.so"
 # -fmad=false: no multiply-add contraction anywhere (the chains must round
 # each op, like the plain PyTorch versions); never --use_fast_math
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
-    # luma, out, taps, H, W, n, co, edges, textures, stream
-    "dc_energy": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
-    # E, parents, seam, H, W, lo, width, rightmost, stream
-    "dc_find_seam": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # luma, origcol, energy, seam, luma', origcol', energy', H, W, width, stream
-    "dc_apply": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # luma, energy, seam, taps, H, W, n, co, half, strip_w, edges, textures, stream
-    "dc_strip": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    # luma, out, taps, B, H, W, n, co, edges, textures, stream
+    "dc_energy": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
+    # E, parents, seams, B, H, W, lo[B], width[B], lo0, width0, rightmost,
+    # stream
+    "dc_find_seams": (_P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _P),
+    # luma, origcol, energy, seam, luma', origcol', energy', B, H, W, width,
+    # stream
+    "dc_apply": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # luma, energy, seam, taps, B, H, W, n, co, half, strip_w, edges,
+    # textures, stream
+    "dc_strip": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
 }
 
 
@@ -102,16 +105,38 @@ def _build() -> BuildInfo:
         log = log_path.read_text() if log_path.exists() else ""
         return BuildInfo(lib, 0.0, log)
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in _sources() if p.suffix == ".cu"]]
+    nvcc = _nvcc()
+    tag = os.getpid()
+    objs, procs = [], []
     t0 = time.perf_counter()
+    # one nvcc a source, all at once: the build is the sum of the slowest
+    # file's time, not of all of them
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = out_dir / f".{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for cmd, proc in procs:
+        out = proc.communicate()[0]
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    tmp = out_dir / f".{LIB_NAME}.{tag}"
+    cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    seconds = time.perf_counter() - t0
+    for obj in objs:
+        obj.unlink()
+    log = "".join(logs)
     log_path.write_text(log)
     os.replace(tmp, lib)
     return BuildInfo(lib, seconds, log)

@@ -1,7 +1,12 @@
-"""Find one seam: the CUDA kernel `csrc/find_seam.cu` and its plain version
+"""Find seams: the CUDA kernel `csrc/find_seam.cu` and its plain version
 `ops/dp.py` (mask_energy + cumulative_energy + backtrack).
 
-Counterpart of `dct_carver_tpu/pallas/dp_kernel.py::find_seam_pallas`.
+`find_seam` (one (H, W) plane) is the counterpart of
+`dct_carver_tpu/pallas/dp_kernel.py::find_seam_pallas`; `find_seams` (a
+(B, H, W) stack, one column window per image) of
+`dct_carver_tpu/pallas/batch_dp_kernel.py::find_seams_vec`.  Both launch
+the same C entry, a plane as a batch of one, and count their launches on
+their own records.
 """
 
 from __future__ import annotations
@@ -11,11 +16,15 @@ import torch
 from ..ops.dp import check_tie, find_seam as find_seam_plain, mask_energy
 from .build import Kernel, check_plane, launch
 
-__all__ = ["find_seam", "KERNEL", "MAX_WIDTH"]
+__all__ = ["find_seam", "find_seams", "KERNEL", "BATCH_KERNEL", "MAX_WIDTH"]
 
 KERNEL = Kernel(name="find_seam",
                 source="dct_carver_tpu_torch/csrc/find_seam.cu",
                 replaces="dct_carver_tpu/pallas/dp_kernel.py:348")
+BATCH_KERNEL = Kernel(name="find_seams",
+                      source="dct_carver_tpu_torch/csrc/find_seam.cu",
+                      replaces="dct_carver_tpu/pallas/batch_dp_kernel.py:"
+                               "139,171")
 
 # the double-buffered frontier (2 * W f32) plus the reduction scratch must
 # fit one block's 227 KB of shared memory
@@ -24,21 +33,33 @@ _REDUCTION_BYTES = 256
 MAX_WIDTH = (_SMEM_LIMIT - _REDUCTION_BYTES) // 8
 
 
-def _find_seam_cuda(E: torch.Tensor, width: int, tie: str) -> torch.Tensor:
-    check_plane("energy", E, torch.float32, E.device)
-    H, W = E.shape
+def _find_seams_cuda(kernel: Kernel, E: torch.Tensor, width, lo,
+                     tie: str) -> torch.Tensor:
+    """(B, H, W) -> (B, H) seams in one launch.  `width`/`lo` are ints
+    shared by every image, or (B,) int32 tensors on E's device."""
+    dev = E.device
+    check_plane("energy", E, torch.float32, dev)
+    B, H, W = E.shape
     if W > MAX_WIDTH:
         raise ValueError(
             f"find_seam kernel: width {W} exceeds {MAX_WIDTH}, the most "
             "whose frontier fits one block's shared memory")
-    parents = torch.empty((H, W), dtype=torch.int8, device=E.device)
-    seam = torch.empty((H,), dtype=torch.int32, device=E.device)
-    with torch.cuda.device(E.device):
-        # the kernel's column window [lo, lo + width) starts at lo = 0 here
-        launch(KERNEL, "dc_find_seam", E.data_ptr(), parents.data_ptr(),
-               seam.data_ptr(), H, W, 0, width, int(tie == "rightmost"),
-               torch.cuda.current_stream().cuda_stream)
-    return seam
+    ptrs, scalars = [], []
+    for name, v in (("lo", lo), ("width", width)):
+        if isinstance(v, torch.Tensor):
+            check_plane(name, v, torch.int32, dev)
+            ptrs.append(v.data_ptr())
+            scalars.append(0)
+        else:
+            ptrs.append(None)
+            scalars.append(int(v))
+    parents = torch.empty((B, H, W), dtype=torch.int8, device=dev)
+    seams = torch.empty((B, H), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        launch(kernel, "dc_find_seams", E.data_ptr(), parents.data_ptr(),
+               seams.data_ptr(), B, H, W, *ptrs, *scalars,
+               int(tie == "rightmost"), torch.cuda.current_stream().cuda_stream)
+    return seams
 
 
 def find_seam(E: torch.Tensor, width: int, *, tie: str = "leftmost",
@@ -52,5 +73,40 @@ def find_seam(E: torch.Tensor, width: int, *, tie: str = "leftmost",
     if not 1 <= width <= E.shape[1]:
         raise ValueError(f"width {width} outside [1, {E.shape[1]}]")
     if E.is_cuda and use_pallas:
-        return _find_seam_cuda(E, int(width), tie)
+        return _find_seams_cuda(KERNEL, E[None], int(width), 0, tie)[0]
     return find_seam_plain(mask_energy(E, width), tie=tie).to(torch.int32)
+
+
+def _check_windows(width, lo, B: int, W: int, device) -> None:
+    """Raise unless every image's window [lo, lo + width) is non-empty and
+    inside [0, W).  Tensors are (B,) int32 on `device`; checking their
+    values waits for the device."""
+    tensors = [v for v in (width, lo) if isinstance(v, torch.Tensor)]
+    for v in tensors:
+        if v.shape != (B,) or v.dtype != torch.int32 or v.device != device:
+            raise ValueError(f"width/lo must be ints or ({B},) int32 tensors "
+                             f"on {device}, got {tuple(v.shape)} {v.dtype} "
+                             f"on {v.device}")
+    w = width.to(torch.int64) if isinstance(width, torch.Tensor) else width
+    o = lo.to(torch.int64) if isinstance(lo, torch.Tensor) else lo
+    ok = (w >= 1) & (o >= 0) & (o + w <= W)
+    if not bool(torch.as_tensor(ok).all()):
+        raise ValueError(f"every window [lo, lo + width) must be non-empty "
+                         f"and inside [0, {W})")
+
+
+def find_seams(E: torch.Tensor, width, lo=0, *, tie: str = "leftmost",
+               use_pallas: bool = True) -> torch.Tensor:
+    """Masked find-seam of each image of a stack over its own column window
+    [lo_b, lo_b + width_b): (B, H, W) energy -> (B, H) int32 seams, the
+    seam each image gets alone.  `width` and `lo` are ints shared by every
+    image (the carve loop's case, which never waits for the device) or (B,)
+    int32 tensors.  A CUDA tensor with `use_pallas` goes to the kernel, one
+    launch for the batch; any other tensor to the plain version."""
+    check_tie(tie)
+    if E.ndim != 3:
+        raise ValueError(f"energy must be (B, H, W), got {tuple(E.shape)}")
+    _check_windows(width, lo, E.shape[0], E.shape[2], E.device)
+    if E.is_cuda and use_pallas:
+        return _find_seams_cuda(BATCH_KERNEL, E, width, lo, tie)
+    return find_seam_plain(mask_energy(E, width, lo), tie=tie).to(torch.int32)

@@ -1,7 +1,9 @@
 """Full DCT energy map: the CUDA kernel `csrc/energy.cu` and its plain
 version `ops/dct.py::dct_energy_map`.
 
-Counterpart of `dct_carver_tpu/pallas/energy_kernel.py::dct_energy_pallas`.
+Counterpart of `dct_carver_tpu/pallas/energy_kernel.py::dct_energy_pallas`
+and, for a (B, H, W) stack, of its batched form `_energy_pallas_batched`
+(reached under `jax.vmap` through `_energy_cv`).
 """
 
 from __future__ import annotations
@@ -32,12 +34,15 @@ def dct_taps(n: int, device: torch.device) -> torch.Tensor:
 def _energy_cuda(luma: torch.Tensor, n: int, edges, textures,
                  center: str) -> torch.Tensor:
     check_plane("luma", luma, torch.float32, luma.device)
-    H, W = luma.shape
+    B = luma.shape[0] if luma.ndim == 3 else 1
+    H, W = luma.shape[-2:]
+    if B > 65535:
+        raise ValueError(f"energy kernel: {B} images exceed the grid's 65535")
     out = torch.empty_like(luma)
     taps = dct_taps(n, luma.device)
     with torch.cuda.device(luma.device):
         launch(KERNEL, "dc_energy", luma.data_ptr(), out.data_ptr(),
-               taps.data_ptr(), H, W, n, window_offset(n, center),
+               taps.data_ptr(), B, H, W, n, window_offset(n, center),
                float(edges), float(textures),
                torch.cuda.current_stream().cuda_stream)
     return out
@@ -45,11 +50,13 @@ def _energy_cuda(luma: torch.Tensor, n: int, edges, textures,
 
 def dct_energy(luma: torch.Tensor, blocksize: int, edges, textures, *,
                center: str = "carve", use_pallas: bool = True) -> torch.Tensor:
-    """(H, W) luma -> (H, W) f32 energy.  A CUDA tensor with `use_pallas`
-    goes to the kernel (f32 only; anything else raises); any other tensor
-    to the plain version, computed in its own dtype and then cast."""
-    if luma.ndim != 2:
-        raise ValueError(f"luma must be (H, W), got {tuple(luma.shape)}")
+    """(H, W) luma -> (H, W) f32 energy, or (B, H, W) -> (B, H, W) in one
+    launch.  A CUDA tensor with `use_pallas` goes to the kernel (f32 only;
+    anything else raises); any other tensor to the plain version, computed
+    in its own dtype and then cast."""
+    if luma.ndim not in (2, 3):
+        raise ValueError(f"luma must be (H, W) or (B, H, W), got "
+                         f"{tuple(luma.shape)}")
     if blocksize not in BLOCKSIZES:
         raise ValueError(f"blocksize must be one of {BLOCKSIZES}, got "
                          f"{blocksize}")

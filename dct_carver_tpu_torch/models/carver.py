@@ -61,10 +61,32 @@ class Carver:
         self.config = config
         self.device = torch.device(device) if device is not None \
             else default_device()
+        self._resolved_parallel()
         self.image = np.asarray(image)
         if self.image.ndim not in (2, 3):
             raise ValueError("image must be (H, W) or (H, W, C)")
         self._h, self._w = self.image.shape[:2]
+
+    def _resolved_parallel(self) -> str:
+        """The route for THIS carver (one image): "none".  Counterpart of
+        the JAX `Carver._resolved_parallel`; its "spatial" route is not
+        ported yet."""
+        par = self.config.parallel
+        if par == "batch":
+            raise ValueError(
+                "parallel='batch' applies to image stacks — pass a "
+                "(B, H, W[, C]) array to api.carve, or use "
+                "parallel.mesh.carve_batch")
+        if par == "auto":
+            n_dev = (torch.cuda.device_count() if self.device.type == "cuda"
+                     else 1)
+            if n_dev > 1:
+                raise NotImplementedError(
+                    f"parallel='auto' with {n_dev} devices picks the spatial "
+                    "route, which is not ported yet (ROADMAP Queue 1 item "
+                    "9); use parallel='none'")
+            par = "none"
+        return par
 
     def _to_device(self, img: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(img)).to(self.device)

@@ -9,9 +9,16 @@ window clamping matches the reference's border behaviour
 Seam bookkeeping matches liblqr's visibility maps (`src/render.c:204-240`):
 `vmap[y, x_original] = k` if the pixel was removed by the k-th seam, else 0.
 
+The loop carves one (H, W) plane or a (B, H, W) stack of images of one size
+(the batch route, `parallel/mesh.py`): every buffer then carries the leading
+B, each step is one launch for the whole batch, and every image loses one
+seam a step, so `width` stays one Python int.  A plane runs the same code
+as a stack of one.
+
 Each seam runs four steps, each one kernel on CUDA tensors (`use_pallas`)
 and its plain PyTorch version otherwise: find the seam
-(`kernels/dp_kernel.py`), record it in the vmap (plain gather + scatter),
+(`kernels/dp_kernel.py`: `find_seam` for a plane, `find_seams` for a
+stack), record it in the vmap (plain gather + scatter),
 compact the buffers around it (`kernels/apply_kernel.py`), and recompute
 the energy in a strip around it (`kernels/strip_kernel.py`).  The seam loop
 is a Python loop that never waits for the device.
@@ -37,32 +44,34 @@ __all__ = ["CarveState", "make_state", "carve_n_seams", "full_energy_map",
 
 
 class CarveState(NamedTuple):
-    luma: torch.Tensor     # (H, W) float — current image, dead region edge-filled
-    origcol: torch.Tensor  # (H, W) int32 — original column of each current pixel
-    vmap: torch.Tensor     # (H, W) int32 — visibility map in ORIGINAL coordinates
-    width: int             # logical width
-    energy: torch.Tensor   # (H, W) float32 — current energy (dead region garbage)
+    """Every tensor is (H, W) for one image or (B, H, W) for a stack."""
+    luma: torch.Tensor     # float — current image, dead region edge-filled
+    origcol: torch.Tensor  # int32 — original column of each current pixel
+    vmap: torch.Tensor     # int32 — visibility map in ORIGINAL coordinates
+    width: int             # logical width, shared by a stack's images
+    energy: torch.Tensor   # float32 — current energy (dead region garbage)
 
 
 def make_state(luma: torch.Tensor, width: int | None = None) -> CarveState:
-    """`width`: logical width when the buffer carries right padding (the
-    pad columns must replicate the last live column)."""
-    H, W = luma.shape
+    """`luma`: (H, W) or (B, H, W).  `width`: logical width when the buffer
+    carries right padding (the pad columns must replicate the last live
+    column)."""
+    W = luma.shape[-1]
     dev = luma.device
     return CarveState(
         luma=luma,
-        origcol=torch.arange(W, dtype=torch.int32, device=dev).expand(H, W)
-        .contiguous(),
-        vmap=torch.zeros((H, W), dtype=torch.int32, device=dev),
+        origcol=torch.arange(W, dtype=torch.int32, device=dev)
+        .expand(luma.shape).contiguous(),
+        vmap=torch.zeros(luma.shape, dtype=torch.int32, device=dev),
         width=W if width is None else int(width),
-        energy=torch.zeros((H, W), dtype=torch.float32, device=dev),
+        energy=torch.zeros(luma.shape, dtype=torch.float32, device=dev),
     )
 
 
 def _edge_fill(luma: torch.Tensor, width: int) -> torch.Tensor:
     """Replicate column width-1 into the dead region (border clamp)."""
-    col = torch.arange(luma.shape[1], device=luma.device)[None, :]
-    return torch.where(col < width, luma, luma[:, width - 1 : width])
+    col = torch.arange(luma.shape[-1], device=luma.device)
+    return torch.where(col < width, luma, luma[..., width - 1 : width])
 
 
 def _strip_extent(blocksize: int, delta_x: int = 1) -> tuple[int, int]:
@@ -80,7 +89,7 @@ def _strip_extent(blocksize: int, delta_x: int = 1) -> tuple[int, int]:
 
 def _strip_bounds(seam: torch.Tensor, blocksize: int, W: int,
                   delta_x: int = 1):
-    """(start (H,) int64, strip_w): row i's strip is columns
+    """(start (..., H) int64, strip_w): row i's strip is columns
     [start_i, start_i + strip_w)."""
     half, strip_w = _strip_extent(blocksize, delta_x)
     start = (seam.to(torch.int64) - half).clamp(0, max(W - strip_w, 0))
@@ -92,27 +101,33 @@ def _recompute_strip(luma: torch.Tensor, energy: torch.Tensor,
                      delta_x: int = 1) -> torch.Tensor:
     """The plain version of the strip kernel: overwrite, in place, each
     row's strip of the compacted `energy` with the energy of the compacted,
-    edge-filled `luma`.  Returns `energy`."""
-    H, W = luma.shape
+    edge-filled `luma`.  Returns `energy`.  luma, energy: (..., H, W);
+    seam: (..., H)."""
+    H, W = luma.shape[-2:]
     n = blocksize
     dev = luma.device
     start, strip_w = _strip_bounds(seam, n, W, delta_x)
     co = window_offset(n, "carve")
-    cols = (start[:, None] + co
-            + torch.arange(strip_w + n - 1, device=dev)[None, :]).clamp(0, W - 1)
+    cols = (start[..., None] + co
+            + torch.arange(strip_w + n - 1, device=dev)).clamp(0, W - 1)
     rows = (torch.arange(H, device=dev)[:, None] + co
             + torch.arange(n, device=dev)[None, :]).clamp(0, H - 1)
-    bands = luma[rows[:, :, None], cols[:, None, :]]  # (H, n, strip_w+n-1)
+    # (..., H, n, strip_w+n-1): row i's band reads rows[i] at cols[..., i, :]
+    planes = luma.reshape(-1, H, W)
+    b = torch.arange(planes.shape[0], device=dev)[:, None, None, None]
+    bands = planes[b, rows[:, :, None],
+                   cols.reshape(-1, H, strip_w + n - 1)[:, :, None, :]]
+    bands = bands.reshape(*luma.shape[:-2], H, n, strip_w + n - 1)
     strip = energy_from_bands(bands, n, edges, textures).to(torch.float32)
-    idx = start[:, None] + torch.arange(strip_w, device=dev)[None, :]
-    return energy.scatter_(1, idx, strip)
+    idx = start[..., None] + torch.arange(strip_w, device=dev)
+    return energy.scatter_(-1, idx, strip)
 
 
 def full_energy_map(luma: torch.Tensor, blocksize: int, edges, textures,
                     center: str = "carve",
                     use_pallas: bool = True) -> torch.Tensor:
-    """Full-image energy, f32: the energy kernel on CUDA tensors, the plain
-    version otherwise."""
+    """Full-image energy of a (H, W) plane or (B, H, W) stack, f32: the
+    energy kernel on CUDA tensors, the plain version otherwise."""
     from ..kernels.energy_kernel import dct_energy
 
     return dct_energy(luma, blocksize, edges, textures, center=center,
@@ -123,23 +138,24 @@ def _one_seam(state: CarveState, k: int, blocksize: int, edges, textures,
               strip_update: bool, use_pallas: bool = True, delta_x: int = 1,
               rigidity: float = 0.0, tie: str = "leftmost",
               out=None) -> CarveState:
-    """Remove the k-th seam.  Updates `state.vmap` in place; with kernels
-    the compacted buffers are written into `out` (a (luma, origcol,
-    energy) set the size of the state's) when given."""
+    """Remove the k-th seam (from every image of a stack).  Updates
+    `state.vmap` in place; with kernels the compacted buffers are written
+    into `out` (a (luma, origcol, energy) set the size of the state's) when
+    given."""
     from ..kernels.apply_kernel import apply_seam
-    from ..kernels.dp_kernel import find_seam
+    from ..kernels.dp_kernel import find_seam, find_seams
     from ..kernels.strip_kernel import strip_update as update_strip
 
     if delta_x == 1 and rigidity == 0.0:
-        seam = find_seam(state.energy, state.width, tie=tie,
-                         use_pallas=use_pallas)
+        find = find_seams if state.energy.ndim == 3 else find_seam
+        seam = find(state.energy, state.width, tie=tie, use_pallas=use_pallas)
     else:
         seam = find_seam_plain(mask_energy(state.energy, state.width),
                                delta_x, rigidity, tie).to(torch.int32)
 
     # record the k-th seam at original coordinates (src/render.c:204-240)
-    orig = state.origcol.gather(1, seam[:, None].to(torch.int64))
-    state.vmap.scatter_(1, orig.to(torch.int64), k)
+    orig = state.origcol.gather(-1, seam[..., None].to(torch.int64))
+    state.vmap.scatter_(-1, orig.to(torch.int64), k)
 
     luma, origcol, energy = apply_seam(state.luma, state.origcol,
                                        state.energy, seam, state.width,
@@ -159,7 +175,8 @@ def carve_n_seams(luma: torch.Tensor, n_seams: int, blocksize: int, edges,
                   use_pallas: bool = True, delta_x: int = 1,
                   rigidity: float = 0.0,
                   tie: str = "leftmost") -> CarveState:
-    """Remove `n_seams` vertical seams from a (H, W) luma plane.
+    """Remove `n_seams` vertical seams from a (H, W) luma plane, or from
+    each plane of a (B, H, W) stack.
 
     Returns the final CarveState; the caller reconstructs outputs from
     `vmap` (`reconstruct_removed` / `reconstruct_enlarged`).  The first
@@ -169,7 +186,10 @@ def carve_n_seams(luma: torch.Tensor, n_seams: int, blocksize: int, edges,
     `delta_x`/`rigidity` other than (1, 0) take the plain DP.
     """
     check_tie(tie)
-    H, W = luma.shape
+    if luma.ndim not in (2, 3):
+        raise ValueError(f"luma must be (H, W) or (B, H, W), got "
+                         f"{tuple(luma.shape)}")
+    W = luma.shape[-1]
     if delta_x < 1:
         raise ValueError(f"delta_x must be >= 1, got {delta_x}")
     if not 0 <= n_seams < W:
@@ -197,15 +217,17 @@ def reconstruct_removed(image: torch.Tensor, vmap: torch.Tensor,
                         n_seams: int) -> torch.Tensor:
     """Apply all removal seams in `vmap` to the full-channel image.
 
-    image: (H, W[, C]); returns (H, W-n_seams[, C]).  A stable argsort keeps
-    the surviving columns in order (one gather per carve).
+    image: (H, W[, C]) with vmap (H, W), or a stack (B, H, W[, C]) with
+    vmaps (B, H, W); returns (..., H, W-n_seams[, C]).  A stable argsort
+    keeps the surviving columns in order (one gather per carve).
     """
-    W = image.shape[1]
+    dim = vmap.ndim - 1  # the column dimension
+    W = image.shape[dim]
     removed = (vmap > 0).to(torch.uint8)
-    order = torch.argsort(removed, dim=1, stable=True)[:, : W - n_seams]
-    if image.ndim == 3:
-        order = order[..., None].expand(-1, -1, image.shape[2])
-    return torch.gather(image, 1, order)
+    order = torch.argsort(removed, dim=-1, stable=True)[..., : W - n_seams]
+    if image.ndim > vmap.ndim:
+        order = order[..., None].expand(*order.shape, image.shape[-1])
+    return torch.gather(image, dim, order)
 
 
 def reconstruct_enlarged(image: torch.Tensor, vmap: torch.Tensor,
@@ -213,8 +235,12 @@ def reconstruct_enlarged(image: torch.Tensor, vmap: torch.Tensor,
     """Insert a duplicate after every seam pixel (liblqr enlargement).
 
     Inserted value = mean of the seam pixel and its right neighbour
-    (border-clamped); round-half-up for integer dtypes.
+    (border-clamped); round-half-up for integer dtypes.  A stack (B, H,
+    W[, C]) with vmaps (B, H, W) is enlarged image by image.
     """
+    if vmap.ndim == 3:
+        return torch.stack([reconstruct_enlarged(im, vm, n_seams)
+                            for im, vm in zip(image, vmap)])
     H, W = image.shape[:2]
     dev = image.device
     s = (vmap > 0).to(torch.int64)

@@ -53,16 +53,16 @@ def energy_from_bands(bands: torch.Tensor, n: int, edges,
                       textures) -> torch.Tensor:
     """Energy for every sliding window of a per-row vertical band.
 
-    bands: (H, n, C) — for output row i, bands[i, dy, :] is the image row
-    i + dy + co (edge-clamped) over C contiguous columns.  Output
-    (H, C - n + 1): energy of the window whose LEFT tap starts at each
+    bands: (..., H, n, C) — for output row i, bands[..., i, dy, :] is the
+    image row i + dy + co (edge-clamped) over C contiguous columns.  Output
+    (..., H, C - n + 1): energy of the window whose LEFT tap starts at each
     column.
 
     Semantics (src/dct.c:96-110): max |coefficient| over non-DC atoms with
     last-tie-wins in rank = kx*n + ky, weighted by `edges` for atoms
     (0,1)/(1,0) else `textures`.
     """
-    H, nb, C = bands.shape
+    *lead, nb, C = bands.shape
     if nb != n:
         raise ValueError(f"bands hold {nb} rows, expected {n}")
     Cout = C - n + 1
@@ -71,18 +71,19 @@ def energy_from_bands(bands: torch.Tensor, n: int, edges,
     # stage 1 — vertical 1-D DCT: V[ky][i, c] = sum_dy D[ky, dy] * bands[i, dy, c]
     V = []
     for ky in range(n):
-        v = D[ky][0] * bands[:, 0, :]
+        v = D[ky][0] * bands[..., 0, :]
         for dy in range(1, n):
-            v = v + D[ky][dy] * bands[:, dy, :]
+            v = v + D[ky][dy] * bands[..., dy, :]
         V.append(v)
 
     # stage 2 — horizontal sliding DCT + running argmax: DC excluded,
     # last tie wins in rank = kx*n + ky
-    maxval = torch.full((H, Cout), -math.inf, dtype=bands.dtype,
+    maxval = torch.full((*lead, Cout), -math.inf, dtype=bands.dtype,
                         device=bands.device)
-    winner = torch.full((H, Cout), -1, dtype=torch.int32, device=bands.device)
+    winner = torch.full((*lead, Cout), -1, dtype=torch.int32,
+                        device=bands.device)
     for ky in range(n):
-        sh = [V[ky][:, dx : dx + Cout] for dx in range(n)]
+        sh = [V[ky][..., dx : dx + Cout] for dx in range(n)]
         kx0 = 1 if ky == 0 else 0  # DC atom (0,0) excluded (src/dct.c:103)
         for kx in range(kx0, n):
             t = D[kx][0] * sh[0]
@@ -120,21 +121,22 @@ def window_offset(n: int, center: str = "carve") -> int:
 
 def rows_to_bands(luma: torch.Tensor, n: int,
                   center: str = "carve") -> torch.Tensor:
-    """(H, W) -> (H, n, W + n - 1): per-output-row vertical band with
-    edge-clamped rows and columns (window offsets co..co+n-1)."""
-    H, W = luma.shape
+    """(..., H, W) -> (..., H, n, W + n - 1): per-output-row vertical band
+    with edge-clamped rows and columns (window offsets co..co+n-1)."""
+    H, W = luma.shape[-2:]
     co = window_offset(n, center)
     dev = luma.device
     col_idx = (torch.arange(W + n - 1, device=dev) + co).clamp(0, W - 1)
-    padded = luma[:, col_idx]  # (H, W+n-1)
+    padded = luma[..., col_idx]  # (..., H, W+n-1)
     row_idx = (torch.arange(H, device=dev)[:, None] + co
                + torch.arange(n, device=dev)[None, :]).clamp(0, H - 1)
-    return padded[row_idx]  # (H, n, W+n-1)
+    return padded[..., row_idx, :]  # (..., H, n, W+n-1)
 
 
 def dct_energy_map(luma: torch.Tensor, blocksize: int, edges, textures, *,
                    center: str = "carve") -> torch.Tensor:
-    """Per-pixel DCT energy of a (H, W) luma plane, in `luma.dtype`."""
+    """Per-pixel DCT energy of a (..., H, W) luma plane or stack, in
+    `luma.dtype`."""
     n = blocksize
     return energy_from_bands(rows_to_bands(luma, n, center), n, edges,
                              textures)

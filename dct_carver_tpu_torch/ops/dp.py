@@ -11,6 +11,11 @@ kernel does not implement.
   a device tensor, so the loop never waits for the device.
 * Seam removal as a branch-free roll + select over a fixed-width buffer.
 
+Every function takes a (H, W) plane or a (B, H, W) stack: each op of a row
+runs on all B images at once, in the same order as on one plane, so a stack
+gives each image the seam it gives alone.  `mask_energy` takes a window per
+image, as `find_seams_vec(E, width, lo)` does.
+
 Tie conventions: `tie` picks the leftmost (default) or rightmost minimum at
 the last row AND among the backtrack candidates (docs/PARITY.md S1/S2).
 """
@@ -34,12 +39,14 @@ def check_tie(tie: str) -> str:
 
 
 def _argmin_tie(x: torch.Tensor, tie: str) -> torch.Tensor:
-    """Index (0-dim int64 tensor) of the `tie`-most minimum of a 1-D tensor."""
-    idx = torch.arange(x.shape[0], device=x.device)
-    hit = x == x.min()
+    """Index (int64, x's shape without its last dimension) of the
+    `tie`-most minimum along the last dimension."""
+    n = x.shape[-1]
+    idx = torch.arange(n, device=x.device)
+    hit = x == x.amin(dim=-1, keepdim=True)
     if tie == "leftmost":
-        return torch.where(hit, idx, x.shape[0]).min()
-    return torch.where(hit, idx, -1).max()
+        return torch.where(hit, idx, n).amin(dim=-1)
+    return torch.where(hit, idx, -1).amax(dim=-1)
 
 
 def _rigidity_penalties(delta_x: int, rigidity: float) -> list[float]:
@@ -49,55 +56,57 @@ def _rigidity_penalties(delta_x: int, rigidity: float) -> list[float]:
 
 
 def _shift_row(row: torch.Tensor, dx: int) -> torch.Tensor:
-    """row shifted so index j holds row[j + dx]; vacated slots are +inf."""
+    """row (..., W) shifted so index j holds row[..., j + dx]; vacated slots
+    are +inf."""
     if dx == 0:
         return row
-    fill = torch.full((abs(dx),), math.inf, dtype=row.dtype, device=row.device)
+    fill = torch.full((*row.shape[:-1], abs(dx)), math.inf, dtype=row.dtype,
+                      device=row.device)
     if dx < 0:
-        return torch.cat([fill, row[:dx]])
-    return torch.cat([row[dx:], fill])
+        return torch.cat([fill, row[..., :dx]], dim=-1)
+    return torch.cat([row[..., dx:], fill], dim=-1)
 
 
 def cumulative_energy(E: torch.Tensor, delta_x: int = 1,
                       rigidity: float = 0.0) -> torch.Tensor:
-    """(H, W) energy -> (H, W) DP cumulative energy, op order
+    """(..., H, W) energy -> (..., H, W) DP cumulative energy, op order
     E + min(min(left, centre), right) at the default (1, 0)."""
     pen = _rigidity_penalties(delta_x, rigidity)
     M = torch.empty_like(E)
-    M[0] = E[0]
-    prev = E[0]
-    for i in range(1, E.shape[0]):
+    M[..., 0, :] = E[..., 0, :]
+    prev = E[..., 0, :]
+    for i in range(1, E.shape[-2]):
         best = None
         for k, dx in enumerate(range(-delta_x, delta_x + 1)):
             cand = _shift_row(prev, dx)
             if pen[k] != 0.0:
                 cand = cand + pen[k]
             best = cand if best is None else torch.minimum(best, cand)
-        prev = E[i] + best
-        M[i] = prev
+        prev = E[..., i, :] + best
+        M[..., i, :] = prev
     return M
 
 
 def backtrack(M: torch.Tensor, delta_x: int = 1, rigidity: float = 0.0,
               tie: str = "leftmost") -> torch.Tensor:
-    """(H, W) cumulative energy -> (H,) int32 seam columns."""
+    """(..., H, W) cumulative energy -> (..., H) int32 seam columns."""
     check_tie(tie)
-    H, W = M.shape
+    H = M.shape[-2]
     k = 2 * delta_x + 1
     Mp = torch.nn.functional.pad(M, (delta_x, delta_x), value=math.inf)
     pen = torch.tensor(_rigidity_penalties(delta_x, rigidity), dtype=M.dtype,
                        device=M.device)
     offs = torch.arange(k, device=M.device)
-    j = _argmin_tie(M[-1], tie)
+    j = _argmin_tie(M[..., -1, :], tie)
     seam = [j]
     for i in range(H - 2, -1, -1):
         # padded window [j-delta_x .. j+delta_x]; borders +inf, never chosen
-        win = Mp[i].gather(0, j + offs)
+        win = Mp[..., i, :].gather(-1, j[..., None] + offs)
         if rigidity != 0.0:
             win = win + pen
         j = j - delta_x + _argmin_tie(win, tie)
         seam.append(j)
-    return torch.stack(seam[::-1]).to(torch.int32)
+    return torch.stack(seam[::-1], dim=-1).to(torch.int32)
 
 
 def find_seam(E: torch.Tensor, delta_x: int = 1, rigidity: float = 0.0,
@@ -106,23 +115,31 @@ def find_seam(E: torch.Tensor, delta_x: int = 1, rigidity: float = 0.0,
                      rigidity, tie)
 
 
-def mask_energy(E: torch.Tensor, width: int) -> torch.Tensor:
-    """+inf beyond the logical width so DP never enters the dead region."""
-    col = torch.arange(E.shape[1], device=E.device)
-    return torch.where(col[None, :] < width, E,
+def mask_energy(E: torch.Tensor, width, lo=0) -> torch.Tensor:
+    """+inf outside the column window [lo, lo + width), so the DP never
+    enters the dead region.  E: (..., H, W); `width` and `lo` are ints, or
+    (B,) tensors giving each image of a (B, H, W) stack its own window."""
+    col = torch.arange(E.shape[-1], device=E.device)
+    if isinstance(width, torch.Tensor):  # one window per image
+        width = width[..., None, None]
+    if isinstance(lo, torch.Tensor):
+        lo = lo[..., None, None]
+    return torch.where((col >= lo) & (col < lo + width), E,
                        torch.tensor(math.inf, dtype=E.dtype, device=E.device))
 
 
 def remove_seam(arr: torch.Tensor, seam: torch.Tensor) -> torch.Tensor:
     """Compact one pixel per row out of a fixed-width buffer.
 
-    arr: (H, W[, C]); seam: (H,) int.  Column j of the result is arr[:, j]
-    for j < seam and arr[:, j+1] for j >= seam; the last column wraps to
-    column 0 and falls in the caller's dead region.
+    arr: (..., H, W[, C]); seam: (..., H) int, with arr's leading
+    dimensions.  Column j of the result is arr[..., j] for j < seam and
+    arr[..., j+1] for j >= seam; the last column wraps to column 0 and falls
+    in the caller's dead region.
     """
-    W = arr.shape[1]
-    shifted = torch.roll(arr, -1, dims=1)
-    keep = torch.arange(W, device=arr.device)[None, :] < seam[:, None]
-    if arr.ndim == 3:
+    dim = seam.ndim  # the column dimension of arr
+    W = arr.shape[dim]
+    shifted = torch.roll(arr, -1, dims=dim)
+    keep = torch.arange(W, device=arr.device) < seam[..., None]
+    if arr.ndim > dim + 1:
         keep = keep[..., None]
     return torch.where(keep, arr, shifted)

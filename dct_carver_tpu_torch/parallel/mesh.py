@@ -1,0 +1,92 @@
+"""The batch route: carve a stack of same-size images, split over devices.
+
+Counterpart of `dct_carver_tpu/parallel/mesh.py` (`batch_carve_states`
+:40, `carve_batch` :69), the route of BASELINE config 4.  JAX `vmap`s the
+single-image carve over the batch and shards the batch over a device mesh.
+Here the carve loop itself takes the leading B (`ops/carve.py`), so each
+seam step is one launch per kernel for the whole batch on a device.
+
+Over several devices the batch is cut into contiguous chunks, one per
+device, and the results are joined in order on the first device.  The host
+launches one chunk's carve after the other; no call in the carve waits for
+its device, so the devices run at the same time.  There is no padding: JAX
+pads the batch to a multiple of the mesh only to shard it evenly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..models.carver import default_device
+from ..ops import carve as carve_ops
+from ..ops.energy import to_luma
+
+__all__ = ["carve_batch", "batch_carve_states"]
+
+
+def _check_energy(energy) -> None:
+    if energy not in (None, "dct"):
+        raise NotImplementedError(
+            f"energy={energy!r}: pluggable energies are not ported yet "
+            "(ROADMAP Queue 1 item 5); use None or 'dct'")
+
+
+def batch_carve_states(images: torch.Tensor, n_seams: int, blocksize: int,
+                       edges, textures, strip_update: bool = True,
+                       luma_mode: str = "bt709", energy_fn=None,
+                       delta_x: int = 1, rigidity: float = 0.0,
+                       tie: str = "leftmost",
+                       use_pallas: bool = True) -> carve_ops.CarveState:
+    """Carve every image of a (B, H, W[, C]) tensor on its device; returns
+    the batched CarveState ((B, H, W) tensors, one shared `width`)."""
+    _check_energy(energy_fn)
+    if images.ndim not in (3, 4):
+        raise ValueError(f"images must be a (B, H, W[, C]) stack, got "
+                         f"{tuple(images.shape)}")
+    lumas = to_luma(images, luma_mode, stack=True)
+    return carve_ops.carve_n_seams(
+        lumas, n_seams, blocksize, edges, textures, strip_update=strip_update,
+        use_pallas=use_pallas, delta_x=delta_x, rigidity=rigidity, tie=tie)
+
+
+def _join(parts: list[torch.Tensor], home: torch.device) -> torch.Tensor:
+    if len(parts) == 1:
+        return parts[0].to(home)
+    return torch.cat([p.to(home) for p in parts])
+
+
+def carve_batch(images, n_seams: int, *, blocksize: int = 8,
+                edges: float = 0.0, textures: float = 1.0, devices=None,
+                strip_update: bool = True, reconstruct: bool = True,
+                energy=None, luma: str = "bt709", delta_x: int = 1,
+                rigidity: float = 0.0, tie: str = "leftmost",
+                use_pallas: bool = True):
+    """Remove `n_seams` vertical seams from every image of a batch (config
+    4 of BASELINE.md: 1024 x 1-Mpix images, 128 seams).
+
+    images: (B, H, W[, C]) u8/float, a numpy array or a tensor.  `devices`:
+    the torch devices to split the batch over (default
+    `[default_device()]`).  Returns (carved (B, H, W - n_seams[, C]) |
+    None, vmaps (B, H, W) int32), tensors on the first device.
+    """
+    _check_energy(energy)
+    devices = [torch.device(d) for d in (devices or [default_device()])]
+    images = torch.as_tensor(images)
+    if images.ndim not in (3, 4) or not len(images):
+        raise ValueError(f"images must be a (B, H, W[, C]) stack of B >= 1, "
+                         f"got {tuple(images.shape)}")
+    outs, vmaps = [], []
+    for dev, chunk in zip(devices, torch.tensor_split(images, len(devices))):
+        if not len(chunk):
+            continue
+        chunk = chunk.to(dev).contiguous()
+        state = batch_carve_states(
+            chunk, n_seams, blocksize, edges, textures, strip_update,
+            luma_mode=luma, delta_x=delta_x, rigidity=rigidity, tie=tie,
+            use_pallas=use_pallas)
+        vmaps.append(state.vmap)
+        if reconstruct:
+            outs.append(carve_ops.reconstruct_removed(chunk, state.vmap,
+                                                      n_seams))
+    vm = _join(vmaps, devices[0])
+    return (_join(outs, devices[0]) if reconstruct else None), vm

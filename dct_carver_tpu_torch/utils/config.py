@@ -46,7 +46,9 @@ class CarverConfig:
     use_pallas: bool = True
     strip_update: bool = True   # incremental energy updates between seams
     row_block: int | None = None  # accepted for parity; no effect here
-    parallel: str = "none"      # only the single-device route so far
+    # "none" | "batch" (a (B, H, W[, C]) stack) | "auto"; "spatial" is not
+    # ported yet
+    parallel: str = "none"
 
     def __post_init__(self):
         if self.blocksize not in BLOCKSIZES:
@@ -62,10 +64,10 @@ class CarverConfig:
             raise ValueError(
                 f"parallel must be none/batch/spatial/auto, got "
                 f"{self.parallel!r}")
-        if self.parallel != "none":
+        if self.parallel == "spatial":
             raise NotImplementedError(
-                f"parallel={self.parallel!r} is not ported yet (ROADMAP "
-                "Queue 1 items 8 and 9); use parallel='none'")
+                "parallel='spatial' is not ported yet (ROADMAP Queue 1 item "
+                "9); use 'none', 'batch' or 'auto'")
         if self.energy not in (None, "dct"):
             raise NotImplementedError(
                 f"energy={self.energy!r}: pluggable energies are not ported "

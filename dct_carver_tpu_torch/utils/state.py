@@ -4,7 +4,10 @@ The system has no weights: what carries over is the carve state and the
 DCT taps (`ops/dct.py::_dct_matrix_np`, the same in both packages).  These
 helpers turn a JAX `CarveState` given as numpy arrays (`luma`, `origcol`,
 `vmap`, `width`, `energy`) into the port's `CarveState` on a device, and
-back, so a carve can start in one package and go on in the other.
+back, so a carve can start in one package and go on in the other.  A
+batched state (JAX `parallel/mesh.py::batch_carve_states`: (B, H, W) arrays
+and a (B,) `width`) carries over too; the port's batch shares one width, so
+every image's must be equal.
 """
 
 from __future__ import annotations
@@ -19,19 +22,25 @@ __all__ = ["state_from_numpy", "state_to_numpy"]
 
 def state_from_numpy(arrays, device="cpu") -> CarveState:
     """Mapping of numpy arrays -> CarveState on `device` (copies).  `luma`
-    keeps its float dtype; `width` may be a 0-d array or an int."""
+    keeps its float dtype and is (H, W), or (B, H, W) for a batch; `width`
+    is an int or a 0-d array, or for a batch a (B,) array of equal
+    widths."""
     def put(name, dtype=None):
         return torch.as_tensor(np.array(arrays[name]), dtype=dtype,
                                device=device)
 
     luma = put("luma")
-    if not luma.dtype.is_floating_point or luma.ndim != 2:
-        raise ValueError("luma must be a (H, W) float array")
+    if not luma.dtype.is_floating_point or luma.ndim not in (2, 3):
+        raise ValueError("luma must be a (H, W) or (B, H, W) float array")
+    widths = np.unique(np.asarray(arrays["width"]))
+    if widths.size != 1:
+        raise ValueError(f"the images of a batch must share one width, got "
+                         f"{widths.tolist()}")
     state = CarveState(
         luma=luma,
         origcol=put("origcol", torch.int32),
         vmap=put("vmap", torch.int32),
-        width=int(np.asarray(arrays["width"])),
+        width=int(widths[0]),
         energy=put("energy", torch.float32),
     )
     for name in ("origcol", "vmap", "energy"):
@@ -41,11 +50,15 @@ def state_from_numpy(arrays, device="cpu") -> CarveState:
 
 
 def state_to_numpy(state: CarveState) -> dict:
-    """CarveState -> dict of numpy arrays (`width` as a 0-d int32 array)."""
+    """CarveState -> dict of numpy arrays (`width` as a 0-d int32 array,
+    or a (B,) one for a batched state, as JAX's)."""
+    width = np.asarray(state.width, np.int32)
+    if state.luma.ndim == 3:
+        width = np.full(state.luma.shape[0], width, np.int32)
     return {
         "luma": state.luma.cpu().numpy(),
         "origcol": state.origcol.cpu().numpy(),
         "vmap": state.vmap.cpu().numpy(),
-        "width": np.asarray(state.width, np.int32),
+        "width": width,
         "energy": state.energy.cpu().numpy(),
     }

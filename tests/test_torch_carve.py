@@ -227,8 +227,14 @@ def test_config_validation():
 
 def test_unported_routes_raise():
     img = np.zeros((2, 16, 16, 3), np.uint8)
-    with pytest.raises(NotImplementedError):
-        tapi.carve(img, -2, device="cpu")
+    # a stack on the single-image route reaches the Carver, which takes
+    # one image (the batch route is tests/test_torch_batch.py)
+    with pytest.raises(ValueError, match=r"\(H, W\) or \(H, W, C\)"):
+        tapi.carve(img, -2, parallel="none", device="cpu")
+    with pytest.raises(ValueError, match=r"\(H, W\) or \(H, W, C\)"):
+        Carver(img, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        tapi.carve(img[0], -2, parallel="spatial", device="cpu")
     with pytest.raises(NotImplementedError):
         Carver(img[0], progress=object(), device="cpu")
     with pytest.raises(ValueError):
