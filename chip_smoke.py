@@ -17,7 +17,15 @@ config 4's images): the batched kernels against their plain versions on 8
 1024x1024 planes, a 128-seam `api.carve(parallel="batch")` of 8 RGB images
 with the launch counters read around it, compared with the plain path and
 with the single-image route, and a timed, profiled `carve_batch` of 256
-such images.
+such images.  Phase 4 runs the plugged energies: 4a holds the strip gather,
+strip scatter and band-energy kernels against their plain versions (1080p
+and B=8 1024x1024) and gather -> band energy -> scatter against strip.cu;
+4b carves 64 seams from the 1080p RGB image with each builtin gradient
+energy and a radius-2 custom one, with the launch counters read around it,
+against the plain path; 4c carves 8 1024x1024 images with grad_norm on the
+batch route against the single-image route; 4d drives the CLI in-process
+(carve with checkpoints and progress, a resume from the 32-seam checkpoint,
+energy, batch).
 
 The last stdout line is {"ok": true, "device": {...}}; before it come the
 kernels' JSON line and the card's name and power limit.  Any failed phase
@@ -45,6 +53,10 @@ SEAMS_B = 128              # config 4's seam count
 # the timed batch, cut from config 4's 1024 images to bound the smoke's time
 NB_TIMED = 256
 TIES = ("leftmost", "rightmost")
+ENERGIES = ("grad_xabs", "grad_sumabs", "grad_norm")  # phase 4: the builtins
+PLAIN_SEAMS_E = 16         # phase 4b: seams of the plain comparison carves
+# of the energies other than grad_norm (the plain DP is ~0.17 s a seam)
+SEAMS_BE = 32              # phase 4c/4d: seams of the plugged-energy batch
 
 
 def log(msg: str) -> None:
@@ -309,6 +321,315 @@ def phase_3(dev, chk: Checks, card: str, rng, times: dict) -> dict:
     return launches
 
 
+def phase_4a(dev, chk: Checks, card: str, rng, times: dict) -> None:
+    """The plugged-energy strip kernels against their plain versions, and
+    gather -> band_energy -> scatter against strip.cu."""
+    import torch
+
+    from dct_carver_tpu_torch.kernels.apply_kernel import apply_seam
+    from dct_carver_tpu_torch.kernels.dp_kernel import find_seam, find_seams
+    from dct_carver_tpu_torch.kernels.energy_kernel import dct_energy
+    from dct_carver_tpu_torch.kernels.strip_kernel import (
+        band_energy, strip_gather, strip_scatter, strip_update)
+    from dct_carver_tpu_torch.ops.carve import _strip_extent
+    from dct_carver_tpu_torch.ops.energy_fn import GRAD_NORM
+
+    edges, textures = 0.3, 0.7
+
+    def on_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def after_one_seam(x, e):
+        """(compacted luma, compacted energy, seam) after one seam."""
+        w = x.shape[-1]
+        seam = (find_seams if x.ndim == 3 else find_seam)(e, w)
+        l1, _, e1 = apply_seam(x, torch.zeros_like(x, dtype=torch.int32), e,
+                               seam, w)
+        return l1, e1, seam
+
+    log("phase 4a: plugged-energy strip kernels vs plain versions on the "
+        f"card ({H}x{W}, B={NB} {HB}x{WB})")
+    planes = (f"{H}x{W}", on_dev(rng.random((H, W), dtype=np.float32))), \
+        (f"B={NB} {HB}x{WB}", on_dev(rng.random((NB, HB, WB),
+                                                dtype=np.float32)))
+    main_shapes = None
+    for name, x in planes:
+        l1, e1, seam = after_one_seam(x, GRAD_NORM.energy_map(x))
+        if main_shapes is None:
+            main_shapes = (l1, e1, seam)
+        for n in (2, 4):
+            chk.equal("strip_gather", f"{name} n={n}",
+                      strip_gather(l1, seam, n),
+                      strip_gather(l1, seam, n, use_pallas=False))
+            strip_w = _strip_extent(n)[1]
+            strip = torch.rand((*seam.shape, strip_w), device=dev)
+            chk.equal("strip_scatter", f"{name} n={n}",
+                      strip_scatter(e1.clone(), strip, seam, n),
+                      strip_scatter(e1.clone(), strip, seam, n,
+                                    use_pallas=False))
+        for n in (2, 4, 8, 16):
+            bands = strip_gather(l1, seam, n)
+            chk.equal("band_energy", f"{name} n={n} on gathered bands",
+                      band_energy(bands, n, edges, textures),
+                      band_energy(bands, n, edges, textures,
+                                  use_pallas=False))
+        for n in (8, 16):
+            l1, e1, seam = after_one_seam(x, dct_energy(x, n, edges,
+                                                        textures))
+            composed = strip_scatter(
+                e1.clone(), band_energy(strip_gather(l1, seam, n), n, edges,
+                                        textures), seam, n)
+            chk.equal("band_energy",
+                      f"{name} n={n} gather+band+scatter == strip.cu",
+                      composed,
+                      strip_update(l1, e1.clone(), seam, n, edges, textures))
+
+    # times at the main path's shapes: 1080p, grad_norm's n=2 (band_energy:
+    # n=8, the DCT headline's blocksize, beside strip.cu)
+    l1, e1, seam = main_shapes
+    strip2 = GRAD_NORM.bands_fn(strip_gather(l1, seam, 2).reshape(
+        -1, 2, _strip_extent(2)[1] + 1)).reshape(H, -1).contiguous()
+    bands8 = strip_gather(l1, seam, 8)
+    e_s = e1.clone()
+    times["strip_gather"] = (
+        cuda_ms(lambda: strip_gather(l1, seam, 2), 50),
+        cuda_ms(lambda: strip_gather(l1, seam, 2, use_pallas=False), 20))
+    times["strip_scatter"] = (
+        cuda_ms(lambda: strip_scatter(e_s, strip2, seam, 2), 50),
+        cuda_ms(lambda: strip_scatter(e_s, strip2, seam, 2,
+                                      use_pallas=False), 20))
+    times["band_energy"] = (
+        cuda_ms(lambda: band_energy(bands8, 8, edges, textures), 50),
+        cuda_ms(lambda: band_energy(bands8, 8, edges, textures,
+                                    use_pallas=False), 10))
+    for name in ("strip_gather", "strip_scatter", "band_energy"):
+        k_ms, p_ms = times[name]
+        shape = "n=8 bands" if name == "band_energy" else "n=2"
+        log(f"  {name:13s} kernel {k_ms!r} ms, plain {p_ms!r} ms "
+            f"({H}x{W} {shape}; {card})")
+    composed = cuda_ms(lambda: strip_scatter(
+        e_s, band_energy(strip_gather(l1, seam, 8), 8, edges, textures),
+        seam, 8), 50)
+    fused = cuda_ms(lambda: strip_update(l1, e_s, seam, 8, edges, textures),
+                    50)
+    log(f"  n=8 strip as gather+band_energy+scatter {composed!r} ms, as "
+        f"strip.cu {fused!r} ms ({H}x{W}; {card})")
+
+
+def phase_4(dev, chk: Checks, card: str, rng, dct_rate: float) -> list:
+    """Plugged energies through the public API, the batch route and the CLI;
+    returns the launch counts of the main-path runs (4b's grad_norm carve,
+    4c's batch carve)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from dct_carver_tpu_torch import api, cli, kernels
+    from dct_carver_tpu_torch.models.carver import Carver
+    from dct_carver_tpu_torch.ops.carve import carve_n_seams
+    from dct_carver_tpu_torch.ops.energy import to_luma
+    from dct_carver_tpu_torch.ops.energy_fn import (builtin_energy,
+                                                    custom_energy)
+    from dct_carver_tpu_torch.utils import checkpoint
+    from dct_carver_tpu_torch.utils.image import load_image, save_image
+
+    def on_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def require_launches(launches, want, what):
+        got = {k: launches[k] for k in want}
+        chk.require(got == want, f"{what}: launches {got}")
+
+    def same(a, b, what):
+        chk.require(a.shape == b.shape and np.array_equal(a, b), what)
+
+    # a radius-2 window energy: the mean absolute deviation from the pixel
+    absdev = custom_energy(
+        2, lambda w: torch.sum(torch.abs(w - w[1, 1])), name="absdev")
+    on_path = {"find_seam": SEAMS, "apply": SEAMS, "strip_gather": SEAMS,
+               "strip_scatter": SEAMS, "energy": 0, "strip": 0,
+               "band_energy": 0}
+    kw = dict(output_seams=True, output_energy=True, device=dev.type)
+
+    log(f"phase 4b: api.carve({H}x{W}x3, -{SEAMS}, energy=...) on the card")
+    img = rng.integers(0, 256, (H, W, 3), dtype=np.uint8)
+    main_launches = []
+    for energy in (*ENERGIES, absdev):
+        label = getattr(energy, "name", energy)
+        api.carve(img[:64, :256], -4, energy=energy, **kw)  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        res = api.carve(img, -SEAMS, energy=energy, **kw)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        require_launches(launches, on_path, f"{label} {SEAMS}-seam carve")
+        if energy == "grad_norm":
+            main_launches.append(launches)
+        seams = SEAMS if energy == "grad_norm" else PLAIN_SEAMS_E
+        if seams != SEAMS:
+            res = api.carve(img, -seams, energy=energy, **kw)
+        t = time.perf_counter()
+        plain = api.carve(img, -seams, energy=energy, use_pallas=False, **kw)
+        log(f"  {label}: plain path of {seams} seams {time.perf_counter() - t!r}"
+            f" s ({card})")
+        for field in ("image", "visibility_map", "energy_image"):
+            same(getattr(res, field), getattr(plain, field),
+                 f"{label} {seams}-seam api.carve {field} == plain path")
+
+    luma = to_luma(on_dev(img))
+    live = W - PLAIN_SEAMS_E
+    for energy in ENERGIES:
+        fn = builtin_energy(energy)
+        k = carve_n_seams(luma, PLAIN_SEAMS_E, 8, 0.0, 1.0, energy_fn=fn)
+        p = carve_n_seams(luma, PLAIN_SEAMS_E, 8, 0.0, 1.0, energy_fn=fn,
+                          use_pallas=False)
+        f = carve_n_seams(luma, PLAIN_SEAMS_E, 8, 0.0, 1.0, energy_fn=fn,
+                          strip_update=False)
+        chk.equal("carve", f"{energy} live energy, kernels == plain",
+                  k.energy[:, :live].contiguous(),
+                  p.energy[:, :live].contiguous())
+        chk.equal("carve", f"{energy} live energy, strip == full",
+                  k.energy[:, :live].contiguous(),
+                  f.energy[:, :live].contiguous())
+        chk.equal("carve", f"{energy} vmap, strip == full", k.vmap, f.vmap)
+    k = carve_n_seams(luma, PLAIN_SEAMS_E, 8, 0.0, 1.0, energy_fn=absdev)
+    f = carve_n_seams(luma, PLAIN_SEAMS_E, 8, 0.0, 1.0, energy_fn=absdev,
+                      strip_update=False)
+    chk.equal("carve", "absdev vmap, strip == full", k.vmap, f.vmap)
+    diff = (k.energy[:, :live] - f.energy[:, :live]).abs().max().item()
+    log(f"  absdev live energy, strip vs full: max_abs_err={diff!r} "
+        "(a window reduction; held by its vmaps)")
+
+    def rate(fn, repeats: int) -> float:
+        best = float("inf")
+        for _ in range(repeats):
+            x = to_luma(on_dev(rng.integers(0, 256, (H, W, 3),
+                                            dtype=np.uint8)))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            carve_n_seams(x, SEAMS, 8, 0.0, 1.0, energy_fn=fn)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t)
+        return H * W * SEAMS / best / 1e6
+
+    for energy in ENERGIES:
+        log(f"  carve {H}x{W} {energy} {SEAMS} seams: kernel path "
+            f"{rate(builtin_energy(energy), 3)!r} Mpix/s; DCT n=8 headline "
+            f"{dct_rate!r} Mpix/s ({card})")
+
+    # where the time of a plugged-energy carve goes, by kernel
+    wall, busy_us, top = device_profile(lambda: carve_n_seams(
+        luma, SEAMS, 8, 0.0, 1.0, energy_fn=builtin_energy("grad_norm")))
+    log(f"  profiled grad_norm carve: wall {wall * 1e3!r} ms, device busy "
+        f"{busy_us / 1e3!r} ms ({100 * busy_us / 1e6 / wall!r} % of wall; "
+        f"{card})")
+    for name, us, count in top:
+        log(f"    {us / 1e3:10.4f} ms  {count:5d} x  {name[:90]}")
+
+    log(f"phase 4c: api.carve(({NB}, {HB}, {WB}, 3), -{SEAMS_BE}, "
+        "parallel='batch', energy='grad_norm')")
+    imgs = rng.integers(0, 256, (NB, HB, WB, 3), dtype=np.uint8)
+    api.carve(imgs[:2, :64, :256], -4, parallel="batch", energy="grad_norm",
+              **kw)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    res = api.carve(imgs, -SEAMS_BE, parallel="batch", energy="grad_norm",
+                    **kw)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    main_launches.append(launches)
+    require_launches(launches, {
+        "find_seams": SEAMS_BE, "apply": SEAMS_BE, "strip_gather": SEAMS_BE,
+        "strip_scatter": SEAMS_BE, "find_seam": 0, "energy": 0, "strip": 0},
+        f"batch {SEAMS_BE}-seam carve of {NB} images")
+    singles = []
+    for b in range(NB):
+        one = api.carve(imgs[b], -SEAMS_BE, energy="grad_norm", **kw)
+        singles.append(one.image)
+        for field in ("image", "visibility_map", "energy_image"):
+            same(getattr(res, field)[b], getattr(one, field),
+                 f"batch image {b} {field} == single-image route")
+
+    log("phase 4d: the CLI in-process on the card")
+    saved = []
+    real_save = checkpoint.save_state
+    old_state_dir = os.environ.get("DCT_CARVER_STATE_DIR")
+    try:
+        with tempfile.TemporaryDirectory(prefix="dct_carver_smoke_") as tmp:
+            os.environ["DCT_CARVER_STATE_DIR"] = os.path.join(tmp, "state")
+            inp, out, res_out = (os.path.join(tmp, f)
+                                 for f in ("in.ppm", "out.ppm", "res.ppm"))
+            ck, ck_half = (os.path.join(tmp, f)
+                           for f in ("ck.npz", "ck_half.npz"))
+            save_image(inp, img)
+
+            def save_and_keep(path, state, config, done, total):
+                # keep the half-way snapshot, as an interruption would
+                real_save(path, state, config, done, total)
+                saved.append(done)
+                if done == SEAMS // 2:
+                    real_save(ck_half, state, config, done, total)
+
+            checkpoint.save_state = save_and_keep
+            knobs = ["--seams", f"-{SEAMS}", "--energy", "grad_sumabs"]
+            kernels.reset_launches()
+            every = SEAMS // 4
+            rc = cli.main(["carve", inp, out, *knobs, "--checkpoint", ck,
+                           "--checkpoint-every", str(every), "--progress"])
+            torch.cuda.synchronize()
+            checkpoint.save_state = real_save
+            launches = kernels.launch_counts()
+            chk.require(rc == 0 and saved == [every * k for k in (1, 2, 3, 4)],
+                        f"CLI carve with checkpoints: rc {rc}, saved {saved}")
+            require_launches(launches, on_path, "CLI carve")
+            want = api.carve(img, -SEAMS, energy="grad_sumabs",
+                             device=dev.type).image
+            same(load_image(out), want, "CLI carve == api.carve")
+            kernels.reset_launches()
+            rc = cli.main(["carve", inp, res_out, *knobs, "--resume",
+                           ck_half])
+            torch.cuda.synchronize()
+            require_launches(kernels.launch_counts(),
+                             {k: v // 2 for k, v in on_path.items()},
+                             f"CLI resume from the {SEAMS // 2}-seam "
+                             "checkpoint")
+            chk.require(rc == 0, f"CLI resume rc {rc}")
+            same(load_image(res_out), load_image(out),
+                 "CLI resume == uninterrupted CLI carve")
+
+            e_out = os.path.join(tmp, "energy.pgm")
+            rc = cli.main(["energy", inp, e_out, "--energy", "grad_norm"])
+            chk.require(rc == 0, f"CLI energy rc {rc}")
+            same(load_image(e_out),
+                 Carver(img, energy="grad_norm", device="cpu").energy_image(),
+                 "CLI energy on the card == energy_image on the CPU")
+
+            src, dst = os.path.join(tmp, "src"), os.path.join(tmp, "dst")
+            os.makedirs(src)
+            for b in range(4):
+                save_image(os.path.join(src, f"im{b}.ppm"), imgs[b])
+            kernels.reset_launches()
+            rc = cli.main(["batch", src, dst, "--seams", str(SEAMS_BE),
+                           "--energy", "grad_norm"])
+            torch.cuda.synchronize()
+            chk.require(rc == 0, f"CLI batch rc {rc}")
+            require_launches(kernels.launch_counts(), {
+                "find_seams": SEAMS_BE, "strip_gather": SEAMS_BE,
+                "strip_scatter": SEAMS_BE, "find_seam": 0},
+                "CLI batch of 4 images")
+            for b in range(4):
+                same(load_image(os.path.join(dst, f"im{b}.ppm")), singles[b],
+                     f"CLI batch image {b} == single-image api.carve")
+    finally:
+        checkpoint.save_state = real_save
+        if old_state_dir is None:
+            os.environ.pop("DCT_CARVER_STATE_DIR", None)
+        else:
+            os.environ["DCT_CARVER_STATE_DIR"] = old_state_dir
+    return main_launches
+
+
 def main() -> int:
     import torch
 
@@ -555,17 +876,21 @@ def main() -> int:
 
     del img4, ka, pa, big
     batch_launches = phase_3(dev, chk, card, rng, times)
+    phase_4a(dev, chk, card, rng, times)
+    energy_launches = phase_4(dev, chk, card, rng, k_rate)
 
     if chk.failures:
         print("chip_smoke FAILED:\n  " + "\n  ".join(chk.failures),
               file=sys.stderr)
         return 1
-    # each kernel's launches on the main paths: the single-image carve of
-    # phase 2 and the batch carve of phase 3b, each counted from 0
+    # each kernel's launches on the main paths, each run counted from 0:
+    # the single-image carve of phase 2, the batch carve of phase 3b, and
+    # the plugged-energy carves of phase 4b (grad_norm) and 4c (batch)
+    runs = (launches, batch_launches, *energy_launches)
     log(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces,
-         "launches": launches[k.name] + batch_launches[k.name],
+         "launches": sum(run[k.name] for run in runs),
          "max_abs_err": chk.max_err[k.name], "ms": times[k.name][0],
          "plain_ms": times[k.name][1]}
         for k in kernels.KERNELS]}))

@@ -54,12 +54,14 @@ def carve(image, seams_number: int, *, blocksize: int = 8,
 
 
 def _stack_energy_u8(images: torch.Tensor, cfg: CarverConfig) -> np.ndarray:
-    """Each image's full energy, min-max normalized to u8 on its own."""
+    """Each image's full energy (the configured energy's own map), min-max
+    normalized to u8 on its own."""
     from .ops.carve import full_energy_map
     from .ops.energy import normalize_to_u8, to_luma
 
     e = full_energy_map(to_luma(images, cfg.luma, stack=True), cfg.blocksize,
-                        cfg.edges, cfg.textures, use_pallas=cfg.use_pallas)
+                        cfg.edges, cfg.textures, use_pallas=cfg.use_pallas,
+                        energy_fn=cfg.energy_function)
     return normalize_to_u8(e).cpu().numpy()
 
 
@@ -96,7 +98,7 @@ def _carve_stack(images: np.ndarray, seams_number: int, cfg: CarverConfig,
         energy = _stack_energy_u8(stack, cfg)
     kw = dict(blocksize=cfg.blocksize, edges=cfg.edges,
               textures=cfg.textures, devices=[dev],
-              strip_update=cfg.strip_update, energy=cfg.energy,
+              strip_update=cfg.strip_update, energy=cfg.energy_function,
               luma=cfg.luma, delta_x=cfg.delta_x, rigidity=cfg.rigidity,
               tie=cfg.tie, use_pallas=cfg.use_pallas)
     if seams_number == 0:

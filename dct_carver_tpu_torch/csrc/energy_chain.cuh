@@ -1,7 +1,8 @@
-// The DCT energy of one pixel, shared by the full-map kernel (energy.cu) and
-// the strip kernel (strip.cu).  Both call the same device function, so a
-// strip update and a full recompute run the identical op sequence and agree
-// bit for bit.
+// The DCT energy of one pixel, shared by the full-map kernel (energy.cu), the
+// strip kernel (strip.cu) and the band kernel (strip_bands.cu).  All call
+// the same device function, so a strip update, a full recompute and the
+// energy of gathered bands run the identical op sequence and agree bit for
+// bit.
 //
 // Contract: dct_carver_tpu_torch/ops/dct.py::energy_from_bands (and the JAX
 // package's ops/dct.py:84-116).  For each ky, the n values V[ky][col+dx] are
@@ -29,21 +30,18 @@ __device__ __forceinline__ void load_taps(const float* __restrict__ taps,
   __syncthreads();
 }
 
-// Energy of pixel (row, col) of the (H, W) row-major luma plane.  The window
-// starts `co` rows/columns before the pixel (ops/dct.py::window_offset) and
-// is clamped to the plane.  D is the n*n tap matrix in shared memory.
+// The chain of one pixel over a window whose row d starts at src + roff[d]
+// and whose column dx is at index cidx[dx] of each row.  The caller picks
+// the addressing: clamped rows and columns of a luma plane (energy_at, for
+// energy.cu and strip.cu) or the rows of a gathered band (strip_bands.cu),
+// so every kernel runs this one op sequence.  D is the n*n tap matrix in
+// shared memory.
 template <int N>
-__device__ __forceinline__ float energy_at(const float* __restrict__ luma,
-                                           int H, int W, int row, int col,
-                                           int co, const float* D,
-                                           float edges, float textures) {
-  int roff[N];
-  int cidx[N];
-#pragma unroll
-  for (int d = 0; d < N; ++d) {
-    roff[d] = min(max(row + co + d, 0), H - 1) * W;
-    cidx[d] = min(max(col + co + d, 0), W - 1);
-  }
+__device__ __forceinline__ float energy_chain(const float* __restrict__ src,
+                                              const int (&roff)[N],
+                                              const int (&cidx)[N],
+                                              const float* D, float edges,
+                                              float textures) {
   float maxval = -INFINITY;
   int winner = -1;
 #pragma unroll 1
@@ -52,10 +50,10 @@ __device__ __forceinline__ float energy_at(const float* __restrict__ luma,
     float V[N];
 #pragma unroll
     for (int dx = 0; dx < N; ++dx) {
-      float v = __fmul_rn(Dy[0], __ldg(luma + roff[0] + cidx[dx]));
+      float v = __fmul_rn(Dy[0], __ldg(src + roff[0] + cidx[dx]));
 #pragma unroll
       for (int dy = 1; dy < N; ++dy)
-        v = __fadd_rn(v, __fmul_rn(Dy[dy], __ldg(luma + roff[dy] + cidx[dx])));
+        v = __fadd_rn(v, __fmul_rn(Dy[dy], __ldg(src + roff[dy] + cidx[dx])));
       V[dx] = v;
     }
 #pragma unroll
@@ -77,6 +75,24 @@ __device__ __forceinline__ float energy_at(const float* __restrict__ luma,
   }
   const bool is_edge = winner == 1 || winner == N;
   return __fmul_rn(maxval, is_edge ? edges : textures);
+}
+
+// Energy of pixel (row, col) of the (H, W) row-major luma plane.  The window
+// starts `co` rows/columns before the pixel (ops/dct.py::window_offset) and
+// is clamped to the plane.
+template <int N>
+__device__ __forceinline__ float energy_at(const float* __restrict__ luma,
+                                           int H, int W, int row, int col,
+                                           int co, const float* D,
+                                           float edges, float textures) {
+  int roff[N];
+  int cidx[N];
+#pragma unroll
+  for (int d = 0; d < N; ++d) {
+    roff[d] = min(max(row + co + d, 0), H - 1) * W;
+    cidx[d] = min(max(col + co + d, 0), W - 1);
+  }
+  return energy_chain<N>(luma, roff, cidx, D, edges, textures);
 }
 
 }  // namespace dct_carver

@@ -5,8 +5,10 @@ one public function: a CUDA tensor with `use_pallas` goes to the kernel
 (built from `csrc/` at first use, see `build.py`), or raises; any other
 tensor goes to the plain version.  Each wrapper counts its launches on its
 module's `KERNEL`; `dp_kernel.find_seams`, the batch route's DP, counts on
-`dp_kernel.BATCH_KERNEL`.  Every wrapper takes a (H, W) plane or a
-(B, H, W) stack, one launch for the whole stack.
+`dp_kernel.BATCH_KERNEL`, and `strip_kernel`'s plugged-energy strip kernels
+on `GATHER_KERNEL`, `SCATTER_KERNEL` and `BAND_KERNEL`.  Every wrapper takes
+a (H, W) plane or a (B, H, W) stack, one launch for the whole stack
+(`band_energy` takes bands with any leading dimensions, one launch).
 """
 
 from . import apply_kernel, dp_kernel, energy_kernel, strip_kernel
@@ -14,7 +16,8 @@ from . import apply_kernel, dp_kernel, energy_kernel, strip_kernel
 __all__ = ["KERNELS", "reset_launches", "launch_counts"]
 
 KERNELS = (energy_kernel.KERNEL, dp_kernel.KERNEL, dp_kernel.BATCH_KERNEL,
-           apply_kernel.KERNEL, strip_kernel.KERNEL)
+           apply_kernel.KERNEL, strip_kernel.KERNEL, strip_kernel.GATHER_KERNEL,
+           strip_kernel.SCATTER_KERNEL, strip_kernel.BAND_KERNEL)
 
 
 def reset_launches() -> None:

@@ -35,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 SIGNATURES = {
     # luma, out, taps, B, H, W, n, co, edges, textures, stream
@@ -48,6 +49,12 @@ SIGNATURES = {
     # luma, energy, seam, taps, B, H, W, n, co, half, strip_w, edges,
     # textures, stream
     "dc_strip": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    # luma, seam, bands, B, H, W, n, co, half, strip_w, stream
+    "dc_strip_gather": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # energy, strip, seam, B, H, W, half, strip_w, stream
+    "dc_strip_scatter": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # bands, out, taps, rows, n, C, edges, textures, stream
+    "dc_band_energy": (_P, _P, _P, _L, _I, _I, _F, _F, _P),
 }
 
 

@@ -1,40 +1,78 @@
-"""Strip energy update: the CUDA kernel `csrc/strip.cu` and its plain
-version `ops/carve.py::_recompute_strip`.
+"""Strip energy updates: four CUDA kernels and their plain versions.
 
-Counterpart of `dct_carver_tpu/pallas/strip_kernel.py::strip_update_packed`
-(gather2 -> chains -> scatter2), as one per-row strip kernel, and, for a
-(B, H, W) stack, of its batched form (reached under `jax.vmap` through
-`_strip_packed_cv`).
+- `strip_update`: `csrc/strip.cu`, the DCT strip in one per-row kernel;
+  plain version `ops/carve.py::_recompute_strip`.  Counterpart of
+  `dct_carver_tpu/pallas/strip_kernel.py::strip_update_packed` (gather2 ->
+  chains -> scatter2) and, for a (B, H, W) stack, of its batched form
+  (reached under `jax.vmap` through `_strip_packed_cv`).
+- `strip_gather`, `strip_scatter`: `csrc/strip_bands.cu`, the two halves of
+  a plugged energy's strip update around its own `bands_fn`; plain versions
+  `ops/carve.py::_gather_strip_bands` and `_scatter_strips`.  Counterparts
+  of `gather_slabs` (`_gather_slabs_call`) and `scatter_strips`
+  (`_scatter_strips_call`).
+- `band_energy`: `csrc/strip_bands.cu`, the DCT energy of gathered bands;
+  plain version `ops/dct.py::energy_from_bands`.  Counterpart of
+  `strip_energy_pallas` (`_strip_energy_call`).
+
+All take the port's per-row strip geometry (`ops/carve.py::_strip_bounds`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.carve import _recompute_strip, _strip_extent
-from ..ops.dct import window_offset
+from ..ops.carve import (_gather_strip_bands, _recompute_strip,
+                         _scatter_strips, _strip_extent)
+from ..ops.dct import BLOCKSIZES, energy_from_bands, window_offset
 from .build import Kernel, check_plane, launch
 from .energy_kernel import dct_taps
 
-__all__ = ["strip_update", "KERNEL"]
+__all__ = ["strip_update", "strip_gather", "strip_scatter", "band_energy",
+           "KERNEL", "GATHER_KERNEL", "SCATTER_KERNEL", "BAND_KERNEL"]
 
 KERNEL = Kernel(name="strip",
                 source="dct_carver_tpu_torch/csrc/strip.cu",
                 replaces="dct_carver_tpu/pallas/strip_kernel.py:583")
+GATHER_KERNEL = Kernel(name="strip_gather",
+                       source="dct_carver_tpu_torch/csrc/strip_bands.cu",
+                       replaces="dct_carver_tpu/pallas/strip_kernel.py:138")
+SCATTER_KERNEL = Kernel(name="strip_scatter",
+                        source="dct_carver_tpu_torch/csrc/strip_bands.cu",
+                        replaces="dct_carver_tpu/pallas/strip_kernel.py:288")
+BAND_KERNEL = Kernel(name="band_energy",
+                     source="dct_carver_tpu_torch/csrc/strip_bands.cu",
+                     replaces="dct_carver_tpu/pallas/strip_kernel.py:401")
+
+
+def _images(plane: torch.Tensor, seam: torch.Tensor, what: str) -> int:
+    """B of a (H, W) plane (1) or (B, H, W) stack, checked against the
+    (..., H) seams and the grid's z limit."""
+    if seam.shape != plane.shape[:-1]:
+        raise ValueError(f"{what}: (..., H, W) planes and (..., H) seams "
+                         "expected")
+    B = plane.shape[0] if plane.ndim == 3 else 1
+    if B > 65535:
+        raise ValueError(f"{what} kernel: {B} images exceed the grid's 65535")
+    return B
+
+
+def _check_fits(W: int, n: int, delta_x: int) -> tuple[int, int]:
+    half, strip_w = _strip_extent(n, delta_x)
+    if W < strip_w:
+        raise ValueError(f"strip of {strip_w} columns does not fit width "
+                         f"{W}: recompute the full map")
+    return half, strip_w
 
 
 def _strip_cuda(luma, energy, seam, n, edges, textures, delta_x):
     dev = luma.device
-    B = luma.shape[0] if luma.ndim == 3 else 1
-    H, W = luma.shape[-2:]
     check_plane("luma", luma, torch.float32, dev)
     check_plane("energy", energy, torch.float32, dev)
     check_plane("seam", seam, torch.int32, dev)
-    if energy.shape != luma.shape or seam.shape != luma.shape[:-1]:
-        raise ValueError("strip: luma/energy (..., H, W) and seam (..., H) "
-                         "expected")
-    if B > 65535:
-        raise ValueError(f"strip kernel: {B} images exceed the grid's 65535")
+    if energy.shape != luma.shape:
+        raise ValueError("strip: luma and energy differ in shape")
+    B = _images(luma, seam, "strip")
+    H, W = luma.shape[-2:]
     half, strip_w = _strip_extent(n, delta_x)
     taps = dct_taps(n, dev)
     with torch.cuda.device(dev):
@@ -53,12 +91,90 @@ def strip_update(luma: torch.Tensor, energy: torch.Tensor,
     return `energy`.  luma, energy: (H, W) with a (H,) seam, or (B, H, W)
     with (B, H) seams.  A CUDA tensor with `use_pallas` goes to the kernel;
     any other tensor to the plain version."""
-    strip_w = _strip_extent(blocksize, delta_x)[1]
-    if luma.shape[-1] < strip_w:
-        raise ValueError(f"strip of {strip_w} columns does not fit width "
-                         f"{luma.shape[-1]}: recompute the full map")
+    _check_fits(luma.shape[-1], blocksize, delta_x)
     if luma.is_cuda and use_pallas:
         return _strip_cuda(luma, energy, seam, blocksize, edges, textures,
                            delta_x)
     return _recompute_strip(luma, energy, seam, blocksize, edges, textures,
                             delta_x)
+
+
+def strip_gather(luma: torch.Tensor, seam: torch.Tensor, n: int, *,
+                 delta_x: int = 1, use_pallas: bool = True) -> torch.Tensor:
+    """Each row's band around the removed `seam`, read from the compacted,
+    edge-filled `luma`: (..., H, W) with (..., H) seams -> (..., H, n,
+    strip_w + n - 1), the input of an n-wide energy's `bands_fn` for the
+    row's strip.  `n`: any even window size.  A CUDA tensor with
+    `use_pallas` goes to the kernel; any other tensor to the plain
+    version."""
+    H, W = luma.shape[-2:]
+    half, strip_w = _check_fits(W, n, delta_x)
+    if not (luma.is_cuda and use_pallas):
+        return _gather_strip_bands(luma, seam, n, delta_x)
+    dev = luma.device
+    check_plane("luma", luma, torch.float32, dev)
+    check_plane("seam", seam, torch.int32, dev)
+    B = _images(luma, seam, "strip_gather")
+    bands = torch.empty((*luma.shape[:-1], n, strip_w + n - 1),
+                        dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        launch(GATHER_KERNEL, "dc_strip_gather", luma.data_ptr(),
+               seam.data_ptr(), bands.data_ptr(), B, H, W, n,
+               window_offset(n, "carve"), half, strip_w,
+               torch.cuda.current_stream().cuda_stream)
+    return bands
+
+
+def strip_scatter(energy: torch.Tensor, strip: torch.Tensor,
+                  seam: torch.Tensor, n: int, *, delta_x: int = 1,
+                  use_pallas: bool = True) -> torch.Tensor:
+    """Write, in place, each row's (..., H, strip_w) `strip` into the
+    compacted `energy` (..., H, W) at the row's strip start, and return
+    `energy`.  A CUDA tensor with `use_pallas` goes to the kernel; any other
+    tensor to the plain version."""
+    H, W = energy.shape[-2:]
+    half, strip_w = _check_fits(W, n, delta_x)
+    if strip.shape != (*energy.shape[:-1], strip_w):
+        raise ValueError(f"strip: expected shape "
+                         f"{(*energy.shape[:-1], strip_w)}, got "
+                         f"{tuple(strip.shape)}")
+    if not (energy.is_cuda and use_pallas):
+        return _scatter_strips(energy, strip, seam, n, delta_x)
+    dev = energy.device
+    check_plane("energy", energy, torch.float32, dev)
+    check_plane("strip", strip, torch.float32, dev)
+    check_plane("seam", seam, torch.int32, dev)
+    B = _images(energy, seam, "strip_scatter")
+    with torch.cuda.device(dev):
+        launch(SCATTER_KERNEL, "dc_strip_scatter", energy.data_ptr(),
+               strip.data_ptr(), seam.data_ptr(), B, H, W, half, strip_w,
+               torch.cuda.current_stream().cuda_stream)
+    return energy
+
+
+def band_energy(bands: torch.Tensor, n: int, edges, textures, *,
+                use_pallas: bool = True) -> torch.Tensor:
+    """DCT energy of every sliding window of per-row bands: (..., n, C) ->
+    (..., C - n + 1), f32.  A CUDA tensor with `use_pallas` goes to the
+    kernel (f32 only); any other tensor to the plain version."""
+    if n not in BLOCKSIZES:
+        raise ValueError(f"blocksize must be one of {BLOCKSIZES}, got {n}")
+    if bands.ndim < 2 or bands.shape[-2] != n or bands.shape[-1] < n:
+        raise ValueError(f"bands must be (..., {n}, C >= {n}), got "
+                         f"{tuple(bands.shape)}")
+    if not (bands.is_cuda and use_pallas):
+        return energy_from_bands(bands, n, edges, textures).to(torch.float32)
+    dev = bands.device
+    check_plane("bands", bands, torch.float32, dev)
+    C = bands.shape[-1]
+    out = torch.empty((*bands.shape[:-2], C - n + 1), dtype=torch.float32,
+                      device=dev)
+    rows = out.numel() // (C - n + 1)
+    if rows == 0:
+        return out
+    taps = dct_taps(n, dev)
+    with torch.cuda.device(dev):
+        launch(BAND_KERNEL, "dc_band_energy", bands.data_ptr(),
+               out.data_ptr(), taps.data_ptr(), rows, n, C, float(edges),
+               float(textures), torch.cuda.current_stream().cuda_stream)
+    return out

@@ -28,6 +28,14 @@ changed column, and the seam drifts <= delta_x columns a row, so row i
 recomputes the `strip_w` columns from clip(seam_i - half, 0, W - strip_w).
 Every recomputed value goes through the same energy chain as a full
 recompute, so strip == full bit for bit (docs/PARITY.md S5).
+
+A plugged energy (`energy_fn`, an `ops/energy_fn.py::EnergyFunction`)
+replaces the DCT: its first map is `energy_fn.energy_map`, and its strip
+update is three steps — gather each row's band of the compacted luma
+(`kernels/strip_kernel.py::strip_gather`), the energy's own `bands_fn` on
+the bands, and a scatter of the strips into the compacted energy
+(`strip_scatter`).  The window size is then the energy's `n`, not
+`blocksize`, for the strip extent and every guard.
 """
 
 from __future__ import annotations
@@ -39,8 +47,9 @@ import torch
 from .dct import energy_from_bands, window_offset
 from .dp import check_tie, find_seam as find_seam_plain, mask_energy
 
-__all__ = ["CarveState", "make_state", "carve_n_seams", "full_energy_map",
-           "reconstruct_removed", "reconstruct_enlarged"]
+__all__ = ["CarveState", "make_state", "carve_n_seams", "carve_seams",
+           "strip_fits", "full_energy_map", "reconstruct_removed",
+           "reconstruct_enlarged"]
 
 
 class CarveState(NamedTuple):
@@ -96,15 +105,14 @@ def _strip_bounds(seam: torch.Tensor, blocksize: int, W: int,
     return start, strip_w
 
 
-def _recompute_strip(luma: torch.Tensor, energy: torch.Tensor,
-                     seam: torch.Tensor, blocksize: int, edges, textures,
-                     delta_x: int = 1) -> torch.Tensor:
-    """The plain version of the strip kernel: overwrite, in place, each
-    row's strip of the compacted `energy` with the energy of the compacted,
-    edge-filled `luma`.  Returns `energy`.  luma, energy: (..., H, W);
-    seam: (..., H)."""
+def _gather_strip_bands(luma: torch.Tensor, seam: torch.Tensor, n: int,
+                        delta_x: int = 1) -> torch.Tensor:
+    """The plain version of the strip gather kernel: each row's band of the
+    compacted, edge-filled `luma` around the removed `seam`.  luma:
+    (..., H, W); seam: (..., H).  Returns (..., H, n, strip_w + n - 1):
+    bands[..., i, dy, t] = luma[..., clip(i + co + dy), clip(start_i + co
+    + t)] with co = window_offset(n, "carve")."""
     H, W = luma.shape[-2:]
-    n = blocksize
     dev = luma.device
     start, strip_w = _strip_bounds(seam, n, W, delta_x)
     co = window_offset(n, "carve")
@@ -112,24 +120,65 @@ def _recompute_strip(luma: torch.Tensor, energy: torch.Tensor,
             + torch.arange(strip_w + n - 1, device=dev)).clamp(0, W - 1)
     rows = (torch.arange(H, device=dev)[:, None] + co
             + torch.arange(n, device=dev)[None, :]).clamp(0, H - 1)
-    # (..., H, n, strip_w+n-1): row i's band reads rows[i] at cols[..., i, :]
+    # (B, H, n, strip_w+n-1): row i's band reads rows[i] at cols[..., i, :]
     planes = luma.reshape(-1, H, W)
     b = torch.arange(planes.shape[0], device=dev)[:, None, None, None]
     bands = planes[b, rows[:, :, None],
                    cols.reshape(-1, H, strip_w + n - 1)[:, :, None, :]]
-    bands = bands.reshape(*luma.shape[:-2], H, n, strip_w + n - 1)
-    strip = energy_from_bands(bands, n, edges, textures).to(torch.float32)
-    idx = start[..., None] + torch.arange(strip_w, device=dev)
-    return energy.scatter_(-1, idx, strip)
+    return bands.reshape(*luma.shape[:-2], H, n, strip_w + n - 1)
+
+
+def _scatter_strips(energy: torch.Tensor, strip: torch.Tensor,
+                    seam: torch.Tensor, n: int,
+                    delta_x: int = 1) -> torch.Tensor:
+    """The plain version of the strip scatter kernel: write, in place, each
+    row's (..., H, strip_w) strip into the compacted `energy` at the row's
+    strip start, and return `energy`."""
+    start, strip_w = _strip_bounds(seam, n, energy.shape[-1], delta_x)
+    idx = start[..., None] + torch.arange(strip_w, device=energy.device)
+    return energy.scatter_(-1, idx, strip.to(energy.dtype))
+
+
+def _recompute_strip(luma: torch.Tensor, energy: torch.Tensor,
+                     seam: torch.Tensor, blocksize: int, edges, textures,
+                     delta_x: int = 1) -> torch.Tensor:
+    """The plain version of the DCT strip kernel: overwrite, in place, each
+    row's strip of the compacted `energy` with the energy of the compacted,
+    edge-filled `luma`.  Returns `energy`.  luma, energy: (..., H, W);
+    seam: (..., H)."""
+    bands = _gather_strip_bands(luma, seam, blocksize, delta_x)
+    strip = energy_from_bands(bands, blocksize, edges, textures)
+    return _scatter_strips(energy, strip, seam, blocksize, delta_x)
+
+
+def _update_strip_fn(luma: torch.Tensor, energy: torch.Tensor,
+                     seam: torch.Tensor, energy_fn, delta_x: int,
+                     use_pallas: bool) -> torch.Tensor:
+    """The strip update of a plugged energy, in place: gather the bands
+    (kernel #11's counterpart), run `energy_fn.bands_fn` on them, scatter
+    the strips (kernel #12's counterpart)."""
+    from ..kernels.strip_kernel import strip_gather, strip_scatter
+
+    n = energy_fn.n
+    bands = strip_gather(luma, seam, n, delta_x=delta_x,
+                         use_pallas=use_pallas)
+    strip = energy_fn.bands_fn(bands.reshape(-1, *bands.shape[-2:]))
+    strip = strip.to(torch.float32).reshape(*bands.shape[:-2], -1)
+    return strip_scatter(energy, strip.contiguous(), seam, n,
+                         delta_x=delta_x, use_pallas=use_pallas)
 
 
 def full_energy_map(luma: torch.Tensor, blocksize: int, edges, textures,
-                    center: str = "carve",
-                    use_pallas: bool = True) -> torch.Tensor:
+                    center: str = "carve", use_pallas: bool = True,
+                    energy_fn=None) -> torch.Tensor:
     """Full-image energy of a (H, W) plane or (B, H, W) stack, f32: the
-    energy kernel on CUDA tensors, the plain version otherwise."""
+    energy kernel on CUDA tensors, the plain version otherwise.  With a
+    plugged `energy_fn` its own `energy_map` runs instead (plain torch, as
+    the JAX package runs it in XLA)."""
     from ..kernels.energy_kernel import dct_energy
 
+    if energy_fn is not None:
+        return energy_fn.energy_map(luma, center).to(torch.float32)
     return dct_energy(luma, blocksize, edges, textures, center=center,
                       use_pallas=use_pallas)
 
@@ -137,7 +186,7 @@ def full_energy_map(luma: torch.Tensor, blocksize: int, edges, textures,
 def _one_seam(state: CarveState, k: int, blocksize: int, edges, textures,
               strip_update: bool, use_pallas: bool = True, delta_x: int = 1,
               rigidity: float = 0.0, tie: str = "leftmost",
-              out=None) -> CarveState:
+              out=None, energy_fn=None) -> CarveState:
     """Remove the k-th seam (from every image of a stack).  Updates
     `state.vmap` in place; with kernels the compacted buffers are written
     into `out` (a (luma, origcol, energy) set the size of the state's) when
@@ -161,20 +210,49 @@ def _one_seam(state: CarveState, k: int, blocksize: int, edges, textures,
                                        state.energy, seam, state.width,
                                        out=out, use_pallas=use_pallas)
     new_width = state.width - 1
-    if strip_update:
+    if not strip_update:
+        energy = full_energy_map(luma, blocksize, edges, textures,
+                                 use_pallas=use_pallas, energy_fn=energy_fn)
+    elif energy_fn is not None:
+        _update_strip_fn(luma, energy, seam, energy_fn, delta_x, use_pallas)
+    else:
         update_strip(luma, energy, seam, blocksize, edges, textures,
                      delta_x=delta_x, use_pallas=use_pallas)
-    else:
-        energy = full_energy_map(luma, blocksize, edges, textures,
-                                 use_pallas=use_pallas)
     return CarveState(luma, origcol, state.vmap, new_width, energy)
+
+
+def strip_fits(W: int, blocksize: int, delta_x: int = 1,
+               energy_fn=None) -> bool:
+    """Whether the per-row strip fits a buffer `W` wide; narrower buffers
+    recompute the full map every seam.  The window is the plugged energy's
+    `n` when there is one, else `blocksize`."""
+    n_eff = energy_fn.n if energy_fn is not None else blocksize
+    return W >= _strip_extent(n_eff, delta_x)[1]
+
+
+def carve_seams(state: CarveState, first: int, count: int, blocksize: int,
+                edges, textures, strip_update: bool = True,
+                use_pallas: bool = True, delta_x: int = 1,
+                rigidity: float = 0.0, tie: str = "leftmost",
+                energy_fn=None) -> CarveState:
+    """Remove seams first+1 .. first+count from `state`, whose buffers the
+    carve owns (the kernels write into a spare set, and the sets swap every
+    seam).  Never waits for the device."""
+    spare = None
+    for k in range(first + 1, first + count + 1):
+        new = _one_seam(state, k, blocksize, edges, textures, strip_update,
+                        use_pallas, delta_x, rigidity, tie, out=spare,
+                        energy_fn=energy_fn)
+        spare = (state.luma, state.origcol, state.energy)
+        state = new
+    return state
 
 
 def carve_n_seams(luma: torch.Tensor, n_seams: int, blocksize: int, edges,
                   textures, strip_update: bool = True,
                   use_pallas: bool = True, delta_x: int = 1,
-                  rigidity: float = 0.0,
-                  tie: str = "leftmost") -> CarveState:
+                  rigidity: float = 0.0, tie: str = "leftmost",
+                  energy_fn=None) -> CarveState:
     """Remove `n_seams` vertical seams from a (H, W) luma plane, or from
     each plane of a (B, H, W) stack.
 
@@ -183,7 +261,9 @@ def carve_n_seams(luma: torch.Tensor, n_seams: int, blocksize: int, edges,
     energy map is computed in full; later seams use strip updates when
     enabled.  `use_pallas`: hand-written kernels for CUDA tensors (the plain
     versions run for CPU tensors, or on the card when False).
-    `delta_x`/`rigidity` other than (1, 0) take the plain DP.
+    `delta_x`/`rigidity` other than (1, 0) take the plain DP.  `energy_fn`:
+    a plugged `EnergyFunction` replacing the DCT energy (`blocksize`,
+    `edges` and `textures` are then unused).
     """
     check_tie(tie)
     if luma.ndim not in (2, 3):
@@ -194,23 +274,17 @@ def carve_n_seams(luma: torch.Tensor, n_seams: int, blocksize: int, edges,
         raise ValueError(f"delta_x must be >= 1, got {delta_x}")
     if not 0 <= n_seams < W:
         raise ValueError(f"cannot remove {n_seams} seams from width {W}")
-    # the kernels write into the spare set and the sets swap every seam, so
-    # the carve owns its luma buffer
     state = make_state(luma.clone())
     state = state._replace(energy=full_energy_map(
-        state.luma, blocksize, edges, textures, use_pallas=use_pallas))
+        state.luma, blocksize, edges, textures, use_pallas=use_pallas,
+        energy_fn=energy_fn))
     # strips wider than the buffer would index out of bounds: full
     # recompute for tiny images
-    if W < _strip_extent(blocksize, delta_x)[1]:
-        strip_update = False
-    spare = None
-    for i in range(n_seams):
-        new = _one_seam(state, i + 1, blocksize, edges, textures,
-                        strip_update, use_pallas, delta_x, rigidity, tie,
-                        out=spare)
-        spare = (state.luma, state.origcol, state.energy)
-        state = new
-    return state
+    strip_update = strip_update and strip_fits(W, blocksize, delta_x,
+                                               energy_fn)
+    return carve_seams(state, 0, n_seams, blocksize, edges, textures,
+                       strip_update, use_pallas, delta_x, rigidity, tie,
+                       energy_fn)
 
 
 def reconstruct_removed(image: torch.Tensor, vmap: torch.Tensor,

@@ -20,15 +20,9 @@ import torch
 from ..models.carver import default_device
 from ..ops import carve as carve_ops
 from ..ops.energy import to_luma
+from ..ops.energy_fn import resolve_energy
 
 __all__ = ["carve_batch", "batch_carve_states"]
-
-
-def _check_energy(energy) -> None:
-    if energy not in (None, "dct"):
-        raise NotImplementedError(
-            f"energy={energy!r}: pluggable energies are not ported yet "
-            "(ROADMAP Queue 1 item 5); use None or 'dct'")
 
 
 def batch_carve_states(images: torch.Tensor, n_seams: int, blocksize: int,
@@ -38,15 +32,16 @@ def batch_carve_states(images: torch.Tensor, n_seams: int, blocksize: int,
                        tie: str = "leftmost",
                        use_pallas: bool = True) -> carve_ops.CarveState:
     """Carve every image of a (B, H, W[, C]) tensor on its device; returns
-    the batched CarveState ((B, H, W) tensors, one shared `width`)."""
-    _check_energy(energy_fn)
+    the batched CarveState ((B, H, W) tensors, one shared `width`).
+    `energy_fn`: a plugged `EnergyFunction`, or None for the DCT energy."""
     if images.ndim not in (3, 4):
         raise ValueError(f"images must be a (B, H, W[, C]) stack, got "
                          f"{tuple(images.shape)}")
     lumas = to_luma(images, luma_mode, stack=True)
     return carve_ops.carve_n_seams(
         lumas, n_seams, blocksize, edges, textures, strip_update=strip_update,
-        use_pallas=use_pallas, delta_x=delta_x, rigidity=rigidity, tie=tie)
+        use_pallas=use_pallas, delta_x=delta_x, rigidity=rigidity, tie=tie,
+        energy_fn=energy_fn)
 
 
 def _join(parts: list[torch.Tensor], home: torch.device) -> torch.Tensor:
@@ -67,9 +62,10 @@ def carve_batch(images, n_seams: int, *, blocksize: int = 8,
     images: (B, H, W[, C]) u8/float, a numpy array or a tensor.  `devices`:
     the torch devices to split the batch over (default
     `[default_device()]`).  Returns (carved (B, H, W - n_seams[, C]) |
-    None, vmaps (B, H, W) int32), tensors on the first device.
+    None, vmaps (B, H, W) int32), tensors on the first device.  `energy`:
+    None/'dct', a builtin name or an `EnergyFunction`.
     """
-    _check_energy(energy)
+    energy_fn = resolve_energy(energy)
     devices = [torch.device(d) for d in (devices or [default_device()])]
     images = torch.as_tensor(images)
     if images.ndim not in (3, 4) or not len(images):
@@ -82,8 +78,8 @@ def carve_batch(images, n_seams: int, *, blocksize: int = 8,
         chunk = chunk.to(dev).contiguous()
         state = batch_carve_states(
             chunk, n_seams, blocksize, edges, textures, strip_update,
-            luma_mode=luma, delta_x=delta_x, rigidity=rigidity, tie=tie,
-            use_pallas=use_pallas)
+            luma_mode=luma, energy_fn=energy_fn, delta_x=delta_x,
+            rigidity=rigidity, tie=tie, use_pallas=use_pallas)
         vmaps.append(state.vmap)
         if reconstruct:
             outs.append(carve_ops.reconstruct_removed(chunk, state.vmap,

@@ -2,8 +2,9 @@
 
 Same fields, defaults and validation as the JAX package's
 `dct_carver_tpu/utils/config.py` (reference `src/main.h:12-22`, defaults
-`src/main.c:30-40`).  Knobs the port does not implement yet raise
-`NotImplementedError` naming the ROADMAP item that brings them.
+`src/main.c:30-40`).  The one route the port does not implement yet,
+`parallel="spatial"`, raises `NotImplementedError` naming the ROADMAP item
+that brings it.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import dataclasses
 
 from ..ops.dct import BLOCKSIZES
 from ..ops.dp import check_tie
+from ..ops.energy_fn import resolve_energy
 
 __all__ = ["CarverConfig"]
 
@@ -35,8 +37,10 @@ class CarverConfig:
     rigidity: float = 0.0       # step penalty: rigidity * |dx| / delta_x
     tie: str = "leftmost"       # DP tie rule (docs/PARITY.md S1/S2)
 
-    # None/'dct' = the reference's DCT energy.  Pluggable energies are
-    # ROADMAP Queue 1 item 5.
+    # --- lqr_carver_set_energy_function analog (src/render.c:314-315) ---
+    # None/'dct' = the reference's DCT energy (blocksize/edges/textures);
+    # a builtin name ('grad_xabs'/'grad_sumabs'/'grad_norm'/'null') or an
+    # ops.energy_fn.EnergyFunction plugs a different energy into the carver.
     energy: object = None
 
     # --- framework knobs (no effect on carve results) ---
@@ -68,12 +72,16 @@ class CarverConfig:
             raise NotImplementedError(
                 "parallel='spatial' is not ported yet (ROADMAP Queue 1 item "
                 "9); use 'none', 'batch' or 'auto'")
-        if self.energy not in (None, "dct"):
-            raise NotImplementedError(
-                f"energy={self.energy!r}: pluggable energies are not ported "
-                "yet (ROADMAP Queue 1 item 5); use None or 'dct'")
+        self.energy_function  # validates the energy spec eagerly
 
     @property
     def radius(self) -> int:
-        """liblqr energy-function radius = blocksize/2 (src/render.c:314)."""
-        return self.blocksize // 2
+        """liblqr energy-function radius = blocksize/2 (src/render.c:314),
+        or the plugged energy function's own radius."""
+        fn = self.energy_function
+        return fn.radius if fn is not None else self.blocksize // 2
+
+    @property
+    def energy_function(self):
+        """The resolved EnergyFunction, or None for the default DCT energy."""
+        return resolve_energy(self.energy)

@@ -329,8 +329,12 @@ def test_batch_route_rejects_bad_stacks():
         tapi.carve(imgs, -24, parallel="batch", device="cpu")
     with pytest.raises(ValueError, match="stack"):
         tmesh.carve_batch(imgs[:0], 3, devices=["cpu"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tmesh.carve_batch(imgs, 3, energy="grad_xabs", devices=["cpu"])
+    # pluggable energies are ported: the energy now carves the stack
+    out, vm = tmesh.carve_batch(imgs, 3, energy="grad_xabs", devices=["cpu"])
+    assert out.shape == (2, 16, 21, 3)
+    assert ((vm > 0).sum(dim=2) == 3).all()
+    with pytest.raises(ValueError, match="unknown builtin energy"):
+        tmesh.carve_batch(imgs, 3, energy="grad_bogus", devices=["cpu"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         tapi.carve(imgs, -3, parallel="spatial", device="cpu")
 

@@ -210,9 +210,15 @@ def test_port_never_imports_jax():
 
 
 def test_config_validation():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        CarverConfig(energy="grad_xabs")
-    with pytest.raises(NotImplementedError):
+    # pluggable energies are ported: the knob resolves and carves
+    cfg = CarverConfig(energy="grad_xabs")
+    assert cfg.energy_function.name == "grad_xabs" and cfg.radius == 1
+    res = tapi.carve(np.zeros((8, 12, 3), np.uint8), -2, energy="grad_xabs",
+                     device="cpu")
+    assert res.image.shape == (8, 10, 3)
+    with pytest.raises(ValueError, match="unknown builtin energy"):
+        CarverConfig(energy="grad_bogus")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         CarverConfig(parallel="spatial")
     with pytest.raises(ValueError):
         CarverConfig(parallel="sideways")
@@ -235,8 +241,13 @@ def test_unported_routes_raise():
         Carver(img, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         tapi.carve(img[0], -2, parallel="spatial", device="cpu")
-    with pytest.raises(NotImplementedError):
-        Carver(img[0], progress=object(), device="cpu")
+    # the interactive and ui commands wait for models/retarget.py and ui/
+    from dct_carver_tpu_torch.cli import main as cli_main
+
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        cli_main(["ui", "in.png"])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        cli_main(["interactive", "in.png", "o_{w}.png", "--max-seams", "2"])
     with pytest.raises(ValueError):
         tapi.carve(img[0], -16, device="cpu")
 
