@@ -25,7 +25,23 @@ energy and a radius-2 custom one, with the launch counters read around it,
 against the plain path; 4c carves 8 1024x1024 images with grad_norm on the
 batch route against the single-image route; 4d drives the CLI in-process
 (carve with checkpoints and progress, a resume from the 32-seam checkpoint,
-energy, batch).
+energy, batch).  Phase 5 runs the spatial route (BASELINE config 5) with
+four column shards on the one card: 5a holds the block DP (the parts form
+at the 8K shard shape, the message form at the small-shard carve's
+shapes), the segment walk (at both carves' segment shapes), the sharded
+apply and the strip kernels with a shard offset against their plain
+versions; 5b carves 64 seams from a 4320x7680 luma through
+`spatial_carve_n_seams` with the launch counters read around it, against
+the single-device carve and, for 4 seams, the plain spatial path, with its
+exchanges per seam, Mpix/s and a profile, and drives a small-shard carve
+through `api.carve` (the message form); 5c runs `api.carve` and the CLI on
+the spatial route against the single-image route, enlargement, a resumed
+sharded checkpoint and `energy="grad_norm"`.
+
+Every kernel's line gives its time, its plain version's, the least time
+the card could take for the same work (`bound_ms`: bytes over 3.35 TB/s
+or float32 operations over 67 TFLOP/s, whichever is larger) and, where one
+PyTorch call computes the same function, that call's time (`library_ms`).
 
 The last stdout line is {"ok": true, "device": {...}}; before it come the
 kernels' JSON line and the card's name and power limit.  Any failed phase
@@ -57,10 +73,40 @@ ENERGIES = ("grad_xabs", "grad_sumabs", "grad_norm")  # phase 4: the builtins
 PLAIN_SEAMS_E = 16         # phase 4b: seams of the plain comparison carves
 # of the energies other than grad_norm (the plain DP is ~0.17 s a seam)
 SEAMS_BE = 32              # phase 4c/4d: seams of the plugged-energy batch
+H8, W8 = 4320, 7680        # phase 5: BASELINE config 5's 8K panorama
+SHARDS = 4                 # column shards, all on the one card
+K8 = 96                    # the route's rows per exchange (FRONTIER_BLOCK)
+SEAMS_8K = 64
+PLAIN_SEAMS_8K = 4         # the plain spatial path is ~0.3 s a seam at 8K
+SEAMS_5C = 16              # phase 5c: 1080p carves on the spatial route
+TIMED_PAIRS_8K = 3         # phase 5b: spatial and single-device 8K carves
+# an H100 SXM's peaks (NVIDIA's data sheet): device memory, and float32
+# outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def dct_ops(n: int, rows: int, cols: int, in_cols: int) -> int:
+    """The f32 multiplies and adds that `cols` DCT energies on each of `rows`
+    rows need, each chain being n multiplies and n - 1 adds: n vertical
+    chains of each of the row's `in_cols` window columns, shared by the
+    energies whose windows hold that column, and n*n - 1 atom chains of
+    each energy."""
+    return rows * (in_cols * n + cols * (n * n - 1)) * (2 * n - 1)
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least time in ms the card could take: every input byte read and
+    every output byte written once at the memory's rate, or the float32
+    operations at the peak rate, whichever is longer."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops
+            else (t_ops, "operations"))
 
 
 def card_line() -> str:
@@ -87,7 +133,9 @@ class Checks:
                                  f"{got.dtype} vs {tuple(want.shape)} "
                                  f"{want.dtype}")
             return
-        diff = (got.double() - want.double()).abs()
+        # equal cells count 0, so the +inf of masked DP cells is no error
+        diff = torch.where(got == want, 0.0,
+                           (got.double() - want.double()).abs())
         diff = torch.nan_to_num(diff, nan=float("inf"), posinf=float("inf"))
         err = float(diff.max()) if diff.numel() else 0.0
         same = bool(torch.equal(got, want))
@@ -235,6 +283,7 @@ def phase_3(dev, chk: Checks, card: str, rng, times: dict) -> dict:
         cuda_ms(lambda: find_seams(E, WB, use_pallas=False), 2))
     log(f"  find_seams kernel {times['find_seams'][0]!r} ms, plain "
         f"{times['find_seams'][1]!r} ms (B={NB} x {HB}x{WB}; {card})")
+    BOUNDS["find_seams"] = (NB * (4 * HB * WB + 4 * HB), 3 * NB * HB * WB)
     del lumas, E, E_q, got, want, l1, e1, k, p, full
 
     log(f"phase 3b: api.carve(({NB}, {HB}, {WB}, 3), -{SEAMS_B}, "
@@ -407,6 +456,22 @@ def phase_4a(dev, chk: Checks, card: str, rng, times: dict) -> None:
         shape = "n=8 bands" if name == "band_energy" else "n=2"
         log(f"  {name:13s} kernel {k_ms!r} ms, plain {p_ms!r} ms "
             f"({H}x{W} {shape}; {card})")
+    sw2 = _strip_extent(2)[1]
+    BOUNDS.update({
+        "strip_gather": (4 * (H * (sw2 + 1) + H * 2 * (sw2 + 1) + H), 0),
+        "strip_scatter": (4 * (2 * H * sw2 + H), 0),
+        "band_energy": (4 * (H * 8 * 27 + H * 20), dct_ops(8, H, 20, 27)),
+    })
+    # the gather as one torch.take, the scatter as one scatter_
+    band_idx = ((torch.arange(H, device=dev)[:, None, None]
+                 + torch.arange(2, device=dev)[:, None]).clamp(max=H - 1) * W
+                + (seam.long().sub(3).clamp(0, W - sw2)[:, None, None]
+                   + torch.arange(sw2 + 1, device=dev)).clamp(max=W - 1))
+    LIBRARY["strip_gather"] = cuda_ms(lambda: torch.take(l1, band_idx), 50)
+    scatter_idx = (seam.long().sub(3).clamp(0, W - sw2)[:, None]
+                   + torch.arange(sw2, device=dev))
+    LIBRARY["strip_scatter"] = cuda_ms(
+        lambda: e_s.scatter_(-1, scatter_idx, strip2), 50)
     composed = cuda_ms(lambda: strip_scatter(
         e_s, band_energy(strip_gather(l1, seam, 8), 8, edges, textures),
         seam, 8), 50)
@@ -629,6 +694,381 @@ def phase_4(dev, chk: Checks, card: str, rng, dct_rate: float) -> list:
             os.environ["DCT_CARVER_STATE_DIR"] = old_state_dir
     return main_launches
 
+# per kernel, at the shape of its timed call: (bytes, f32 operations) of the
+# bound, and the time of one PyTorch call computing the same function
+BOUNDS: dict[str, tuple[float, float]] = {}
+LIBRARY: dict[str, float] = {}
+
+
+def phase_5a(dev, chk: Checks, card: str, rng, times: dict) -> None:
+    """The spatial route's kernels against their plain versions, bitwise,
+    at the shapes of its main path, on the views the route hands them."""
+    import torch
+
+    from dct_carver_tpu_torch.kernels.spatial_kernel import (
+        block_dp, block_dp_parts, seg_walk, sharded_apply)
+    from dct_carver_tpu_torch.kernels.strip_kernel import (
+        strip_gather, strip_scatter, strip_update)
+    from dct_carver_tpu_torch.ops.carve import ShardOffset, _strip_extent
+    from dct_carver_tpu_torch.parallel.shards import ShardMesh
+
+    S, Wl, K = SHARDS, W8 // SHARDS, K8
+    Hh = 2 * K
+    We = Wl + 2 * Hh
+    edges, textures = 0.3, 0.7
+
+    def on_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def width(w):
+        return torch.tensor([w], dtype=torch.int32, device=dev)
+
+    log(f"phase 5a: spatial kernels vs plain versions on the card ({S} "
+        f"shards of {H8}x{Wl}, K={K})")
+    E = on_dev(rng.random((S, 2 * K, Wl), dtype=np.float32))
+    M = on_dev(rng.random((S, 2 * K + 1, We), dtype=np.float32))
+    prev = M[:, 0, Hh:Hh + Wl]          # the frontier, a strided view
+    for Kb, w in ((K, W8), (K, W8 - 700), (37, W8 - 3)):
+        blk = E[:, K:K + Kb]
+        lh = on_dev(rng.random((S, Kb + 1, Hh), dtype=np.float32))
+        rh = on_dev(rng.random((S, Kb + 1, Hh), dtype=np.float32))
+        want = block_dp_parts(prev, blk, lh, rh, 0, width(w),
+                              use_pallas=False)
+        got = block_dp_parts(prev, blk, lh, rh, 0, width(w),
+                             out=M[:, 1:1 + Kb])
+        chk.equal("block_dp_parts", f"S={S} Wl={Wl} Kb={Kb} width={w}", got,
+                  want)
+    out = M[:, 1:1 + K]
+    args = (prev, E[:, K:], on_dev(rng.random((S, K + 1, Hh),
+                                              dtype=np.float32)),
+            on_dev(rng.random((S, K + 1, Hh), dtype=np.float32)), 0,
+            width(W8))
+    times["block_dp_parts"] = (
+        cuda_ms(lambda: block_dp_parts(*args, out=out), 50),
+        cuda_ms(lambda: block_dp_parts(*args, use_pallas=False), 3))
+    BOUNDS["block_dp_parts"] = (
+        4 * (S * Wl + S * K * Wl + 2 * S * (K + 1) * Hh + S * K * We),
+        3 * S * K * We)
+
+    # the message form on 8 shards of 32 columns: at K = 96 the shapes of
+    # phase 5b's small-shard carve (256 rows: a six-hop halo, blocks of 96
+    # and 64 rows written into its (S, H, We) M), at K = 32 a two-hop halo
+    S2, Wl2, H2 = 8, 32, 256
+    for K2, Kbs in ((K, (K, H2 % K)), (32, (32,))):
+        We2 = Wl2 + 4 * K2
+        M2 = torch.zeros((S2, H2, We2), device=dev)
+        for Kb in Kbs:
+            for w in (S2 * Wl2, S2 * Wl2 - 45):
+                msg = on_dev(rng.random((S2, Kb + 1, We2), dtype=np.float32))
+                chk.equal("block_dp", f"S={S2} Wl={Wl2} K={K2} Kb={Kb} "
+                          f"width={w}",
+                          block_dp(msg, 0, width(w), 2 * K2,
+                                   out=M2[:, H2 - Kb:]),
+                          block_dp(msg, 0, width(w), 2 * K2,
+                                   use_pallas=False))
+    We2 = Wl2 + 4 * K
+    msg = on_dev(rng.random((S2, K + 1, We2), dtype=np.float32))
+    out2, w2 = torch.empty((S2, K, We2), device=dev), width(S2 * Wl2)
+    times["block_dp"] = (
+        cuda_ms(lambda: block_dp(msg, 0, w2, Hh, out=out2), 50),
+        cuda_ms(lambda: block_dp(msg, 0, w2, Hh, use_pallas=False), 3))
+    BOUNDS["block_dp"] = (4 * (S2 * (K + 1) * We2 + S2 * K * We2),
+                          3 * S2 * K * We2)
+
+    # the walk at phase 5b's small-shard shapes: the segments of rows
+    # [191, 255), [95, 191) and [0, 95) of 8 shards' (256, 416) M, K = 96
+    rows_s = on_dev((rng.integers(0, 3, (S2, H2, We2)) / 2)
+                    .astype(np.float32))
+    for r0, r1 in ((2 * K - 1, H2 - 1), (K - 1, 2 * K - 1), (0, K - 1)):
+        for j in (0, Wl2 - 1, Wl2, 3 * Wl2 + 7, S2 * Wl2 - 1):
+            for tie in TIES:
+                entry = torch.tensor([j], dtype=torch.int32, device=dev)
+                chk.equal("seg_walk", f"S={S2} Wl={Wl2} rows {r0}:{r1} "
+                          f"entry={j} {tie}",
+                          seg_walk(rows_s[:, r0:r1], entry, 0, K, Hh,
+                                   tie=tie),
+                          seg_walk(rows_s[:, r0:r1], entry, 0, K, Hh,
+                                   tie=tie, use_pallas=False))
+    del M2, rows_s
+
+    # the walk: entries at shard and window edges, quantized M for ties
+    rows_buf = on_dev((rng.integers(0, 3, (S, 2 * K, We)) / 2)
+                      .astype(np.float32))
+    for Kb in (K, K - 1, 41):
+        rows = rows_buf[:, 7:7 + Kb]
+        for j in (0, 1, Wl - 1, Wl, 2 * Wl + 5, W8 // 2, W8 - 1):
+            for tie in TIES:
+                entry = torch.tensor([j], dtype=torch.int32, device=dev)
+                chk.equal("seg_walk", f"Kb={Kb} entry={j} {tie}",
+                          seg_walk(rows, entry, 0, K, Hh, tie=tie),
+                          seg_walk(rows, entry, 0, K, Hh, tie=tie,
+                                   use_pallas=False))
+    rows = rows_buf[:, 7:7 + K]
+    entry = torch.tensor([W8 // 2 + 3], dtype=torch.int32, device=dev)
+    times["seg_walk"] = (
+        cuda_ms(lambda: seg_walk(rows, entry, 0, K, Hh), 50),
+        cuda_ms(lambda: seg_walk(rows, entry, 0, K, Hh, use_pallas=False),
+                3))
+    BOUNDS["seg_walk"] = (4 * (K * (2 * K + 1) + S * K + 1),
+                          4 * K * (2 * K + 1))
+
+    # the sharded apply at the 8K shard shape, the seam on shard boundaries
+    luma = on_dev(rng.random((S, H8, Wl), dtype=np.float32))
+    energy = on_dev(rng.random((S, H8, Wl), dtype=np.float32))
+    origcol = on_dev(rng.integers(0, W8, (S, H8, Wl)).astype(np.int32))
+    s = (np.cumsum(rng.integers(-1, 2, H8)) + W8 // 2) % (W8 - 2)
+    s[:6] = [Wl - 1, Wl, 2 * Wl - 1, 2 * Wl, 3 * Wl, W8 - 2]
+    seam = on_dev(s.astype(np.int32))
+    edge = on_dev(rng.random(H8, dtype=np.float32))
+    first = torch.cat([luma[..., :1], energy[..., :1],
+                       origcol[..., :1].view(torch.float32)], dim=-1)
+    incoming = torch.cat([first[1:], torch.zeros_like(first[:1])])
+    for nw in (W8 - 1, W8 - 9):
+        got = sharded_apply(luma, origcol, energy, seam, edge, incoming,
+                            width(nw), 0)
+        want = sharded_apply(luma, origcol, energy, seam, edge, incoming,
+                             width(nw), 0, use_pallas=False)
+        for part, g, w_ in zip(("luma", "origcol", "energy", "orig"), got,
+                               want):
+            chk.equal("sharded_apply", f"({S}, {H8}, {Wl}) new width {nw} "
+                      f"{part}", g, w_)
+    outs = tuple(torch.empty_like(t) for t in (luma, origcol, energy))
+    nw = width(W8 - 1)
+    times["sharded_apply"] = (
+        cuda_ms(lambda: sharded_apply(luma, origcol, energy, seam, edge,
+                                      incoming, nw, 0, out=outs), 50),
+        cuda_ms(lambda: sharded_apply(luma, origcol, energy, seam, edge,
+                                      incoming, nw, 0, use_pallas=False), 5))
+    BOUNDS["sharded_apply"] = (24 * S * H8 * Wl + 12 * S * H8 + 8 * H8
+                               + 4 * S * H8, 0)
+    # the compaction as one torch.gather over the three planes' bits
+    planes = torch.stack([luma, energy, origcol.view(torch.float32)])
+    cols = torch.arange(Wl, device=dev)
+    col_g = Wl * torch.arange(S, device=dev)[:, None, None] + cols
+    src = torch.where(col_g < seam[:, None], cols, (cols + 1) % Wl)
+    index = src.expand(3, S, H8, Wl).contiguous()
+    LIBRARY["sharded_apply"] = cuda_ms(
+        lambda: torch.gather(planes, 3, index), 50)
+    del luma, energy, origcol, planes, index, outs
+
+    # the strips with a shard offset: 4 shards of the 8K plane
+    mesh = ShardMesh([dev] * S, W8)
+    plane = on_dev(rng.random((H8, W8), dtype=np.float32))
+    e_full = on_dev(rng.random((H8, W8), dtype=np.float32))
+    shard = ShardOffset(0, W8)
+    offset = {}
+    for n in (2, 8):
+        ext = mesh.edge_clamped_halo(mesh.split(plane), n // 2 - 1,
+                                     n // 2)[0]
+        e_sh = mesh.split(e_full)[0]
+        k = strip_update(ext, e_sh.clone(), seam, n, edges, textures,
+                         shard=shard)
+        chk.equal("strip", f"{S} shards of {H8}x{Wl} n={n}", k,
+                  strip_update(ext, e_sh.clone(), seam, n, edges, textures,
+                               shard=shard, use_pallas=False))
+        chk.equal("strip", f"{S} shards n={n} == the unsharded strip",
+                  mesh.join([k]),
+                  strip_update(plane, e_full.clone(), seam, n, edges,
+                               textures))
+        chk.equal("strip_gather", f"{S} shards of {H8}x{Wl} n={n}",
+                  strip_gather(ext, seam, n, shard=shard),
+                  strip_gather(ext, seam, n, shard=shard, use_pallas=False))
+        strip = torch.rand((S, H8, _strip_extent(n)[1]), device=dev)
+        chk.equal("strip_scatter", f"{S} shards of {H8}x{Wl} n={n}",
+                  strip_scatter(e_sh.clone(), strip, seam, n, shard=shard),
+                  strip_scatter(e_sh.clone(), strip, seam, n, shard=shard,
+                                use_pallas=False))
+        # the offset forms' times, at the route's shapes: the DCT strip at
+        # n=8, the plugged-energy gather and scatter at grad_norm's n=2
+        sw = _strip_extent(n)[1]
+        if n == 8:
+            offset["strip"] = (
+                lambda p, x=ext, e=e_sh: strip_update(
+                    x, e, seam, 8, edges, textures, shard=shard,
+                    use_pallas=p),
+                4 * (H8 * (sw + n - 1) + H8 * sw + H8),
+                dct_ops(n, H8, sw, sw + n - 1))
+        else:
+            offset["strip_gather"] = (
+                lambda p, x=ext: strip_gather(x, seam, 2, shard=shard,
+                                              use_pallas=p),
+                4 * (H8 * (sw + n - 1) + S * H8 * n * (sw + n - 1) + H8), 0)
+            offset["strip_scatter"] = (
+                lambda p, e=e_sh, t=strip: strip_scatter(
+                    e, t, seam, 2, shard=shard, use_pallas=p),
+                4 * (S * H8 * sw + H8 * sw + H8), 0)
+    for name, (fn, nbytes, ops) in offset.items():
+        k_ms, p_ms = cuda_ms(lambda: fn(True), 50), cuda_ms(lambda: fn(False),
+                                                             5)
+        b_ms, b_by = bound(nbytes, ops)
+        log(f"  {name} with a shard offset ({S} x {H8}x{Wl}): kernel {k_ms!r}"
+            f" ms, plain {p_ms!r} ms, bound {b_ms!r} ms ({b_by}) ({card})")
+    for name in ("block_dp_parts", "block_dp", "seg_walk", "sharded_apply"):
+        k_ms, p_ms = times[name]
+        log(f"  {name:14s} kernel {k_ms!r} ms, plain {p_ms!r} ms ({card})")
+
+
+def phase_5(dev, chk: Checks, card: str, rng) -> list:
+    """The spatial route through its entry points; returns the launch
+    counts of its main-path runs (5b's 8K carve, its small-shard carve)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from dct_carver_tpu_torch import api, cli, kernels
+    from dct_carver_tpu_torch.ops.carve import (carve_n_seams,
+                                                reconstruct_enlarged)
+    from dct_carver_tpu_torch.ops.energy import to_luma
+    from dct_carver_tpu_torch.ops.energy_fn import GRAD_NORM
+    from dct_carver_tpu_torch.parallel.mesh import make_mesh
+    from dct_carver_tpu_torch.parallel.spatial import (
+        collectives_per_seam, measure_collectives_per_seam,
+        spatial_carve_n_seams, spatial_enlarge_n_seams)
+    from dct_carver_tpu_torch.utils.image import load_image, save_image
+
+    def on_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def same(a, b, what):
+        chk.require(a.shape == b.shape and np.array_equal(a, b), what)
+
+    mesh = make_mesh(devices=[dev] * SHARDS)
+    nb = -(-H8 // K8)
+    log(f"phase 5b: spatial_carve_n_seams({H8}x{W8}, {SEAMS_8K}) over "
+        f"{SHARDS} shards on the card, n=8, K={K8}")
+    luma8 = on_dev(rng.random((H8, W8), dtype=np.float32))
+    spatial_carve_n_seams(luma8[:2 * K8, :1024], 2, devices=mesh)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    res = spatial_carve_n_seams(luma8, SEAMS_8K, devices=mesh)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    log(f"  launches on the spatial route: {launches}")
+    want = {"block_dp_parts": nb * SEAMS_8K, "seg_walk": nb * SEAMS_8K,
+            "sharded_apply": SEAMS_8K, "strip": SEAMS_8K, "energy": 1,
+            "block_dp": 0, "find_seam": 0, "apply": 0}
+    got = {k: launches[k] for k in want}
+    chk.require(got == want, f"8K spatial launches {got}")
+    log("  launches a seam: " + ", ".join(
+        f"{k} {v / SEAMS_8K!r}" for k, v in launches.items() if v))
+    single = carve_n_seams(luma8, SEAMS_8K, 8, 0.0, 1.0)
+    chk.require(res.width == single.width == W8 - SEAMS_8K,
+                "8K spatial logical width")
+    chk.equal("carve", f"8K spatial {SEAMS_8K}-seam vmap == single-device",
+              res.vmap, single.vmap)
+    plain = spatial_carve_n_seams(luma8, PLAIN_SEAMS_8K, devices=mesh,
+                                  use_pallas=False)
+    short = spatial_carve_n_seams(luma8, PLAIN_SEAMS_8K, devices=mesh)
+    chk.equal("carve", f"8K spatial {PLAIN_SEAMS_8K}-seam vmap == plain "
+              "spatial path", short.vmap, plain.vmap)
+    # the two routes in turns, so that their comparison carries its spread
+    spatial = f"spatial ({SHARDS} shards)"
+    secs = {spatial: [], "single-device": []}
+    for r in range(TIMED_PAIRS_8K):
+        order = list(secs)[::1 if r % 2 == 0 else -1]
+        for route in order:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if route == spatial:
+                spatial_carve_n_seams(luma8, SEAMS_8K, devices=mesh)
+            else:
+                carve_n_seams(luma8, SEAMS_8K, 8, 0.0, 1.0)
+            torch.cuda.synchronize()
+            secs[route].append(time.perf_counter() - t)
+    px = H8 * W8 * SEAMS_8K
+    for route, ts in secs.items():
+        med = sorted(ts)[len(ts) // 2]
+        log(f"  8K {route} carve, in turns: {ts!r} s; "
+            f"median {px / med / 1e6!r} Mpix/s, {med * 1e3 / SEAMS_8K!r} ms "
+            f"a seam ({card})")
+    m = measure_collectives_per_seam(H8, W8, mesh, use_pallas=True)
+    chk.require(m["total"] == m["designed"]
+                == collectives_per_seam(H8, K8, fused_apply=True),
+                f"exchanges a seam {m['total']} == collectives_per_seam "
+                f"{m['designed']}")
+    wall, busy_us, top = device_profile(
+        lambda: spatial_carve_n_seams(luma8, SEAMS_5C, devices=mesh), top=10)
+    log(f"  profiled {SEAMS_5C}-seam 8K spatial carve: wall "
+        f"{wall * 1e3!r} ms, device busy {busy_us / 1e3!r} ms "
+        f"({100 * busy_us / 1e6 / wall!r} % of wall; {card})")
+    for name, us, count in top:
+        log(f"    {us / 1e3:10.4f} ms  {count:5d} x  {name[:90]}")
+    del luma8, res, single, plain, short
+
+    log("phase 5b: api.carve(256x256x3, -8, parallel='spatial') over 8 "
+        "shards of 32 columns (multi-hop halos: the message-form block DP)")
+    img_s = rng.integers(0, 256, (256, 256, 3), dtype=np.uint8)
+    kw = dict(output_seams=True, output_energy=True)
+    api.carve(img_s[:64, :64], -2, parallel="spatial",
+              devices=[mesh[0]] * 8, **kw)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    sp = api.carve(img_s, -8, parallel="spatial", devices=[mesh[0]] * 8,
+                   **kw)
+    torch.cuda.synchronize()
+    small = kernels.launch_counts()
+    got = {k: small[k] for k in ("block_dp", "block_dp_parts", "seg_walk",
+                                 "sharded_apply")}
+    chk.require(got == {"block_dp": 3 * 8, "block_dp_parts": 0,
+                        "seg_walk": 3 * 8, "sharded_apply": 8},
+                f"small-shard spatial launches {got}")
+    one = api.carve(img_s, -8, device=dev.type, **kw)
+    for field in ("image", "visibility_map", "energy_image"):
+        same(getattr(sp, field), getattr(one, field),
+             f"small-shard spatial api.carve {field} == single-image route")
+
+    log(f"phase 5c: the spatial route's entry points at {H}x{W}, "
+        f"{SEAMS_5C} seams, {SHARDS} shards")
+    img = rng.integers(0, 256, (H, W, 3), dtype=np.uint8)
+    a = api.carve(img, -SEAMS_5C, parallel="spatial", devices=mesh, **kw)
+    b = api.carve(img, -SEAMS_5C, device=dev.type, **kw)
+    for field in ("image", "visibility_map", "energy_image"):
+        same(getattr(a, field), getattr(b, field),
+             f"spatial api.carve {field} == single-image route")
+    img_t = on_dev(img)
+    luma = to_luma(img_t)
+    single = carve_n_seams(luma, SEAMS_5C, 8, 0.0, 1.0)
+    e = spatial_enlarge_n_seams(luma, SEAMS_5C, img_t, devices=mesh)
+    chk.equal("carve", "spatial enlargement == reconstruct_enlarged",
+              e.image, reconstruct_enlarged(img_t, single.vmap, SEAMS_5C))
+    g = spatial_carve_n_seams(luma, SEAMS_5C, devices=mesh,
+                              energy="grad_norm")
+    chk.equal("carve", "spatial grad_norm vmap == single-device",
+              g.vmap, carve_n_seams(luma, SEAMS_5C, 8, 0.0, 1.0,
+                                    energy_fn=GRAD_NORM).vmap)
+    old_state_dir = os.environ.get("DCT_CARVER_STATE_DIR")
+    try:
+        with tempfile.TemporaryDirectory(prefix="dct_carver_smoke_") as tmp:
+            os.environ["DCT_CARVER_STATE_DIR"] = os.path.join(tmp, "state")
+            ck = os.path.join(tmp, "ck")
+            whole = spatial_carve_n_seams(luma, SEAMS_5C, devices=mesh,
+                                          image=img_t)
+            spatial_carve_n_seams(luma, SEAMS_5C, devices=mesh, image=img_t,
+                                  chunk=SEAMS_5C // 2, checkpoint_dir=ck)
+            chk.require(sorted(os.listdir(ck)) == [
+                "meta.json", f"state-{SEAMS_5C // 2:08d}"],
+                f"sharded checkpoint steps {sorted(os.listdir(ck))}")
+            res = spatial_carve_n_seams(luma, SEAMS_5C, devices=mesh,
+                                        image=img_t, resume_from=ck)
+            chk.equal("carve", "resumed sharded checkpoint vmap == "
+                      "uninterrupted", res.vmap, whole.vmap)
+            chk.equal("carve", "resumed sharded checkpoint image == "
+                      "uninterrupted", res.image, whole.image)
+            inp, out = (os.path.join(tmp, f) for f in ("in.ppm", "out.ppm"))
+            save_image(inp, img)
+            rc = cli.main(["carve", inp, out, "--seams", f"-{SEAMS_5C}",
+                           "--parallel", "spatial"])
+            chk.require(rc == 0, f"CLI --parallel spatial rc {rc}")
+            same(load_image(out), b.image,
+                 "CLI --parallel spatial == single-image api.carve")
+    finally:
+        if old_state_dir is None:
+            os.environ.pop("DCT_CARVER_STATE_DIR", None)
+        else:
+            os.environ["DCT_CARVER_STATE_DIR"] = old_state_dir
+    return [launches, small]
+
 
 def main() -> int:
     import torch
@@ -783,6 +1223,21 @@ def main() -> int:
     for name, (k_ms, p_ms) in times.items():
         log(f"  {name:9s} kernel {k_ms!r} ms, plain {p_ms!r} ms "
             f"(1080x1920 n=8; {card})")
+    sw8 = 20  # the n=8 strip's width (ops/carve.py::_strip_extent)
+    BOUNDS.update({
+        "energy": (8 * H * W, dct_ops(8, H, W, W)),
+        "find_seam": (4 * H * W + 4 * H, 3 * H * W),
+        "apply": (24 * H * W + 4 * H, 0),
+        "strip": (4 * (H * (sw8 + 7) + H * sw8 + H),
+                  dct_ops(8, H, sw8, sw8 + 7)),
+    })
+    # apply as one torch.gather of the three planes' bits
+    planes = torch.stack([luma, E, origcol.view(torch.float32)])
+    cols = torch.arange(W, device=dev)
+    index = torch.where(cols < seam[:, None], cols, (cols + 1) % W).expand(
+        3, H, W).contiguous()
+    LIBRARY["apply"] = cuda_ms(lambda: torch.gather(planes, 2, index), 50)
+    del planes, index
 
     phase_1b(dev, chk, card, rng)
 
@@ -878,22 +1333,31 @@ def main() -> int:
     batch_launches = phase_3(dev, chk, card, rng, times)
     phase_4a(dev, chk, card, rng, times)
     energy_launches = phase_4(dev, chk, card, rng, k_rate)
+    phase_5a(dev, chk, card, rng, times)
+    spatial_launches = phase_5(dev, chk, card, rng)
 
     if chk.failures:
         print("chip_smoke FAILED:\n  " + "\n  ".join(chk.failures),
               file=sys.stderr)
         return 1
     # each kernel's launches on the main paths, each run counted from 0:
-    # the single-image carve of phase 2, the batch carve of phase 3b, and
-    # the plugged-energy carves of phase 4b (grad_norm) and 4c (batch)
-    runs = (launches, batch_launches, *energy_launches)
-    log(json.dumps({"kernels": [
-        {"name": k.name, "route": "cuda", "source": k.source,
-         "replaces": k.replaces,
-         "launches": sum(run[k.name] for run in runs),
-         "max_abs_err": chk.max_err[k.name], "ms": times[k.name][0],
-         "plain_ms": times[k.name][1]}
-        for k in kernels.KERNELS]}))
+    # the single-image carve of phase 2, the batch carve of phase 3b, the
+    # plugged-energy carves of phase 4b (grad_norm) and 4c (batch), and the
+    # spatial carves of phase 5b (8K over 4 shards, small shards)
+    runs = (launches, batch_launches, *energy_launches, *spatial_launches)
+    rows = []
+    for k in kernels.KERNELS:
+        bound_ms, bound_by = bound(*BOUNDS[k.name])
+        rows.append({
+            "name": k.name, "route": "cuda", "source": k.source,
+            "replaces": k.replaces,
+            "launches": sum(run[k.name] for run in runs),
+            "max_abs_err": chk.max_err[k.name], "ms": times[k.name][0],
+            "plain_ms": times[k.name][1], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": LIBRARY.get(k.name)})
+        log(f"  {k.name:14s} {times[k.name][0]!r} ms, bound {bound_ms!r} ms "
+            f"({bound_by}), library {LIBRARY.get(k.name)!r} ms ({card})")
+    log(json.dumps({"kernels": rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

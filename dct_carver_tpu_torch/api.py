@@ -7,7 +7,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.carver import Carver, CarveResult, default_device
+from .models.carver import Carver, CarveResult, resolve_placement
 from .utils.config import CarverConfig
 
 __all__ = ["carve", "CarveResult", "CarverConfig"]
@@ -16,19 +16,28 @@ __all__ = ["carve", "CarveResult", "CarverConfig"]
 def carve(image, seams_number: int, *, blocksize: int = 8,
           edges: float = 0.0, textures: float = 1.0,
           vertically: bool = False, output_energy: bool = False,
-          output_seams: bool = False, device=None,
+          output_seams: bool = False, device=None, devices=None,
           **framework_knobs) -> CarveResult:
     """Retarget `image` by `seams_number` seams (signed: <0 removes, >0
     inserts; `vertically=True` changes the HEIGHT — src/render.c:358-364).
 
     Defaults mirror the plugin's (src/main.c:30-40).  `device`: where the
-    carve runs (default: the first CUDA card, else the CPU).
+    carve runs (default: the first CUDA card; with no card visible it
+    raises unless `device="cpu"` asks for the CPU).  `devices`: the mesh
+    (`parallel/mesh.py::make_mesh`, e.g. `["cuda:0"] * 4`): the spatial
+    route's shards, the batch route's chunks; `device` then defaults to its
+    first entry and may not name another.  With no `devices` the spatial
+    mesh is every visible card for `device` None or "cuda", else
+    `[device]`.
 
     Routing (`parallel=`): "batch" carves an image STACK — a (B, H, W[, C])
     array, whose result fields come back stacked over B — with one launch
     per kernel and seam for the whole stack; "auto" takes the batch route
-    for a 4-D input and the single-image route otherwise.  Every knob keeps
-    its single-image meaning on both routes.
+    for a 4-D input and otherwise the spatial route when more than one card
+    is visible (or `devices` names more than one), else the single-image
+    route; "spatial" column-shards one image over the mesh
+    (`parallel/spatial.py`, BASELINE config 5).  Every knob keeps its
+    single-image meaning on every route.
     """
     image = np.asarray(image)
     cfg = CarverConfig(
@@ -38,8 +47,8 @@ def carve(image, seams_number: int, *, blocksize: int = 8,
         **framework_knobs,
     )
     if cfg.parallel == "batch" or (cfg.parallel == "auto" and image.ndim == 4):
-        return _carve_stack(image, seams_number, cfg, device)
-    carver = Carver(image, cfg, device=device)
+        return _carve_stack(image, seams_number, cfg, device, devices)
+    carver = Carver(image, cfg, device=device, devices=devices)
     h, w = image.shape[:2]
     if seams_number == 0:
         return CarveResult(
@@ -66,9 +75,10 @@ def _stack_energy_u8(images: torch.Tensor, cfg: CarverConfig) -> np.ndarray:
 
 
 def _carve_stack(images: np.ndarray, seams_number: int, cfg: CarverConfig,
-                 device) -> CarveResult:
-    """Carve of a (B, H, W[, C]) stack on one device (`parallel.mesh` —
-    BASELINE config 4), following JAX `api.py::_carve_stack` knob by knob.
+                 device, devices) -> CarveResult:
+    """Carve of a (B, H, W[, C]) stack on `device`, or split over the mesh
+    `devices` (`parallel.mesh` — BASELINE config 4), following JAX
+    `api.py::_carve_stack` knob by knob.
     Every image is carved independently, exactly as `render()` treats each
     invocation (src/render.c:327); results stack over B.
 
@@ -90,14 +100,14 @@ def _carve_stack(images: np.ndarray, seams_number: int, cfg: CarverConfig,
         raise ValueError(
             f"cannot change dimension by {seams_number}: images are "
             f"{w0} wide")
-    dev = torch.device(device) if device is not None else default_device()
+    dev, mesh = resolve_placement(device, devices)
     stack = torch.from_numpy(np.ascontiguousarray(images)).to(dev)
     energy = None
     if cfg.output_energy:
         # pre-carve energy export, per image (src/render.c:370-377 ordering)
         energy = _stack_energy_u8(stack, cfg)
     kw = dict(blocksize=cfg.blocksize, edges=cfg.edges,
-              textures=cfg.textures, devices=[dev],
+              textures=cfg.textures, devices=mesh or [dev],
               strip_update=cfg.strip_update, energy=cfg.energy_function,
               luma=cfg.luma, delta_x=cfg.delta_x, rigidity=cfg.rigidity,
               tie=cfg.tie, use_pallas=cfg.use_pallas)

@@ -2,12 +2,16 @@
 plugin (`src/main.c:146-160`: 12 PDB params -> PlugInVals), plus the
 energy and seam exports (`src/render.c:370-385`) and a batch mode.
 
-Counterpart of `dct_carver_tpu/cli.py`, with the same parser.  It runs on
-the first CUDA card when there is one (the kernels build at first use into
-`build/dct_carver_tpu_torch/`, the analog of the JAX package's compilation
-cache), else on the CPU.  The `interactive` and `ui` commands and the
-spatial route stay in the parser and raise `NotImplementedError` naming
-their ROADMAP items.
+Counterpart of `dct_carver_tpu/cli.py`, with the same parser and one more
+option, `--device` (default `cuda`: the first card; the kernels build at
+first use into `build/dct_carver_tpu_torch/`, the analog of the JAX
+package's compilation cache).  It is the counterpart of the JAX CLI running
+wherever `JAX_PLATFORMS` points: with no card visible the CLI raises unless
+`--device cpu` asks for the CPU.  `--spatial` / `--parallel spatial`
+column-shard the image over every visible card (`parallel/spatial.py`), or
+over one CPU shard with `--device cpu`.  The `interactive` and `ui`
+commands stay in the parser and raise `NotImplementedError` naming their
+ROADMAP item.
 
 Usage examples:
     python -m dct_carver_tpu_torch.cli carve in.png out.png --seams -64
@@ -15,6 +19,8 @@ Usage examples:
         --energy grad_norm --checkpoint ck.npz --checkpoint-every 16
     python -m dct_carver_tpu_torch.cli energy in.png energy.png --blocksize 16
     python -m dct_carver_tpu_torch.cli batch in_dir/ out_dir/ --seams 32
+    python -m dct_carver_tpu_torch.cli carve pano.png out.png --seams -64 \\
+        --parallel spatial
 """
 
 from __future__ import annotations
@@ -48,6 +54,9 @@ def _add_knobs(p: argparse.ArgumentParser) -> None:
                    choices=["dct", "grad_xabs", "grad_sumabs", "grad_norm"],
                    help="energy function (lqr_carver_set_energy_function "
                         "analog); 'dct' = the reference's DCT energy")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default: the first CUDA "
+                        "card; 'cpu' runs on the CPU)")
 
 
 def _run_batch(args) -> int:
@@ -81,7 +90,7 @@ def _run_batch(args) -> int:
         blocksize=args.blocksize, edges=args.edges, textures=args.textures,
         strip_update=not args.no_strip_update, energy=args.energy,
         luma=args.luma, delta_x=args.delta_x, rigidity=args.rigidity,
-        tie=args.tie,
+        tie=args.tie, devices=[args.device],
     )
     out = out.cpu().numpy()
     dt = time.perf_counter() - t0
@@ -126,7 +135,7 @@ def main(argv=None) -> int:
                         "vacated region, enlargements crop")
     c.add_argument("--spatial", action="store_true",
                    help="column-shard the image over the devices "
-                        "(not ported yet: ROADMAP Queue 1 item 9)")
+                        "(parallel/spatial.py)")
     c.add_argument("--parallel", default=None,
                    choices=["none", "spatial", "auto"],
                    help="execution route (overrides --spatial)")
@@ -193,7 +202,7 @@ def main(argv=None) -> int:
             blocksize=args.blocksize, edges=args.edges, textures=args.textures,
             vertically=args.vertically, luma=args.luma, energy=args.energy,
         )
-        carver = Carver(img, cfg)
+        carver = Carver(img, cfg, device=args.device)
         out = carver.energy_preview() if args.preview else carver.energy_image()
         save_image(args.output, out)
         return 0
@@ -230,7 +239,7 @@ def main(argv=None) -> int:
         **knobs,
     )
     carver = Carver(
-        img, cfg,
+        img, cfg, device=args.device,
         progress=StderrProgress() if args.progress else None,
         checkpoint_path=args.checkpoint,
         checkpoint_every=args.checkpoint_every,
@@ -248,7 +257,8 @@ def main(argv=None) -> int:
                          textures=cfg.textures, vertically=cfg.vertically,
                          output_energy=cfg.output_energy,
                          output_seams=cfg.output_seams, luma=cfg.luma,
-                         energy=cfg.energy, tie=cfg.tie)
+                         energy=cfg.energy, tie=cfg.tie,
+                         device=args.device)
     elif cfg.vertically:
         res = carver.resize(w0, h0 + s0)
     else:

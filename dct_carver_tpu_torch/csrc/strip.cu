@@ -25,6 +25,16 @@
 // cell, so the update is race free in place.  The image is the grid's z
 // dimension; its base offset is a size_t (B * H * W passes INT_MAX near
 // B = 1024 1-Mpix images).
+//
+// Shard offset (the spatial route, parallel/spatial.py): the B images may
+// be the column shards of one image, side by side on the card.  Shard b
+// then owns global columns [lo + b*Wl, lo + (b+1)*Wl) of its energy plane,
+// reads the seam every shard shares, and reads a luma plane with an
+// edge-clamped halo of r-1 columns before and r after its own, so every
+// window it needs lies in its plane.  Each shard computes the overlap of
+// each row's strip with its own columns and writes only those; the strip
+// start is clamped to the global width.  This replaces the R-block slabs of
+// dct_carver_tpu/parallel/spatial.py::_sharded_strip_update_pallas.
 
 #include <cuda_runtime.h>
 
@@ -37,41 +47,54 @@ __global__ void strip_kernel(const float* __restrict__ luma,
                              float* __restrict__ energy,
                              const int* __restrict__ seam,
                              const float* __restrict__ taps, int H, int W,
-                             int co, int half, int strip_w, float edges,
-                             float textures) {
+                             int Wx, int Wg, int lo, int lo_step, int xoff,
+                             int seam_step, int co, int half, int strip_w,
+                             float edges, float textures) {
   __shared__ float s_taps[N * N];
   load_taps(taps, s_taps, N);
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   const int row = blockIdx.y * blockDim.y + threadIdx.y;
   if (row >= H || c >= strip_w) return;
-  const int s = seam[static_cast<size_t>(blockIdx.z) * H + row];
-  const int start = min(max(s - half, 0), max(W - strip_w, 0));
-  const int col = start + c;
-  if (col >= W) return;
-  const size_t plane = static_cast<size_t>(blockIdx.z) * H * W;
-  energy[plane + static_cast<size_t>(row) * W + col] =
-      energy_at<N>(luma + plane, H, W, row, col, co, s_taps, edges, textures);
+  const int s = seam[static_cast<size_t>(blockIdx.z) * seam_step + row];
+  const int start = min(max(s - half, 0), max(Wg - strip_w, 0));
+  // the strip's global column, as a column of this image's energy plane
+  const int col = start + c - (lo + static_cast<int>(blockIdx.z) * lo_step);
+  if (col < 0 || col >= W) return;
+  const size_t plane = static_cast<size_t>(blockIdx.z) * H;
+  energy[(plane + row) * W + col] =
+      energy_at<N>(luma + plane * Wx, H, Wx, row, col + xoff, co, s_taps,
+                   edges, textures);
 }
 
 }  // namespace dct_carver
 
-// luma, energy: (B, H, W) f32 row-major (energy updated in place); seam:
-// (B, H) int32; taps: (n, n) f32.  Returns the cudaError_t of the launch.
+// luma: (B, H, Wx) f32 and energy: (B, H, W) f32 row-major (energy updated
+// in place); seam: int32, image b's at seam + b*seam_step; taps: (n, n) f32.
+// Image b's energy column 0 is global column lo + b*lo_step and its luma
+// column xoff; the strip start is clamped to the global width Wg.  One
+// image: Wx = Wg = W, lo = lo_step = xoff = 0, seam_step = H.  Returns the
+// cudaError_t of the launch.
 extern "C" int dc_strip(const float* luma, float* energy, const int* seam,
-                        const float* taps, int B, int H, int W, int n, int co,
-                        int half, int strip_w, float edges, float textures,
-                        void* stream) {
+                        const float* taps, int B, int H, int W, int Wx,
+                        int Wg, int lo, int lo_step, int xoff, int seam_step,
+                        int n, int co, int half, int strip_w, float edges,
+                        float textures, void* stream) {
   using namespace dct_carver;
   const dim3 block(32, 8);
   const dim3 grid((strip_w + block.x - 1) / block.x,
                   (H + block.y - 1) / block.y, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DC_STRIP(N)                                                         \
+  strip_kernel<N><<<grid, block, 0, s>>>(luma, energy, seam, taps, H, W, Wx, \
+                                         Wg, lo, lo_step, xoff, seam_step,  \
+                                         co, half, strip_w, edges, textures)
   switch (n) {
-    case 2: strip_kernel<2><<<grid, block, 0, s>>>(luma, energy, seam, taps, H, W, co, half, strip_w, edges, textures); break;
-    case 4: strip_kernel<4><<<grid, block, 0, s>>>(luma, energy, seam, taps, H, W, co, half, strip_w, edges, textures); break;
-    case 8: strip_kernel<8><<<grid, block, 0, s>>>(luma, energy, seam, taps, H, W, co, half, strip_w, edges, textures); break;
-    case 16: strip_kernel<16><<<grid, block, 0, s>>>(luma, energy, seam, taps, H, W, co, half, strip_w, edges, textures); break;
+    case 2: DC_STRIP(2); break;
+    case 4: DC_STRIP(4); break;
+    case 8: DC_STRIP(8); break;
+    case 16: DC_STRIP(16); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef DC_STRIP
   return static_cast<int>(cudaGetLastError());
 }

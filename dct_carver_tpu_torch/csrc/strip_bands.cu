@@ -32,6 +32,13 @@
 // The image is the grid's z dimension with size_t plane offsets (B * H * W
 // passes INT_MAX near B = 1024 1-Mpix images); band rows are flattened into
 // one size_t index.
+//
+// Shard offset (the spatial route, as strip.cu): the B images may be the
+// column shards of one image.  The gather then reads each shard's luma with
+// its edge-clamped r-1 / r column halo and places every band column by its
+// global column; the scatter writes only the strip columns the shard owns.
+// Band columns outside a shard's luma are clamped, and only feed strip
+// columns that its scatter drops.
 
 #include <cuda_runtime.h>
 
@@ -46,8 +53,10 @@ __device__ __forceinline__ int strip_start(int seam, int half, int W,
 
 __global__ void strip_gather_kernel(const float* __restrict__ luma,
                                     const int* __restrict__ seam,
-                                    float* __restrict__ bands, int H, int W,
-                                    int n, int co, int half, int strip_w) {
+                                    float* __restrict__ bands, int H, int Wx,
+                                    int Wg, int lo, int lo_step, int xoff,
+                                    int seam_step, int n, int co, int half,
+                                    int strip_w) {
   const int cb = strip_w + n - 1;  // band width
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= H * n * cb) return;
@@ -55,24 +64,28 @@ __global__ void strip_gather_kernel(const float* __restrict__ luma,
   const int dy = (e / cb) % n;
   const int i = e / (cb * n);
   const size_t b = blockIdx.z;
-  const int start = strip_start(seam[b * H + i], half, W, strip_w);
+  const int start = strip_start(seam[b * seam_step + i], half, Wg, strip_w);
+  // luma column 0 of image b is global column lo + b*lo_step - xoff
+  const int x0 = lo + static_cast<int>(b) * lo_step - xoff;
   const int row = min(max(i + co + dy, 0), H - 1);
-  const int col = min(max(start + co + t, 0), W - 1);
+  const int col = min(max(start + co + t - x0, 0), Wx - 1);
   bands[b * H * n * cb + e] =
-      __ldg(luma + b * H * W + static_cast<size_t>(row) * W + col);
+      __ldg(luma + b * H * Wx + static_cast<size_t>(row) * Wx + col);
 }
 
 __global__ void strip_scatter_kernel(float* __restrict__ energy,
                                      const float* __restrict__ strip,
                                      const int* __restrict__ seam, int H,
-                                     int W, int half, int strip_w) {
+                                     int W, int Wg, int lo, int lo_step,
+                                     int seam_step, int half, int strip_w) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= H * strip_w) return;
   const int c = e % strip_w;
   const int i = e / strip_w;
   const size_t b = blockIdx.z;
-  const int col = strip_start(seam[b * H + i], half, W, strip_w) + c;
-  if (col >= W) return;
+  const int col = strip_start(seam[b * seam_step + i], half, Wg, strip_w) +
+                  c - (lo + static_cast<int>(b) * lo_step);
+  if (col < 0 || col >= W) return;
   energy[b * H * W + static_cast<size_t>(i) * W + col] =
       strip[b * H * strip_w + e];
 }
@@ -103,31 +116,41 @@ __global__ void band_energy_kernel(const float* __restrict__ bands,
 
 }  // namespace dct_carver
 
-// luma: (B, H, W) f32; seam: (B, H) int32; bands: (B, H, n, strip_w+n-1)
-// f32.  Returns the cudaError_t of the launch.
+// luma: (B, H, Wx) f32; seam: int32, image b's at seam + b*seam_step;
+// bands: (B, H, n, strip_w+n-1) f32.  Image b's luma column xoff is global
+// column lo + b*lo_step; strip starts are clamped to the global width Wg.
+// One image: Wx = Wg = W, lo = lo_step = xoff = 0, seam_step = H.  Returns
+// the cudaError_t of the launch.
 extern "C" int dc_strip_gather(const float* luma, const int* seam,
-                               float* bands, int B, int H, int W, int n,
-                               int co, int half, int strip_w, void* stream) {
+                               float* bands, int B, int H, int Wx, int Wg,
+                               int lo, int lo_step, int xoff, int seam_step,
+                               int n, int co, int half, int strip_w,
+                               void* stream) {
   using namespace dct_carver;
   const int total = H * n * (strip_w + n - 1);
   const dim3 block(256);
   const dim3 grid((total + block.x - 1) / block.x, 1, B);
   strip_gather_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      luma, seam, bands, H, W, n, co, half, strip_w);
+      luma, seam, bands, H, Wx, Wg, lo, lo_step, xoff, seam_step, n, co, half,
+      strip_w);
   return static_cast<int>(cudaGetLastError());
 }
 
 // energy: (B, H, W) f32, updated in place; strip: (B, H, strip_w) f32;
-// seam: (B, H) int32.  Returns the cudaError_t of the launch.
+// seam: int32, image b's at seam + b*seam_step.  Image b's energy column 0
+// is global column lo + b*lo_step; it keeps the strip columns it owns.  One
+// image: Wg = W, lo = lo_step = 0, seam_step = H.  Returns the cudaError_t
+// of the launch.
 extern "C" int dc_strip_scatter(float* energy, const float* strip,
-                                const int* seam, int B, int H, int W,
-                                int half, int strip_w, void* stream) {
+                                const int* seam, int B, int H, int W, int Wg,
+                                int lo, int lo_step, int seam_step, int half,
+                                int strip_w, void* stream) {
   using namespace dct_carver;
   const int total = H * strip_w;
   const dim3 block(256);
   const dim3 grid((total + block.x - 1) / block.x, 1, B);
   strip_scatter_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      energy, strip, seam, H, W, half, strip_w);
+      energy, strip, seam, H, W, Wg, lo, lo_step, seam_step, half, strip_w);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -46,15 +46,28 @@ SIGNATURES = {
     # luma, origcol, energy, seam, luma', origcol', energy', B, H, W, width,
     # stream
     "dc_apply": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # luma, energy, seam, taps, B, H, W, n, co, half, strip_w, edges,
-    # textures, stream
-    "dc_strip": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
-    # luma, seam, bands, B, H, W, n, co, half, strip_w, stream
-    "dc_strip_gather": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # energy, strip, seam, B, H, W, half, strip_w, stream
-    "dc_strip_scatter": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # luma, energy, seam, taps, B, H, W, Wx, Wg, lo, lo_step, xoff,
+    # seam_step, n, co, half, strip_w, edges, textures, stream
+    "dc_strip": (_P, _P, _P, _P, *(_I,) * 13, _F, _F, _P),
+    # luma, seam, bands, B, H, Wx, Wg, lo, lo_step, xoff, seam_step, n, co,
+    # half, strip_w, stream
+    "dc_strip_gather": (_P, _P, _P, *(_I,) * 12, _P),
+    # energy, strip, seam, B, H, W, Wg, lo, lo_step, seam_step, half,
+    # strip_w, stream
+    "dc_strip_scatter": (_P, _P, _P, *(_I,) * 9, _P),
     # bands, out, taps, rows, n, C, edges, textures, stream
     "dc_band_energy": (_P, _P, _P, _L, _I, _I, _F, _F, _P),
+    # msg, out, out_ss, S, Kb, Wl, Hh, lo, width, stream
+    "dc_block_dp": (_P, _P, _L, _I, _I, _I, _I, _I, _P, _P),
+    # prev, prev_ss, E, e_ss, lh, rh, out, out_ss, S, Kb, Wl, Hh, lo, width,
+    # stream
+    "dc_block_dp_parts": (_P, _L, _P, _L, _P, _P, _P, _L, _I, _I, _I, _I,
+                          _I, _P, _P),
+    # rows, rows_ss, S, Kb, Wl, Hh, K, lo, entry, rightmost, seg, stream
+    "dc_seg_walk": (_P, _L, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P),
+    # luma, origcol, energy, seam, edge, incoming, luma', origcol', energy',
+    # orig, S, H, Wl, lo, new_width, stream
+    "dc_sharded_apply": (*(_P,) * 10, _I, _I, _I, _I, _P, _P),
 }
 
 

@@ -15,14 +15,21 @@
   `strip_energy_pallas` (`_strip_energy_call`).
 
 All take the port's per-row strip geometry (`ops/carve.py::_strip_bounds`).
+`strip_update`, `strip_gather` and `strip_scatter` also take a stack of the
+column shards of one image (`shard=ops.carve.ShardOffset`, the spatial
+route): each shard reads its luma with a halo, computes the overlap of each
+row's strip with its own columns, and writes only those.  This is the
+counterpart of `dct_carver_tpu/parallel/spatial.py::
+_sharded_strip_update_pallas`, whose signed window starts do the same for
+the TPU's R-row slabs.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.carve import (_gather_strip_bands, _recompute_strip,
-                         _scatter_strips, _strip_extent)
+from ..ops.carve import (ShardOffset, _gather_strip_bands,
+                         _recompute_strip, _scatter_strips, _strip_extent)
 from ..ops.dct import BLOCKSIZES, energy_from_bands, window_offset
 from .build import Kernel, check_plane, launch
 from .energy_kernel import dct_taps
@@ -44,16 +51,27 @@ BAND_KERNEL = Kernel(name="band_energy",
                      replaces="dct_carver_tpu/pallas/strip_kernel.py:401")
 
 
-def _images(plane: torch.Tensor, seam: torch.Tensor, what: str) -> int:
-    """B of a (H, W) plane (1) or (B, H, W) stack, checked against the
-    (..., H) seams and the grid's z limit."""
-    if seam.shape != plane.shape[:-1]:
-        raise ValueError(f"{what}: (..., H, W) planes and (..., H) seams "
-                         "expected")
-    B = plane.shape[0] if plane.ndim == 3 else 1
+def _layout(shape, W: int, luma_w: int, seam: torch.Tensor, n: int,
+            shard, what: str):
+    """(B, (Wg, lo, lo_step, xoff, seam_step)) of the kernels for planes of
+    `shape` (..., H, ...) whose energy is W and luma `luma_w` columns wide:
+    a (H, W) plane or a (B, H, W) stack of images, each with its own seam,
+    or with `shard` a (S, H, Wl) stack of shards of one image with the (H,)
+    seam they share and their halo-extended luma.  Raises on any other
+    layout, and past the grid's z limit."""
+    H = shape[-2]
+    B = shape[0] if len(shape) == 3 else 1
     if B > 65535:
         raise ValueError(f"{what} kernel: {B} images exceed the grid's 65535")
-    return B
+    if shard is None:
+        if luma_w != W or tuple(seam.shape) != tuple(shape[:-1]):
+            raise ValueError(f"{what}: (..., H, W) planes and (..., H) "
+                             "seams expected")
+        return B, (W, 0, 0, 0, H)
+    if len(shape) != 3 or tuple(seam.shape) != (H,) or luma_w != W + n - 1:
+        raise ValueError(f"{what}: shards want (S, H, Wl) planes, a (H,) "
+                         f"seam and (S, H, Wl + {n - 1}) luma")
+    return B, (shard.width, shard.lo, W, n // 2 - 1, 0)
 
 
 def _check_fits(W: int, n: int, delta_x: int) -> tuple[int, int]:
@@ -64,62 +82,74 @@ def _check_fits(W: int, n: int, delta_x: int) -> tuple[int, int]:
     return half, strip_w
 
 
-def _strip_cuda(luma, energy, seam, n, edges, textures, delta_x):
+def _strip_cuda(luma, energy, seam, n, edges, textures, delta_x, shard):
     dev = luma.device
     check_plane("luma", luma, torch.float32, dev)
     check_plane("energy", energy, torch.float32, dev)
     check_plane("seam", seam, torch.int32, dev)
-    if energy.shape != luma.shape:
+    if energy.shape[:-1] != luma.shape[:-1]:
         raise ValueError("strip: luma and energy differ in shape")
-    B = _images(luma, seam, "strip")
-    H, W = luma.shape[-2:]
+    H, W = energy.shape[-2:]
+    B, geometry = _layout(energy.shape, W, luma.shape[-1], seam, n, shard,
+                          "strip")
     half, strip_w = _strip_extent(n, delta_x)
     taps = dct_taps(n, dev)
     with torch.cuda.device(dev):
         launch(KERNEL, "dc_strip", luma.data_ptr(), energy.data_ptr(),
-               seam.data_ptr(), taps.data_ptr(), B, H, W, n,
-               window_offset(n, "carve"), half, strip_w, float(edges),
-               float(textures), torch.cuda.current_stream().cuda_stream)
+               seam.data_ptr(), taps.data_ptr(), B, H, W, luma.shape[-1],
+               *geometry, n, window_offset(n, "carve"), half, strip_w,
+               float(edges), float(textures),
+               torch.cuda.current_stream().cuda_stream)
     return energy
+
+
+def _global_width(plane: torch.Tensor, shard) -> int:
+    return plane.shape[-1] if shard is None else shard.width
 
 
 def strip_update(luma: torch.Tensor, energy: torch.Tensor,
                  seam: torch.Tensor, blocksize: int, edges, textures, *,
-                 delta_x: int = 1, use_pallas: bool = True) -> torch.Tensor:
+                 delta_x: int = 1, use_pallas: bool = True,
+                 shard: ShardOffset | None = None) -> torch.Tensor:
     """Recompute, in place, each row's strip of the compacted `energy`
     around the removed `seam` from the compacted, edge-filled `luma`, and
     return `energy`.  luma, energy: (H, W) with a (H,) seam, or (B, H, W)
-    with (B, H) seams.  A CUDA tensor with `use_pallas` goes to the kernel;
-    any other tensor to the plain version."""
-    _check_fits(luma.shape[-1], blocksize, delta_x)
+    with (B, H) seams; with `shard`, (S, H, Wl) shards of one image with
+    their (S, H, Wl + n - 1) halo-extended luma and the (H,) seam.  A CUDA
+    tensor with `use_pallas` goes to the kernel; any other tensor to the
+    plain version."""
+    _check_fits(_global_width(energy, shard), blocksize, delta_x)
     if luma.is_cuda and use_pallas:
         return _strip_cuda(luma, energy, seam, blocksize, edges, textures,
-                           delta_x)
+                           delta_x, shard)
     return _recompute_strip(luma, energy, seam, blocksize, edges, textures,
-                            delta_x)
+                            delta_x, shard)
 
 
 def strip_gather(luma: torch.Tensor, seam: torch.Tensor, n: int, *,
-                 delta_x: int = 1, use_pallas: bool = True) -> torch.Tensor:
+                 delta_x: int = 1, use_pallas: bool = True,
+                 shard: ShardOffset | None = None) -> torch.Tensor:
     """Each row's band around the removed `seam`, read from the compacted,
     edge-filled `luma`: (..., H, W) with (..., H) seams -> (..., H, n,
     strip_w + n - 1), the input of an n-wide energy's `bands_fn` for the
-    row's strip.  `n`: any even window size.  A CUDA tensor with
-    `use_pallas` goes to the kernel; any other tensor to the plain
-    version."""
-    H, W = luma.shape[-2:]
-    half, strip_w = _check_fits(W, n, delta_x)
+    row's strip; with `shard`, the (S, H, Wl + n - 1) halo-extended luma of
+    shards of one image and the (H,) seam -> (S, H, n, strip_w + n - 1).
+    `n`: any even window size.  A CUDA tensor with `use_pallas` goes to the
+    kernel; any other tensor to the plain version."""
+    H, Wx = luma.shape[-2:]
+    half, strip_w = _check_fits(_global_width(luma, shard), n, delta_x)
     if not (luma.is_cuda and use_pallas):
-        return _gather_strip_bands(luma, seam, n, delta_x)
+        return _gather_strip_bands(luma, seam, n, delta_x, shard)
     dev = luma.device
     check_plane("luma", luma, torch.float32, dev)
     check_plane("seam", seam, torch.int32, dev)
-    B = _images(luma, seam, "strip_gather")
+    B, geometry = _layout(luma.shape, Wx - (n - 1 if shard else 0), Wx,
+                          seam, n, shard, "strip_gather")
     bands = torch.empty((*luma.shape[:-1], n, strip_w + n - 1),
                         dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         launch(GATHER_KERNEL, "dc_strip_gather", luma.data_ptr(),
-               seam.data_ptr(), bands.data_ptr(), B, H, W, n,
+               seam.data_ptr(), bands.data_ptr(), B, H, Wx, *geometry, n,
                window_offset(n, "carve"), half, strip_w,
                torch.cuda.current_stream().cuda_stream)
     return bands
@@ -127,27 +157,33 @@ def strip_gather(luma: torch.Tensor, seam: torch.Tensor, n: int, *,
 
 def strip_scatter(energy: torch.Tensor, strip: torch.Tensor,
                   seam: torch.Tensor, n: int, *, delta_x: int = 1,
-                  use_pallas: bool = True) -> torch.Tensor:
+                  use_pallas: bool = True,
+                  shard: ShardOffset | None = None) -> torch.Tensor:
     """Write, in place, each row's (..., H, strip_w) `strip` into the
     compacted `energy` (..., H, W) at the row's strip start, and return
-    `energy`.  A CUDA tensor with `use_pallas` goes to the kernel; any other
-    tensor to the plain version."""
+    `energy`; with `shard`, (S, H, Wl) shards of one image with the (H,)
+    seam, each keeping the strip columns it owns.  A CUDA tensor with
+    `use_pallas` goes to the kernel; any other tensor to the plain
+    version."""
     H, W = energy.shape[-2:]
-    half, strip_w = _check_fits(W, n, delta_x)
+    half, strip_w = _check_fits(_global_width(energy, shard), n, delta_x)
     if strip.shape != (*energy.shape[:-1], strip_w):
         raise ValueError(f"strip: expected shape "
                          f"{(*energy.shape[:-1], strip_w)}, got "
                          f"{tuple(strip.shape)}")
     if not (energy.is_cuda and use_pallas):
-        return _scatter_strips(energy, strip, seam, n, delta_x)
+        return _scatter_strips(energy, strip, seam, n, delta_x, shard)
     dev = energy.device
     check_plane("energy", energy, torch.float32, dev)
     check_plane("strip", strip, torch.float32, dev)
     check_plane("seam", seam, torch.int32, dev)
-    B = _images(energy, seam, "strip_scatter")
+    B, (Wg, lo, lo_step, _, seam_step) = _layout(
+        energy.shape, W, W + (n - 1 if shard else 0), seam, n, shard,
+        "strip_scatter")
     with torch.cuda.device(dev):
         launch(SCATTER_KERNEL, "dc_strip_scatter", energy.data_ptr(),
-               strip.data_ptr(), seam.data_ptr(), B, H, W, half, strip_w,
+               strip.data_ptr(), seam.data_ptr(), B, H, W, Wg, lo, lo_step,
+               seam_step, half, strip_w,
                torch.cuda.current_stream().cuda_stream)
     return energy
 

@@ -10,7 +10,9 @@ Counterpart of `dct_carver_tpu/models/carver.py` (reference call surface
     lqr_vmap_get_data                        -> CarveResult.visibility_map
 
 The image stays a host numpy array; each pass moves it to `device`, carves
-there and brings the results back.
+there and brings the results back.  On the spatial route
+(`parallel="spatial"`, `parallel/spatial.py`) the pass column-shards the
+image over the mesh `devices` instead.
 """
 
 from __future__ import annotations
@@ -24,12 +26,64 @@ from ..ops import carve as carve_ops
 from ..ops.energy import normalize_to_u8, to_luma
 from ..utils.config import CarverConfig
 
-__all__ = ["Carver", "CarveResult", "default_device"]
+__all__ = ["Carver", "CarveResult", "default_device", "default_mesh",
+           "resolve_device", "resolve_placement"]
+
+NO_CARD = ("no CUDA device is visible: pass device='cpu' (devices=['cpu'] "
+           "for a mesh, --device cpu on the command line) to run on the CPU")
 
 
 def default_device() -> torch.device:
-    """The first CUDA card when there is one, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The first CUDA card.  Raises when none is visible: the port runs on
+    the card unless the caller asks for the CPU."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(NO_CARD)
+    return torch.device("cuda")
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device` as a torch device, `default_device()` for None; a CUDA
+    device raises when no card is visible."""
+    if device is None:
+        return default_device()
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(NO_CARD)
+    return device
+
+
+def resolve_placement(device=None, devices=None):
+    """The one placement of a carve on every route: (device, mesh).  A given
+    `devices` is the mesh and `device` defaults to its first entry; another
+    `device` raises.  Else the mesh is None (`default_mesh`)."""
+    if devices is None:
+        return resolve_device(device), None
+    from ..parallel.mesh import make_mesh
+
+    mesh = make_mesh(devices=devices)
+    if device is None:
+        return mesh[0], mesh
+    device = resolve_device(device)
+    if _card(device) != _card(mesh[0]):
+        raise ValueError(f"device {device} is not the mesh's first device "
+                         f"{mesh[0]}: name one placement")
+    return device, mesh
+
+
+def default_mesh(device: torch.device) -> list:
+    """The mesh when none is named: every visible card for a bare "cuda",
+    else the one device that `device` names."""
+    if device.type == "cuda" and device.index is None:
+        from ..parallel.mesh import make_mesh
+
+        return make_mesh()
+    return [device]
+
+
+def _card(device: torch.device) -> torch.device:
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 @dataclasses.dataclass
@@ -45,16 +99,21 @@ class Carver:
     retargeting transposes internally (src/render.c:358-364)."""
 
     def __init__(self, image, config: CarverConfig | None = None, *,
-                 device=None, progress=None,
+                 device=None, devices=None, progress=None,
                  checkpoint_path: str | None = None,
                  checkpoint_every: int = 0, resume_from: str | None = None,
                  **overrides):
-        """`device`: where the carve runs (default: `default_device()`).
-        `progress` is a utils.progress.Progress (the analog of
+        """`device`: where the carve runs (default: the first CUDA card;
+        raises when there is none and the CPU was not asked for).
+        `devices`: the mesh of the spatial route (`parallel/mesh.py::
+        make_mesh`; `device` then defaults to its first entry and may not
+        name another).  With no `devices` the mesh is every visible card
+        for `device` None or "cuda", else `[device]`.  `progress` is a utils.progress.Progress (the analog of
         lqr_carver_set_progress, src/render.c:316); checkpoint_* /
         resume_from route the seam loop through
-        utils.checkpoint.carve_resumable.  With bidirectional resizes they
-        apply to the WIDTH pass (the first one)."""
+        utils.checkpoint.carve_resumable, or on the spatial route through
+        its sharded checkpoints.  With bidirectional resizes they apply to
+        the WIDTH pass (the first one)."""
         if config is None:
             config = CarverConfig(**overrides)
         elif overrides:
@@ -62,8 +121,7 @@ class Carver:
         self.config = config
         self.progress = progress
         self._ckpt = (checkpoint_path, checkpoint_every, resume_from)
-        self.device = torch.device(device) if device is not None \
-            else default_device()
+        self.device, self.devices = resolve_placement(device, devices)
         self._resolved_parallel()
         self.image = np.asarray(image)
         if self.image.ndim not in (2, 3):
@@ -71,9 +129,10 @@ class Carver:
         self._h, self._w = self.image.shape[:2]
 
     def _resolved_parallel(self) -> str:
-        """The route for THIS carver (one image): "none".  Counterpart of
-        the JAX `Carver._resolved_parallel`; its "spatial" route is not
-        ported yet."""
+        """The route for THIS carver (one image): "none" or "spatial".
+        Counterpart of the JAX `Carver._resolved_parallel`, whose "auto"
+        picks the spatial route for any image whenever more than one device
+        is visible (ROADMAP Queue 3); the port mirrors it."""
         par = self.config.parallel
         if par == "batch":
             raise ValueError(
@@ -81,15 +140,12 @@ class Carver:
                 "(B, H, W[, C]) array to api.carve, or use "
                 "parallel.mesh.carve_batch")
         if par == "auto":
-            n_dev = (torch.cuda.device_count() if self.device.type == "cuda"
-                     else 1)
-            if n_dev > 1:
-                raise NotImplementedError(
-                    f"parallel='auto' with {n_dev} devices picks the spatial "
-                    "route, which is not ported yet (ROADMAP Queue 1 item "
-                    "9); use parallel='none'")
-            par = "none"
+            par = "spatial" if len(self._mesh()) > 1 else "none"
         return par
+
+    def _mesh(self) -> list:
+        return (self.devices if self.devices is not None
+                else default_mesh(self.device))
 
     def _to_device(self, img: np.ndarray) -> torch.Tensor:
         # a copy only where the array is strided or read-only (Pillow's)
@@ -164,6 +220,8 @@ class Carver:
             raise ValueError(
                 f"cannot change dimension by {delta}: image is "
                 f"{img.shape[1]} wide")
+        if self._resolved_parallel() == "spatial":
+            return self._carve_axis_spatial(img, delta, transpose)
         dev_img = self._to_device(img)
         luma = to_luma(dev_img, cfg.luma)
         ckpt_path, ckpt_every, resume = self._ckpt
@@ -189,6 +247,51 @@ class Carver:
         vmap_np = state.vmap.cpu().numpy()
         # the reference exports the PRE-carve energy (display_carver_energy
         # runs before lqr_carver_resize, src/render.c:370-377)
+        energy_np = (self._energy_u8(luma, energy_fn=cfg.energy_function)
+                     if cfg.output_energy else None)
+        if transpose:
+            out = np.swapaxes(out, 0, 1)
+            vmap_np = np.swapaxes(vmap_np, 0, 1)
+            if energy_np is not None:
+                energy_np = np.swapaxes(energy_np, 0, 1)
+        return out, vmap_np, energy_np
+
+    # -- the mesh-sharded single-image route (parallel/spatial.py: the same
+    #    seams as the single-device route)
+    def _carve_axis_spatial(self, img: np.ndarray, delta: int,
+                            transpose: bool):
+        from ..parallel.spatial import (spatial_carve_n_seams,
+                                        spatial_enlarge_n_seams)
+
+        cfg = self.config
+        n = abs(delta)
+        mesh = self._mesh()
+        dev_img = torch.from_numpy(np.require(img, requirements=("C", "W"))
+                                   ).to(mesh[0])
+        luma = to_luma(dev_img, cfg.luma)
+        ckpt_path, ckpt_every, resume = self._ckpt
+        if transpose:  # as on one device, checkpoints and progress cover
+            ckpt_path = resume = None  # the width pass (the first) only
+        common = dict(
+            blocksize=cfg.blocksize, edges=cfg.edges, textures=cfg.textures,
+            devices=mesh, strip_update=cfg.strip_update,
+            use_pallas=cfg.use_pallas, delta_x=cfg.delta_x,
+            rigidity=cfg.rigidity, energy=cfg.energy_function, tie=cfg.tie,
+            progress=None if transpose else self.progress,
+            chunk=ckpt_every if (ckpt_path or resume) else 0,
+            checkpoint_dir=ckpt_path, resume_from=resume,
+        )
+        if delta < 0:
+            res = spatial_carve_n_seams(luma, n, image=dev_img, **common)
+            out = res.image[:, :img.shape[1] - n]
+        else:
+            res = spatial_enlarge_n_seams(luma, n, dev_img, **common)
+            out = res.image
+        out = out.cpu().numpy()
+        vmap_np = res.vmap.cpu().numpy()
+        # the pre-carve energy export, unsharded as in the JAX package
+        # (display_carver_energy runs before the resize, src/render.c:
+        # 370-377)
         energy_np = (self._energy_u8(luma, energy_fn=cfg.energy_function)
                      if cfg.output_energy else None)
         if transpose:

@@ -47,9 +47,9 @@ import torch
 from .dct import energy_from_bands, window_offset
 from .dp import check_tie, find_seam as find_seam_plain, mask_energy
 
-__all__ = ["CarveState", "make_state", "carve_n_seams", "carve_seams",
-           "strip_fits", "full_energy_map", "reconstruct_removed",
-           "reconstruct_enlarged"]
+__all__ = ["CarveState", "ShardOffset", "make_state", "carve_n_seams",
+           "carve_seams", "strip_fits", "full_energy_map",
+           "reconstruct_removed", "reconstruct_enlarged"]
 
 
 class CarveState(NamedTuple):
@@ -75,6 +75,22 @@ def make_state(luma: torch.Tensor, width: int | None = None) -> CarveState:
         width=W if width is None else int(width),
         energy=torch.zeros(luma.shape, dtype=torch.float32, device=dev),
     )
+
+
+class ShardOffset(NamedTuple):
+    """Where a (S, H, Wl) stack of column shards lies in one image (the
+    spatial route, `parallel/spatial.py`): shard s owns global columns
+    [lo + s*Wl, lo + (s+1)*Wl) of a buffer `width` columns wide, and its
+    luma plane carries the edge-clamped halo of an n-wide window, r-1
+    columns before its own and r after (r = n // 2), so it is Wl + n - 1
+    wide.  Strip starts are clamped to `width`, as on one device."""
+    lo: int
+    width: int
+
+
+def _shard_origins(shard: ShardOffset, S: int, Wl: int, device):
+    """(S,) int64: the global column of each shard's first owned column."""
+    return shard.lo + Wl * torch.arange(S, device=device)
 
 
 def _edge_fill(luma: torch.Tensor, width: int) -> torch.Tensor:
@@ -106,22 +122,31 @@ def _strip_bounds(seam: torch.Tensor, blocksize: int, W: int,
 
 
 def _gather_strip_bands(luma: torch.Tensor, seam: torch.Tensor, n: int,
-                        delta_x: int = 1) -> torch.Tensor:
+                        delta_x: int = 1,
+                        shard: ShardOffset | None = None) -> torch.Tensor:
     """The plain version of the strip gather kernel: each row's band of the
     compacted, edge-filled `luma` around the removed `seam`.  luma:
     (..., H, W); seam: (..., H).  Returns (..., H, n, strip_w + n - 1):
     bands[..., i, dy, t] = luma[..., clip(i + co + dy), clip(start_i + co
-    + t)] with co = window_offset(n, "carve")."""
-    H, W = luma.shape[-2:]
+    + t)] with co = window_offset(n, "carve").  With `shard`, luma is a
+    (S, H, Wl + n - 1) stack of shards with their halos, seam the (H,) seam
+    they share, and each band column is read at its global column (clamped
+    to the shard's plane)."""
+    H, Wx = luma.shape[-2:]
     dev = luma.device
-    start, strip_w = _strip_bounds(seam, n, W, delta_x)
     co = window_offset(n, "carve")
-    cols = (start[..., None] + co
-            + torch.arange(strip_w + n - 1, device=dev)).clamp(0, W - 1)
+    W = Wx if shard is None else shard.width
+    start, strip_w = _strip_bounds(seam, n, W, delta_x)
+    cols = start[..., None] + co + torch.arange(strip_w + n - 1, device=dev)
+    if shard is not None:
+        # luma column 0 of shard s is global column origin_s - (r - 1)
+        x0 = _shard_origins(shard, luma.shape[0], Wx - n + 1, dev) + co
+        cols = cols[None] - x0[:, None, None]
+    cols = cols.clamp(0, Wx - 1)
     rows = (torch.arange(H, device=dev)[:, None] + co
             + torch.arange(n, device=dev)[None, :]).clamp(0, H - 1)
     # (B, H, n, strip_w+n-1): row i's band reads rows[i] at cols[..., i, :]
-    planes = luma.reshape(-1, H, W)
+    planes = luma.reshape(-1, H, Wx)
     b = torch.arange(planes.shape[0], device=dev)[:, None, None, None]
     bands = planes[b, rows[:, :, None],
                    cols.reshape(-1, H, strip_w + n - 1)[:, :, None, :]]
@@ -129,43 +154,58 @@ def _gather_strip_bands(luma: torch.Tensor, seam: torch.Tensor, n: int,
 
 
 def _scatter_strips(energy: torch.Tensor, strip: torch.Tensor,
-                    seam: torch.Tensor, n: int,
-                    delta_x: int = 1) -> torch.Tensor:
+                    seam: torch.Tensor, n: int, delta_x: int = 1,
+                    shard: ShardOffset | None = None) -> torch.Tensor:
     """The plain version of the strip scatter kernel: write, in place, each
     row's (..., H, strip_w) strip into the compacted `energy` at the row's
-    strip start, and return `energy`."""
-    start, strip_w = _strip_bounds(seam, n, energy.shape[-1], delta_x)
-    idx = start[..., None] + torch.arange(strip_w, device=energy.device)
-    return energy.scatter_(-1, idx, strip.to(energy.dtype))
+    strip start, and return `energy`.  With `shard`, energy is a (S, H, Wl)
+    stack of shards and each keeps the strip columns it owns."""
+    W = energy.shape[-1]
+    dev = energy.device
+    start, strip_w = _strip_bounds(seam, n, W if shard is None
+                                   else shard.width, delta_x)
+    idx = start[..., None] + torch.arange(strip_w, device=dev)
+    if shard is None:
+        return energy.scatter_(-1, idx, strip.to(energy.dtype))
+    idx = idx[None] - _shard_origins(shard, energy.shape[0], W,
+                                     dev)[:, None, None]
+    # columns of other shards land in one extra column, which is dropped
+    idx = torch.where((idx >= 0) & (idx < W), idx, W)
+    spill = torch.zeros_like(energy[..., :1])
+    padded = torch.cat([energy, spill], dim=-1)
+    padded.scatter_(-1, idx, strip.to(energy.dtype))
+    return energy.copy_(padded[..., :W])
 
 
 def _recompute_strip(luma: torch.Tensor, energy: torch.Tensor,
                      seam: torch.Tensor, blocksize: int, edges, textures,
-                     delta_x: int = 1) -> torch.Tensor:
+                     delta_x: int = 1,
+                     shard: ShardOffset | None = None) -> torch.Tensor:
     """The plain version of the DCT strip kernel: overwrite, in place, each
     row's strip of the compacted `energy` with the energy of the compacted,
     edge-filled `luma`.  Returns `energy`.  luma, energy: (..., H, W);
-    seam: (..., H)."""
-    bands = _gather_strip_bands(luma, seam, blocksize, delta_x)
+    seam: (..., H); with `shard`, a stack of shards (`ShardOffset`)."""
+    bands = _gather_strip_bands(luma, seam, blocksize, delta_x, shard)
     strip = energy_from_bands(bands, blocksize, edges, textures)
-    return _scatter_strips(energy, strip, seam, blocksize, delta_x)
+    return _scatter_strips(energy, strip, seam, blocksize, delta_x, shard)
 
 
 def _update_strip_fn(luma: torch.Tensor, energy: torch.Tensor,
                      seam: torch.Tensor, energy_fn, delta_x: int,
-                     use_pallas: bool) -> torch.Tensor:
+                     use_pallas: bool,
+                     shard: ShardOffset | None = None) -> torch.Tensor:
     """The strip update of a plugged energy, in place: gather the bands
     (kernel #11's counterpart), run `energy_fn.bands_fn` on them, scatter
-    the strips (kernel #12's counterpart)."""
+    the strips (kernel #12's counterpart).  `shard`: as `_recompute_strip`."""
     from ..kernels.strip_kernel import strip_gather, strip_scatter
 
     n = energy_fn.n
     bands = strip_gather(luma, seam, n, delta_x=delta_x,
-                         use_pallas=use_pallas)
+                         use_pallas=use_pallas, shard=shard)
     strip = energy_fn.bands_fn(bands.reshape(-1, *bands.shape[-2:]))
     strip = strip.to(torch.float32).reshape(*bands.shape[:-2], -1)
     return strip_scatter(energy, strip.contiguous(), seam, n,
-                         delta_x=delta_x, use_pallas=use_pallas)
+                         delta_x=delta_x, use_pallas=use_pallas, shard=shard)
 
 
 def full_energy_map(luma: torch.Tensor, blocksize: int, edges, textures,

@@ -1,7 +1,11 @@
-"""The batch route: carve a stack of same-size images, split over devices.
+"""The device mesh, and the batch route: carve a stack of same-size images,
+split over devices.
 
-Counterpart of `dct_carver_tpu/parallel/mesh.py` (`batch_carve_states`
-:40, `carve_batch` :69), the route of BASELINE config 4.  JAX `vmap`s the
+Counterpart of `dct_carver_tpu/parallel/mesh.py` (`make_mesh` :26,
+`batch_carve_states` :40, `carve_batch` :69), the route of BASELINE config
+4.  A mesh here is an ordered list of torch devices (`make_mesh`); the
+spatial route (`parallel/spatial.py`) puts one column shard on each entry,
+and an entry may repeat, so several shards can share one card.  JAX `vmap`s the
 single-image carve over the batch and shards the batch over a device mesh.
 Here the carve loop itself takes the leading B (`ops/carve.py`), so each
 seam step is one launch per kernel for the whole batch on a device.
@@ -17,12 +21,34 @@ from __future__ import annotations
 
 import torch
 
-from ..models.carver import default_device
+from ..models.carver import NO_CARD, resolve_device
 from ..ops import carve as carve_ops
 from ..ops.energy import to_luma
 from ..ops.energy_fn import resolve_energy
 
-__all__ = ["carve_batch", "batch_carve_states"]
+__all__ = ["make_mesh", "carve_batch", "batch_carve_states"]
+
+
+def make_mesh(n_devices: int | None = None,
+              devices=None) -> list[torch.device]:
+    """The ordered devices of a 1-D mesh: `devices` when given, else the
+    first `n_devices` visible CUDA cards (default: all of them).  Entries
+    may repeat: `["cuda:0"] * 4` is four shards on one card, and
+    `["cpu"] * 8` the CPU counterpart of the JAX tests' 8-device mesh.
+    Raises when no device is named and no card is visible."""
+    if devices is None:
+        count = torch.cuda.device_count()
+        if count == 0:
+            raise RuntimeError(NO_CARD)
+        devices = [f"cuda:{i}" for i in range(count)]
+    devices = [torch.device(d) for d in devices]
+    if n_devices is not None:
+        devices = devices[:n_devices]
+    if not devices:
+        raise ValueError("a mesh needs at least one device")
+    for d in devices:
+        resolve_device(d)
+    return devices
 
 
 def batch_carve_states(images: torch.Tensor, n_seams: int, blocksize: int,
@@ -60,13 +86,13 @@ def carve_batch(images, n_seams: int, *, blocksize: int = 8,
     4 of BASELINE.md: 1024 x 1-Mpix images, 128 seams).
 
     images: (B, H, W[, C]) u8/float, a numpy array or a tensor.  `devices`:
-    the torch devices to split the batch over (default
-    `[default_device()]`).  Returns (carved (B, H, W - n_seams[, C]) |
+    the torch devices to split the batch over (default: the first CUDA
+    card; pass `["cpu"]` to run on the CPU).  Returns (carved (B, H, W - n_seams[, C]) |
     None, vmaps (B, H, W) int32), tensors on the first device.  `energy`:
     None/'dct', a builtin name or an `EnergyFunction`.
     """
     energy_fn = resolve_energy(energy)
-    devices = [torch.device(d) for d in (devices or [default_device()])]
+    devices = [resolve_device(d) for d in (devices or [None])]
     images = torch.as_tensor(images)
     if images.ndim not in (3, 4) or not len(images):
         raise ValueError(f"images must be a (B, H, W[, C]) stack of B >= 1, "

@@ -6,14 +6,25 @@ The reference persists only its settings across invocations
 state (current luma + origcol + vmap + width + energy) goes into one
 `.npz` with the same keys and meta as the JAX package writes, so a carve
 checkpointed by either package resumes in the other.  The arrays carry over
-through `utils/state.py`.  The sharded (orbax) format of the JAX package
-comes with the spatial route (ROADMAP Queue 1 item 9).
+through `utils/state.py`.
+
+The spatial route's sharded checkpoints (`save_sharded` / `load_sharded`,
+counterparts of the JAX package's) keep its commit rules with the port's
+own files: each chunk writes one `.npz` per shard into a `state-%08d` step
+directory, committed by renaming it into place; the step's name is the
+progress counter; `meta.json` is written with a temporary file and
+`os.replace`; older steps are pruned after the commit.  The JAX package
+writes these with orbax, whose directories the port cannot read: a sharded
+carve resumes only in the package that wrote it (its state carries over
+in memory through `utils/state.py`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import shutil
 
 import numpy as np
 import torch
@@ -22,9 +33,12 @@ from ..ops.carve import CarveState
 from .config import CarverConfig
 from .state import state_from_numpy, state_to_numpy
 
-__all__ = ["save_state", "load_state", "carve_resumable"]
+__all__ = ["save_state", "load_state", "carve_resumable", "save_sharded",
+           "load_sharded"]
 
 _FORMAT_VERSION = 2
+_SHARDED_VERSION = 1
+_STEP_PREFIX = "state-"
 
 
 def _config_to_jsonable(config: CarverConfig) -> dict:
@@ -83,7 +97,7 @@ def carve_resumable(luma, n_seams: int, config: CarverConfig, *,
     writes the checkpoint.  `progress` is an optional `Progress`
     (utils/progress.py) mirroring the liblqr progress hooks.  `luma`: the
     (H, W) plane to carve (unused when resuming); `device`: where a resumed
-    carve runs (default: `luma`'s device, else `default_device()`).  A
+    carve runs (default: `luma`'s device, else the first CUDA card).  A
     resumed carve takes the checkpoint's config.
     """
     from ..ops.carve import (carve_seams, full_energy_map, make_state,
@@ -135,3 +149,100 @@ def carve_resumable(luma, n_seams: int, config: CarverConfig, *,
     if progress is not None:
         progress.end()
     return state
+
+
+def _step_dirs(path: str) -> list[tuple[int, str]]:
+    """The committed step directories under `path`, oldest first."""
+    if not os.path.isdir(path):
+        return []
+    steps = []
+    for name in os.listdir(path):
+        digits = name[len(_STEP_PREFIX):]
+        if name.startswith(_STEP_PREFIX) and digits.isdigit():
+            steps.append((int(digits), name))
+    return sorted(steps)
+
+
+def save_sharded(path: str, state, mesh, meta: dict) -> None:
+    """Checkpoint a sharded carve state (`parallel/spatial.py::
+    SpatialCarveState` on `mesh`, a `parallel/shards.py::ShardMesh`).
+
+    Every chunk saves into its own `state-{seams_done}` directory, written
+    under a temporary name and renamed into place, so a save cut short
+    never shows as a step; the progress counter is the step's name, never
+    the side-car meta.json.  Older steps go only after the new one is
+    committed.  `meta` must carry `seams_done`; the caller checks the carve
+    parameters it holds on resume.  A committed step of the same number (a
+    new run reusing the directory) is replaced."""
+    path = os.path.abspath(path)
+    os.makedirs(path, exist_ok=True)
+    step = int(meta["seams_done"])
+    name = f"{_STEP_PREFIX}{step:08d}"
+    tmp = os.path.join(path, f".{name}.tmp")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    fields = ["luma", "origcol", "vmap", "energy"]
+    if state.image is not None:
+        fields.append("image")
+    for g, st in enumerate(mesh.stacks):
+        for i in range(st.count):
+            np.savez(os.path.join(tmp, f"shard-{st.first + i:05d}.npz"),
+                     width=np.asarray(state.width, np.int32),
+                     **{f: getattr(state, f)[g][i].cpu().numpy()
+                        for f in fields})
+    final = os.path.join(path, name)
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.replace(tmp, final)
+    meta_full = {"version": _SHARDED_VERSION, "shards": mesh.size,
+                 "buffer_width": mesh.width, **meta}
+    tmp_meta = os.path.join(path, ".meta.json.tmp")
+    with open(tmp_meta, "w") as f:
+        json.dump(meta_full, f)
+    os.replace(tmp_meta, os.path.join(path, "meta.json"))
+    for s, old in _step_dirs(path):
+        if s != step:
+            shutil.rmtree(os.path.join(path, old), ignore_errors=True)
+
+
+def load_sharded(path: str, devices):
+    """Restore the newest committed step of a sharded checkpoint onto the
+    mesh `devices` (any shard count that divides the saved buffer width).
+    Returns (SpatialCarveState, ShardMesh, meta); meta["seams_done"] comes
+    from the committed step's name."""
+    from ..parallel.shards import ShardMesh
+    from ..parallel.spatial import SpatialCarveState
+
+    path = os.path.abspath(path)
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    if meta["version"] != _SHARDED_VERSION:
+        raise ValueError(f"checkpoint version {meta['version']} unsupported")
+    steps = _step_dirs(path)
+    if not steps:
+        raise FileNotFoundError(f"no committed checkpoint step under {path}")
+    step, name = steps[-1]
+    meta["seams_done"] = step
+    shards = []
+    for i in range(meta["shards"]):
+        with np.load(os.path.join(path, name, f"shard-{i:05d}.npz")) as z:
+            shards.append({k: z[k] for k in z.files})
+    mesh = ShardMesh(devices, meta["buffer_width"])
+    home = mesh.stacks[0].device
+
+    def whole(field):
+        # (shards, H, Wl[, C]) -> (H, buffer_width[, C])
+        parts = np.stack([sh[field] for sh in shards])
+        parts = np.moveaxis(parts, 0, 1)
+        return torch.from_numpy(parts.reshape(
+            parts.shape[0], -1, *parts.shape[3:])).to(home)
+
+    state = SpatialCarveState(
+        luma=mesh.split(whole("luma")),
+        image=mesh.split(whole("image")) if "image" in shards[0] else None,
+        origcol=mesh.split(whole("origcol")),
+        vmap=mesh.split(whole("vmap")),
+        energy=mesh.split(whole("energy")),
+        width=int(shards[0]["width"]),
+    )
+    return state, mesh, meta

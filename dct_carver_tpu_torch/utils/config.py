@@ -2,9 +2,7 @@
 
 Same fields, defaults and validation as the JAX package's
 `dct_carver_tpu/utils/config.py` (reference `src/main.h:12-22`, defaults
-`src/main.c:30-40`).  The one route the port does not implement yet,
-`parallel="spatial"`, raises `NotImplementedError` naming the ROADMAP item
-that brings it.
+`src/main.c:30-40`).
 """
 
 from __future__ import annotations
@@ -50,8 +48,8 @@ class CarverConfig:
     use_pallas: bool = True
     strip_update: bool = True   # incremental energy updates between seams
     row_block: int | None = None  # accepted for parity; no effect here
-    # "none" | "batch" (a (B, H, W[, C]) stack) | "auto"; "spatial" is not
-    # ported yet
+    # "none" | "batch" (a (B, H, W[, C]) stack) | "spatial" (one image
+    # column-sharded over a mesh, parallel/spatial.py) | "auto"
     parallel: str = "none"
 
     def __post_init__(self):
@@ -68,10 +66,6 @@ class CarverConfig:
             raise ValueError(
                 f"parallel must be none/batch/spatial/auto, got "
                 f"{self.parallel!r}")
-        if self.parallel == "spatial":
-            raise NotImplementedError(
-                "parallel='spatial' is not ported yet (ROADMAP Queue 1 item "
-                "9); use 'none', 'batch' or 'auto'")
         self.energy_function  # validates the energy spec eagerly
 
     @property

@@ -8,6 +8,11 @@ back, so a carve can start in one package and go on in the other.  A
 batched state (JAX `parallel/mesh.py::batch_carve_states`: (B, H, W) arrays
 and a (B,) `width`) carries over too; the port's batch shares one width, so
 every image's must be equal.
+
+The spatial route's state carries over the same way
+(`spatial_state_from_numpy` / `spatial_state_to_numpy`): the leaves of a JAX
+`parallel/spatial.py::SpatialCarveState` as whole (H, W) numpy arrays, W
+the mesh-padded buffer width, and the port's sharded state on a mesh.
 """
 
 from __future__ import annotations
@@ -17,7 +22,8 @@ import torch
 
 from ..ops.carve import CarveState
 
-__all__ = ["state_from_numpy", "state_to_numpy"]
+__all__ = ["state_from_numpy", "state_to_numpy",
+           "spatial_state_from_numpy", "spatial_state_to_numpy"]
 
 
 def state_from_numpy(arrays, device="cpu") -> CarveState:
@@ -62,3 +68,47 @@ def state_to_numpy(state: CarveState) -> dict:
         "width": width,
         "energy": state.energy.cpu().numpy(),
     }
+
+
+def spatial_state_from_numpy(arrays, devices):
+    """Mapping of numpy arrays (the JAX `SpatialCarveState` leaves: luma,
+    image, origcol, vmap, energy as (H, W[, C]) arrays, width) -> (the
+    port's `SpatialCarveState`, its `ShardMesh`) over the mesh `devices`,
+    which must divide W.  JAX's (1, shards) image placeholder, or a missing
+    image, means no carried image."""
+    from ..parallel.mesh import make_mesh
+    from ..parallel.shards import ShardMesh
+    from ..parallel.spatial import SpatialCarveState
+
+    luma = np.asarray(arrays["luma"])
+    if luma.ndim != 2 or not np.issubdtype(luma.dtype, np.floating):
+        raise ValueError("luma must be a (H, W) float array")
+    mesh = ShardMesh(make_mesh(devices=devices), luma.shape[1])
+
+    def put(name, dtype=None):
+        a = torch.as_tensor(np.array(arrays[name]), dtype=dtype)
+        if a.shape[:2] != luma.shape:
+            raise ValueError(f"{name} must have luma's shape {luma.shape}")
+        return mesh.split(a)
+
+    image = arrays.get("image")
+    with_image = image is not None and np.shape(image)[:2] == luma.shape
+    state = SpatialCarveState(
+        luma=put("luma"), image=put("image") if with_image else None,
+        origcol=put("origcol", torch.int32), vmap=put("vmap", torch.int32),
+        energy=put("energy", torch.float32),
+        width=int(np.asarray(arrays["width"])))
+    return state, mesh
+
+
+def spatial_state_to_numpy(state, mesh) -> dict:
+    """The port's sharded state -> dict of whole numpy arrays with the JAX
+    leaf names (`width` a 0-d int32 array; no carried image gives JAX's
+    (1, shards) placeholder)."""
+    out = {name: mesh.join(getattr(state, name)).cpu().numpy()
+           for name in ("luma", "origcol", "vmap", "energy")}
+    out["image"] = (mesh.join(state.image).cpu().numpy()
+                    if state.image is not None
+                    else np.zeros((1, mesh.size), out["luma"].dtype))
+    out["width"] = np.asarray(state.width, np.int32)
+    return out

@@ -281,7 +281,8 @@ def test_device_split_equals_one_device(reconstruct, make_image):
     imgs = np.stack([make_image(16, 24, c=3) for _ in range(5)])
     out3, vm3 = tmesh.carve_batch(imgs, 3, devices=["cpu"] * 3,
                                   reconstruct=reconstruct)
-    out1, vm1 = tmesh.carve_batch(imgs, 3, reconstruct=reconstruct)
+    out1, vm1 = tmesh.carve_batch(imgs, 3, devices=["cpu"],
+                                  reconstruct=reconstruct)
     np.testing.assert_array_equal(vm3.numpy(), vm1.numpy())
     if reconstruct:
         assert out3.shape == (5, 16, 21, 3)
@@ -335,7 +336,8 @@ def test_batch_route_rejects_bad_stacks():
     assert ((vm > 0).sum(dim=2) == 3).all()
     with pytest.raises(ValueError, match="unknown builtin energy"):
         tmesh.carve_batch(imgs, 3, energy="grad_bogus", devices=["cpu"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    # the spatial route (ported) carves one image, not a stack
+    with pytest.raises(ValueError, match=r"\(H, W\) or \(H, W, C\)"):
         tapi.carve(imgs, -3, parallel="spatial", device="cpu")
 
 

@@ -198,8 +198,12 @@ def test_port_never_imports_jax():
         "from dct_carver_tpu_torch import api, models, kernels\n"
         "from dct_carver_tpu_torch.kernels import build\n"
         "from dct_carver_tpu_torch.utils import state\n"
+        "from dct_carver_tpu_torch.parallel import shards, spatial\n"
         "img = np.zeros((16, 24, 3), np.uint8)\n"
         "api.carve(img, -2, device='cpu')\n"
+        "res = spatial.spatial_carve_n_seams(np.ones((16, 24), np.float32),"
+        " 2, devices=['cpu'] * 2)\n"
+        "assert res.width == 22\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert not any(m.startswith('dct_carver_tpu.') or "
         "m == 'dct_carver_tpu' for m in sys.modules)\n"
@@ -218,8 +222,7 @@ def test_config_validation():
     assert res.image.shape == (8, 10, 3)
     with pytest.raises(ValueError, match="unknown builtin energy"):
         CarverConfig(energy="grad_bogus")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        CarverConfig(parallel="spatial")
+    assert CarverConfig(parallel="spatial").parallel == "spatial"
     with pytest.raises(ValueError):
         CarverConfig(parallel="sideways")
     with pytest.raises(ValueError):
@@ -239,8 +242,9 @@ def test_unported_routes_raise():
         tapi.carve(img, -2, parallel="none", device="cpu")
     with pytest.raises(ValueError, match=r"\(H, W\) or \(H, W, C\)"):
         Carver(img, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tapi.carve(img[0], -2, parallel="spatial", device="cpu")
+    # the spatial route is ported (tests/test_torch_spatial.py)
+    res = tapi.carve(img[0], -2, parallel="spatial", devices=["cpu"] * 2)
+    assert res.image.shape == (16, 14, 3)
     # the interactive and ui commands wait for models/retarget.py and ui/
     from dct_carver_tpu_torch.cli import main as cli_main
 

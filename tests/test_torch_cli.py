@@ -21,13 +21,19 @@ from dct_carver_tpu.utils import checkpoint as jckpt
 from dct_carver_tpu.utils.image import load_ppm, save_ppm
 from dct_carver_tpu_torch import api as tapi
 from dct_carver_tpu_torch import kernels
-from dct_carver_tpu_torch.cli import main as tmain
+from dct_carver_tpu_torch.cli import main as _tmain
 from dct_carver_tpu_torch.models.carver import Carver
 from dct_carver_tpu_torch.utils import checkpoint as tckpt
 from dct_carver_tpu_torch.utils import i18n
 from dct_carver_tpu_torch.utils.image import load_image, seam_overlay
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def tmain(argv):
+    """The port's CLI, asked to run on the CPU (`--device cpu`; it
+    raises when no card is visible and the CPU is not asked for)."""
+    return _tmain([*argv, "--device", "cpu"])
 
 
 @pytest.fixture
@@ -245,15 +251,23 @@ def test_summary_line_and_overlay(env, make_image, capsys):
 @pytest.mark.parametrize("argv,item", [
     (["interactive", "{inp}", "o_{{w}}.ppm", "--max-seams", "3"], "item 7"),
     (["ui", "{inp}"], "item 7"),
-    (["carve", "{inp}", "o.ppm", "--seams", "-2", "--spatial"], "item 9"),
-    (["carve", "{inp}", "o.ppm", "--seams", "-2", "--parallel", "spatial"],
+    # ROADMAP Queue 1 item 9, the spatial route, is ported: these carve
+    (["carve", "{inp}", "{out}", "--seams", "-2", "--spatial"], "item 9"),
+    (["carve", "{inp}", "{out}", "--seams", "-2", "--parallel", "spatial"],
      "item 9"),
 ])
 def test_unported_commands_raise(argv, item, env, make_image):
-    inp = env / "in.ppm"
-    save_ppm(str(inp), make_image(8, 12, c=3))
+    inp, out = env / "in.ppm", env / "o.ppm"
+    img = make_image(8, 12, c=3)
+    save_ppm(str(inp), img)
+    argv = [a.format(inp=inp, out=out) for a in argv]
+    if item == "item 9":
+        assert tmain(argv) == 0
+        np.testing.assert_array_equal(
+            load_ppm(str(out)), tapi.carve(img, -2, device="cpu").image)
+        return
     with pytest.raises(NotImplementedError, match=item):
-        tmain([a.format(inp=inp) for a in argv])
+        _tmain(argv)  # `ui` takes no --device
 
 
 def test_i18n_opt_in_at_import():

@@ -410,7 +410,9 @@ class _StopAtEnd:
 def _interrupted(carve_resumable, luma, cfg, path):
     with pytest.raises(_Interrupt):
         carve_resumable(luma, 6, cfg, checkpoint_path=path,
-                        checkpoint_every=3, progress=_StopAtEnd())
+                        checkpoint_every=3, progress=_StopAtEnd(),
+                        **({"device": "cpu"} if carve_resumable is
+                           tckpt.carve_resumable else {}))
 
 
 @pytest.mark.parametrize("energy", ["grad_sumabs", None])
@@ -462,14 +464,16 @@ def test_carve_resumable_chunks_and_progress(tmp_path):
     cfg = CarverConfig(energy="grad_norm")
     path = str(tmp_path / "ck.npz")
     got = tckpt.carve_resumable(luma, 7, cfg, checkpoint_path=path,
-                                checkpoint_every=3, progress=Rec())
+                                checkpoint_every=3, progress=Rec(),
+                                device="cpu")
     assert events == [("init", "Resizing width..."), ("update", 3 / 7),
                       ("update", 6 / 7), ("update", 1.0), ("end",)]
     whole = tcarve.carve_n_seams(luma, 7, 8, 0.0, 1.0, energy_fn=GRAD_NORM)
     np.testing.assert_array_equal(got.vmap.numpy(), whole.vmap.numpy())
     assert tckpt.load_state(path)[2:] == (7, 7)
     with pytest.raises(ValueError, match="requested"):
-        tckpt.carve_resumable(None, 8, cfg, resume_from=path)
+        tckpt.carve_resumable(None, 8, cfg, resume_from=path,
+                              device="cpu")
     custom = CarverConfig(energy=custom_energy(1, lambda w: w[0, 0]))
     with pytest.raises(ValueError, match="checkpoint"):
         tckpt.save_state(str(tmp_path / "bad.npz"),

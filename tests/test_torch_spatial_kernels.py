@@ -1,0 +1,217 @@
+"""The spatial route's kernels, through their plain versions, against the
+JAX package's (`dct_carver_tpu/pallas/spatial_dp_kernel.py`), and the strip
+with a shard offset against the unsharded strip.
+
+Every input comes from a seed through numpy; these paths only add, compare
+and copy, so every comparison is bitwise.  On the CPU each wrapper takes
+its plain version (no kernel is built here); `chip_smoke.py` holds the CUDA
+kernels against the same plain versions on the card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from dct_carver_tpu.pallas import spatial_dp_kernel as jsp
+from dct_carver_tpu_torch import kernels
+from dct_carver_tpu_torch.kernels.spatial_kernel import (
+    block_dp, block_dp_parts, scan_rows, seg_walk, sharded_apply, walk_rows)
+from dct_carver_tpu_torch.kernels.strip_kernel import (
+    strip_gather, strip_scatter, strip_update)
+from dct_carver_tpu_torch.ops.carve import ShardOffset, _strip_extent
+
+
+def _energy(rng, shape, quantized=False):
+    if quantized:  # many ties
+        return (rng.integers(0, 3, shape) / 2).astype(np.float32)
+    return rng.random(shape, dtype=np.float32)
+
+
+@pytest.mark.parametrize("Kb,width,quantized", [
+    (8, 70, False),   # full block, the width ends inside shard 2's window
+    (5, 64, True),    # a remainder block (rem < K), ties
+])
+def test_block_dp_equals_jax(Kb, width, quantized):
+    S, Wl, Hh = 4, 16, 16
+    We = Wl + 2 * Hh
+    rng = np.random.default_rng(Kb)
+    msg = _energy(rng, (S, Kb + 1, We), quantized)
+    kernels.reset_launches()
+    got = block_dp(torch.from_numpy(msg), 0, torch.tensor([width],
+                   dtype=torch.int32), Hh).numpy()
+    assert sum(kernels.launch_counts().values()) == 0
+    for s in range(S):
+        col0 = s * Wl - Hh  # negative on shard 0
+        want = jsp._plain_block_dp(jnp.asarray(msg[s]), col0, width, Kb)
+        np.testing.assert_array_equal(got[s], np.asarray(want))
+
+
+def test_block_dp_parts_equals_jax_and_block_dp():
+    S, Kb, Wl, Hh, lo, width = 3, 6, 24, 12, 24, 90
+    rng = np.random.default_rng(3)
+    prev = _energy(rng, (S, Wl))
+    E = _energy(rng, (S, Kb, Wl))
+    lh, rh = _energy(rng, (S, Kb + 1, Hh)), _energy(rng, (S, Kb + 1, Hh))
+    w = torch.tensor([width], dtype=torch.int32)
+    out = torch.full((S, Kb, Wl + 2 * Hh), -1.0)
+    got = block_dp_parts(*map(torch.from_numpy, (prev, E, lh, rh)), lo, w,
+                         out=out)
+    assert got is out
+    msg = np.concatenate([lh, np.concatenate([prev[:, None], E], 1), rh], 2)
+    np.testing.assert_array_equal(
+        got.numpy(), block_dp(torch.from_numpy(msg), lo, w, Hh).numpy())
+    for s in range(S):
+        want = jsp.block_dp_parts_rows(
+            jnp.asarray(prev[s]), jnp.asarray(E[s]), jnp.asarray(lh[s]),
+            jnp.asarray(rh[s]), lo + s * Wl - Hh, width, interpret=True)
+        np.testing.assert_array_equal(got[s].numpy(), np.asarray(want))
+
+
+def test_scan_rows_generalized_dp_equals_jax_scan():
+    """delta_x = 2 with a rigidity penalty: the plain route's DP equals the
+    JAX package's masked scan (ops/dp.py's candidate order)."""
+    from dct_carver_tpu.ops.dp import cumulative_energy
+
+    rng = np.random.default_rng(5)
+    E = _energy(rng, (9, 20))
+    msg = np.concatenate([np.zeros((1, 20), np.float32), E])
+    got = scan_rows(torch.from_numpy(msg)[None], torch.tensor([0]), 20,
+                    delta_x=2, rigidity=0.5)[0].numpy()
+    want = np.asarray(cumulative_energy(jnp.asarray(E), delta_x=2,
+                                        rigidity=0.5))
+    # row 0 of M is e0 + min(0, 0, ...) = e0
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("tie", ["leftmost", "rightmost"])
+@pytest.mark.parametrize("entry,Kb", [
+    (21, 8),   # inside shard 1
+    (16, 8),   # shard 1's first column: the window touches shard 0's halo
+    (47, 5),   # the last column of the last shard, a short segment
+    (0, 8),    # column 0: the window starts at the extended row's edge
+])
+def test_seg_walk_equals_jax(tie, entry, Kb):
+    S, Wl, K = 3, 16, 8
+    Hh = 2 * K
+    We = Wl + 2 * Hh
+    rng = np.random.default_rng(entry + Kb)
+    rows = _energy(rng, (S, Kb, We), quantized=True)
+    got = seg_walk(torch.from_numpy(rows),
+                   torch.tensor([entry], dtype=torch.int32), 0, K, Hh,
+                   tie=tie).numpy()
+    owner = entry // Wl
+    start = entry - owner * Wl + Hh - K
+    win = jnp.asarray(rows[owner, :, start:start + 2 * K + 1])
+    want = np.asarray(jsp.seg_walk_rows(win, K, interpret=True, tie=tie))
+    np.testing.assert_array_equal(got[owner], want + entry - K)
+    others = np.delete(got, owner, axis=0)
+    assert not others.any()
+
+
+def test_walk_rows_generalized_equals_scalar_walk():
+    """delta_x = 2 with rigidity: the plain walk of the route's generalized
+    DP equals ops/dp.py's backtrack on the same window."""
+    from dct_carver_tpu_torch.ops.dp import backtrack
+
+    S, Wl, K, d = 2, 20, 4, 2
+    Hh = 2 * K * d
+    We = Wl + 2 * Hh
+    rng = np.random.default_rng(9)
+    rows = torch.from_numpy(_energy(rng, (S, K, We), quantized=True))
+    entry = 27
+    got = walk_rows(rows, torch.tensor([entry], dtype=torch.int32), 0, K,
+                    Hh, "rightmost", delta_x=d, rigidity=0.7)
+    win = rows[1, :, entry - Wl + Hh - K * d:][:, :2 * K * d + 1]
+    # the walk from the window's centre below the last row: append a row
+    # whose only finite cell is that centre, then backtrack
+    below = torch.full((1, win.shape[1]), float("inf"))
+    below[0, K * d] = 0.0
+    want = backtrack(torch.cat([win, below]), d, 0.7, "rightmost")[:-1]
+    np.testing.assert_array_equal(got[1].numpy(),
+                                  want.numpy() + entry - K * d)
+    assert not got[0].any()
+
+
+@pytest.mark.parametrize("new_width", [63, 61])
+def test_sharded_apply_equals_jax(new_width):
+    S, H, Wl = 4, 8, 16
+    rng = np.random.default_rng(new_width)
+    luma = _energy(rng, (S, H, Wl))
+    E = _energy(rng, (S, H, Wl))
+    oc = rng.integers(0, 1000, (S, H, Wl)).astype(np.int32)
+    # the seam crosses every shard boundary, and sits on one
+    seam = np.array([0, 15, 16, 31, 32, 47, 48, new_width], np.int32)
+    edge = _energy(rng, (H,))
+    inc = np.concatenate([luma[:, :, :1], E[:, :, :1],
+                          oc[:, :, :1].view(np.float32)], axis=2)
+    inc = np.concatenate([inc[1:], np.zeros_like(inc[:1])])  # from the right
+    nw = torch.tensor([new_width], dtype=torch.int32)
+    got = sharded_apply(*map(torch.from_numpy, (luma, oc, E, seam, edge,
+                                                inc)), nw, 0)
+    assert [g.dtype for g in got] == [torch.float32, torch.int32,
+                                      torch.float32, torch.int32]
+    for s in range(S):
+        want = jsp._plain_sharded_apply(
+            jnp.asarray(luma[s]), jnp.asarray(oc[s]), jnp.asarray(E[s]),
+            jnp.asarray(seam), jnp.asarray(edge), jnp.asarray(inc[s]),
+            new_width, s * Wl)
+        for g, w in zip(got, (want[0], want[1], want[2], want[3][:, 0])):
+            np.testing.assert_array_equal(g[s].numpy(), np.asarray(w))
+
+
+def _shards(x, S, n):
+    """(H, W) -> (S, H, Wl) owned columns and (S, H, Wl + n - 1) luma with
+    the edge-clamped r-1 / r halo."""
+    H, W = x.shape
+    Wl, r = W // S, n // 2
+    cols = np.clip(np.arange(-(r - 1), W + r), 0, W - 1)
+    ext = x[:, cols]
+    owned = x.reshape(H, S, Wl).transpose(1, 0, 2)
+    halo = np.stack([ext[:, s * Wl:s * Wl + Wl + n - 1] for s in range(S)])
+    return np.ascontiguousarray(owned), np.ascontiguousarray(halo)
+
+
+@pytest.mark.parametrize("n", [2, 8, 16])
+def test_offset_strip_equals_unsharded_strip(n):
+    H, W, S = 20, 96, 4
+    rng = np.random.default_rng(n)
+    luma = rng.random((H, W), dtype=np.float32)
+    energy = rng.random((H, W), dtype=np.float32)
+    # a seam that wanders over every shard and both image edges
+    seam = np.clip(np.cumsum(rng.integers(-1, 2, H)) + W // 2, 0,
+                   W - 1).astype(np.int32)
+    seam[:4] = [0, 1, W - 2, W - 1]
+    t = torch.from_numpy
+    shard = ShardOffset(0, W)
+    want = strip_update(t(luma), t(energy).clone(), t(seam), n, 0.3, 0.7)
+    owned_e, _ = _shards(energy, S, n)
+    _, halo = _shards(luma, S, n)
+    got = strip_update(t(halo), t(owned_e).clone(), t(seam), n, 0.3, 0.7,
+                       shard=shard)
+    np.testing.assert_array_equal(
+        got.permute(1, 0, 2).reshape(H, W).numpy(), want.numpy())
+
+    # the gather: every band column a shard's scatter keeps equals the
+    # unsharded band's; the scatter keeps exactly the owned columns
+    bands = strip_gather(t(luma), t(seam), n)
+    sb = strip_gather(t(halo), t(seam), n, shard=shard)
+    strip_w = _strip_extent(n)[1]
+    start = np.clip(seam.astype(np.int64) - _strip_extent(n)[0], 0,
+                    W - strip_w)
+    for s in range(S):
+        for i in range(H):
+            for c in range(strip_w):
+                if s * (W // S) <= start[i] + c < (s + 1) * (W // S):
+                    np.testing.assert_array_equal(
+                        sb[s, i, :, c:c + n].numpy(),
+                        bands[i, :, c:c + n].numpy())
+    strip = t(rng.random((H, strip_w), dtype=np.float32))
+    want = strip_scatter(t(energy).clone(), strip, t(seam), n)
+    got = strip_scatter(t(owned_e).clone(),
+                        strip[None].expand(S, H, strip_w).contiguous(),
+                        t(seam), n, shard=shard)
+    np.testing.assert_array_equal(
+        got.permute(1, 0, 2).reshape(H, W).numpy(), want.numpy())
+
