@@ -42,6 +42,10 @@ Every kernel's line gives its time, its plain version's, the least time
 the card could take for the same work (`bound_ms`: bytes over 3.35 TB/s
 or float32 operations over 67 TFLOP/s, whichever is larger) and, where one
 PyTorch call computes the same function, that call's time (`library_ms`).
+`ms` and `library_ms` time back-to-back calls between CUDA events, so for
+the shortest kernels they time the host's launches; `device_ms` and
+`library_device_ms` are the same calls' device time per call under
+torch.profiler.
 
 The last stdout line is {"ok": true, "device": {...}}; before it come the
 kernels' JSON line and the card's name and power limit.  Any failed phase
@@ -167,6 +171,40 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per call of fn() over `reps` calls after
+    one warm-up call, under torch.profiler: the device time of the kernels
+    the calls launched, the host's time between launches left out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.self_device_time_total > 0 and not e.key.startswith("aten::"))
+    if us <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return us / reps / 1e3
+
+
+def time_kernel(times: dict, name: str, kernel, plain, reps: int,
+                plain_reps: int) -> None:
+    """times[name] = (kernel ms, plain ms) between CUDA events, and the
+    kernel's device ms per call into DEVICE."""
+    times[name] = (cuda_ms(kernel, reps), cuda_ms(plain, plain_reps))
+    DEVICE[name] = device_ms(kernel, reps)
+
+
+def time_library(name: str, fn, reps: int = 50) -> None:
+    """The library call's ms between CUDA events and its device ms."""
+    LIBRARY[name] = cuda_ms(fn, reps)
+    LIBRARY_DEVICE[name] = device_ms(fn, reps)
+
+
 def device_profile(fn, top: int = 8):
     """Run fn() once warm under torch.profiler: (wall seconds, device
     microseconds summed over kernels, the `top` kernels by device time as
@@ -262,6 +300,30 @@ def phase_3(dev, chk: Checks, card: str, rng, times: dict) -> dict:
                                      use_pallas=False))
     chk.equal("find_seams", f"B={NB} one shared width W-5",
               find_seams(E, WB - 5), find_seams(E, WB - 5, use_pallas=False))
+    # per-image windows on planes narrower than a backtrack window, and
+    # windows that force the seam along column 0 or the window's last column
+    for h, w in ((HB, 100), (257, 130)):
+        e_n = on_dev((rng.integers(0, 3, (NB, h, w)) / 2).astype(np.float32))
+        wn = on_dev(np.resize([w, w - 7, 1, 2, 33, w - 1, 5, 64], NB)
+                    .astype(np.int32))
+        ln = on_dev(np.resize([0, 7, w - 1, 0, 50, 1, w - 5, 3], NB)
+                    .astype(np.int32))
+        for tie in TIES:
+            chk.equal("find_seams", f"B={NB} {h}x{w} per-image windows {tie}",
+                      find_seams(e_n, wn, ln, tie=tie),
+                      find_seams(e_n, wn, ln, tie=tie, use_pallas=False))
+    e_b = torch.ones((NB, 300, WB), device=dev)
+    e_b[:, :, 0] = 0
+    e_b[:, :, WB - 1] = 0
+    wb = on_dev(np.resize([WB, WB - 1], NB).astype(np.int32))
+    for tie in TIES:
+        got = find_seams(e_b, wb, 0, tie=tie)
+        chk.equal("find_seams", f"B={NB} border seams {tie}", got,
+                  find_seams(e_b, wb, 0, tie=tie, use_pallas=False))
+        want = torch.where((wb == WB) & (tie == "rightmost"), WB - 1, 0)
+        chk.require(bool((got == want[:, None]).all()),
+                    f"B={NB} border seams {tie}: along column 0 or W-1")
+    del e_b
 
     seam = find_seams(E, WB)
     origcol = torch.arange(WB, dtype=torch.int32, device=dev).expand(
@@ -278,9 +340,8 @@ def phase_3(dev, chk: Checks, card: str, rng, times: dict) -> dict:
     full = dct_energy(l1, 8, edges, textures, use_pallas=False)
     chk.equal("strip", f"B={NB} == full recompute (live columns)",
               k[..., :WB - 1].contiguous(), full[..., :WB - 1].contiguous())
-    times["find_seams"] = (
-        cuda_ms(lambda: find_seams(E, WB), 20),
-        cuda_ms(lambda: find_seams(E, WB, use_pallas=False), 2))
+    time_kernel(times, "find_seams", lambda: find_seams(E, WB),
+                lambda: find_seams(E, WB, use_pallas=False), 20, 2)
     log(f"  find_seams kernel {times['find_seams'][0]!r} ms, plain "
         f"{times['find_seams'][1]!r} ms (B={NB} x {HB}x{WB}; {card})")
     BOUNDS["find_seams"] = (NB * (4 * HB * WB + 4 * HB), 3 * NB * HB * WB)
@@ -440,17 +501,16 @@ def phase_4a(dev, chk: Checks, card: str, rng, times: dict) -> None:
         -1, 2, _strip_extent(2)[1] + 1)).reshape(H, -1).contiguous()
     bands8 = strip_gather(l1, seam, 8)
     e_s = e1.clone()
-    times["strip_gather"] = (
-        cuda_ms(lambda: strip_gather(l1, seam, 2), 50),
-        cuda_ms(lambda: strip_gather(l1, seam, 2, use_pallas=False), 20))
-    times["strip_scatter"] = (
-        cuda_ms(lambda: strip_scatter(e_s, strip2, seam, 2), 50),
-        cuda_ms(lambda: strip_scatter(e_s, strip2, seam, 2,
-                                      use_pallas=False), 20))
-    times["band_energy"] = (
-        cuda_ms(lambda: band_energy(bands8, 8, edges, textures), 50),
-        cuda_ms(lambda: band_energy(bands8, 8, edges, textures,
-                                    use_pallas=False), 10))
+    time_kernel(times, "strip_gather", lambda: strip_gather(l1, seam, 2),
+                lambda: strip_gather(l1, seam, 2, use_pallas=False), 50, 20)
+    time_kernel(times, "strip_scatter",
+                lambda: strip_scatter(e_s, strip2, seam, 2),
+                lambda: strip_scatter(e_s, strip2, seam, 2,
+                                      use_pallas=False), 50, 20)
+    time_kernel(times, "band_energy",
+                lambda: band_energy(bands8, 8, edges, textures),
+                lambda: band_energy(bands8, 8, edges, textures,
+                                    use_pallas=False), 50, 10)
     for name in ("strip_gather", "strip_scatter", "band_energy"):
         k_ms, p_ms = times[name]
         shape = "n=8 bands" if name == "band_energy" else "n=2"
@@ -467,11 +527,11 @@ def phase_4a(dev, chk: Checks, card: str, rng, times: dict) -> None:
                  + torch.arange(2, device=dev)[:, None]).clamp(max=H - 1) * W
                 + (seam.long().sub(3).clamp(0, W - sw2)[:, None, None]
                    + torch.arange(sw2 + 1, device=dev)).clamp(max=W - 1))
-    LIBRARY["strip_gather"] = cuda_ms(lambda: torch.take(l1, band_idx), 50)
+    time_library("strip_gather", lambda: torch.take(l1, band_idx))
     scatter_idx = (seam.long().sub(3).clamp(0, W - sw2)[:, None]
                    + torch.arange(sw2, device=dev))
-    LIBRARY["strip_scatter"] = cuda_ms(
-        lambda: e_s.scatter_(-1, scatter_idx, strip2), 50)
+    time_library("strip_scatter",
+                 lambda: e_s.scatter_(-1, scatter_idx, strip2))
     composed = cuda_ms(lambda: strip_scatter(
         e_s, band_energy(strip_gather(l1, seam, 8), 8, edges, textures),
         seam, 8), 50)
@@ -695,9 +755,12 @@ def phase_4(dev, chk: Checks, card: str, rng, dct_rate: float) -> list:
     return main_launches
 
 # per kernel, at the shape of its timed call: (bytes, f32 operations) of the
-# bound, and the time of one PyTorch call computing the same function
+# bound, its device time, and the time of one PyTorch call computing the
+# same function (between events and on the device)
 BOUNDS: dict[str, tuple[float, float]] = {}
+DEVICE: dict[str, float] = {}
 LIBRARY: dict[str, float] = {}
+LIBRARY_DEVICE: dict[str, float] = {}
 
 
 def phase_5a(dev, chk: Checks, card: str, rng, times: dict) -> None:
@@ -709,7 +772,9 @@ def phase_5a(dev, chk: Checks, card: str, rng, times: dict) -> None:
         block_dp, block_dp_parts, seg_walk, sharded_apply)
     from dct_carver_tpu_torch.kernels.strip_kernel import (
         strip_gather, strip_scatter, strip_update)
-    from dct_carver_tpu_torch.ops.carve import ShardOffset, _strip_extent
+    from dct_carver_tpu_torch.ops.carve import (
+        ShardOffset, _shard_origins, _strip_bounds, _strip_extent)
+    from dct_carver_tpu_torch.ops.dct import window_offset
     from dct_carver_tpu_torch.parallel.shards import ShardMesh
 
     S, Wl, K = SHARDS, W8 // SHARDS, K8
@@ -738,14 +803,29 @@ def phase_5a(dev, chk: Checks, card: str, rng, times: dict) -> None:
                              out=M[:, 1:1 + Kb])
         chk.equal("block_dp_parts", f"S={S} Wl={Wl} Kb={Kb} width={w}", got,
                   want)
+    # halo-heavy shards (halos wider than the owned columns), and extended
+    # rows that are no multiple of 4 (4-byte staging and stores)
+    for S3, Wl3, Hh3, Kb3 in ((4, 48, Hh, K), (3, 50, Hh, 41), (2, 7, 64, 32)):
+        parts = [on_dev(rng.random(shape, dtype=np.float32)) for shape in (
+            (S3, Wl3), (S3, Kb3, Wl3), (S3, Kb3 + 1, Hh3), (S3, Kb3 + 1, Hh3))]
+        for w in (S3 * Wl3, S3 * Wl3 - 5):
+            chk.equal("block_dp_parts", f"S={S3} Wl={Wl3} Hh={Hh3} Kb={Kb3} "
+                      f"width={w}", block_dp_parts(*parts, 0, width(w)),
+                      block_dp_parts(*parts, 0, width(w), use_pallas=False))
+        msg3 = on_dev(rng.random((S3, Kb3 + 1, Wl3 + 2 * Hh3),
+                                 dtype=np.float32))
+        chk.equal("block_dp", f"S={S3} Wl={Wl3} Hh={Hh3} Kb={Kb3}",
+                  block_dp(msg3, 0, width(S3 * Wl3 - 3), Hh3),
+                  block_dp(msg3, 0, width(S3 * Wl3 - 3), Hh3,
+                           use_pallas=False))
     out = M[:, 1:1 + K]
     args = (prev, E[:, K:], on_dev(rng.random((S, K + 1, Hh),
                                               dtype=np.float32)),
             on_dev(rng.random((S, K + 1, Hh), dtype=np.float32)), 0,
             width(W8))
-    times["block_dp_parts"] = (
-        cuda_ms(lambda: block_dp_parts(*args, out=out), 50),
-        cuda_ms(lambda: block_dp_parts(*args, use_pallas=False), 3))
+    time_kernel(times, "block_dp_parts",
+                lambda: block_dp_parts(*args, out=out),
+                lambda: block_dp_parts(*args, use_pallas=False), 50, 3)
     BOUNDS["block_dp_parts"] = (
         4 * (S * Wl + S * K * Wl + 2 * S * (K + 1) * Hh + S * K * We),
         3 * S * K * We)
@@ -769,9 +849,8 @@ def phase_5a(dev, chk: Checks, card: str, rng, times: dict) -> None:
     We2 = Wl2 + 4 * K
     msg = on_dev(rng.random((S2, K + 1, We2), dtype=np.float32))
     out2, w2 = torch.empty((S2, K, We2), device=dev), width(S2 * Wl2)
-    times["block_dp"] = (
-        cuda_ms(lambda: block_dp(msg, 0, w2, Hh, out=out2), 50),
-        cuda_ms(lambda: block_dp(msg, 0, w2, Hh, use_pallas=False), 3))
+    time_kernel(times, "block_dp", lambda: block_dp(msg, 0, w2, Hh, out=out2),
+                lambda: block_dp(msg, 0, w2, Hh, use_pallas=False), 50, 3)
     BOUNDS["block_dp"] = (4 * (S2 * (K + 1) * We2 + S2 * K * We2),
                           3 * S2 * K * We2)
 
@@ -805,10 +884,9 @@ def phase_5a(dev, chk: Checks, card: str, rng, times: dict) -> None:
                                    use_pallas=False))
     rows = rows_buf[:, 7:7 + K]
     entry = torch.tensor([W8 // 2 + 3], dtype=torch.int32, device=dev)
-    times["seg_walk"] = (
-        cuda_ms(lambda: seg_walk(rows, entry, 0, K, Hh), 50),
-        cuda_ms(lambda: seg_walk(rows, entry, 0, K, Hh, use_pallas=False),
-                3))
+    time_kernel(times, "seg_walk", lambda: seg_walk(rows, entry, 0, K, Hh),
+                lambda: seg_walk(rows, entry, 0, K, Hh, use_pallas=False),
+                50, 3)
     BOUNDS["seg_walk"] = (4 * (K * (2 * K + 1) + S * K + 1),
                           4 * K * (2 * K + 1))
 
@@ -834,11 +912,12 @@ def phase_5a(dev, chk: Checks, card: str, rng, times: dict) -> None:
                       f"{part}", g, w_)
     outs = tuple(torch.empty_like(t) for t in (luma, origcol, energy))
     nw = width(W8 - 1)
-    times["sharded_apply"] = (
-        cuda_ms(lambda: sharded_apply(luma, origcol, energy, seam, edge,
-                                      incoming, nw, 0, out=outs), 50),
-        cuda_ms(lambda: sharded_apply(luma, origcol, energy, seam, edge,
-                                      incoming, nw, 0, use_pallas=False), 5))
+    time_kernel(times, "sharded_apply",
+                lambda: sharded_apply(luma, origcol, energy, seam, edge,
+                                      incoming, nw, 0, out=outs),
+                lambda: sharded_apply(luma, origcol, energy, seam, edge,
+                                      incoming, nw, 0, use_pallas=False),
+                50, 5)
     BOUNDS["sharded_apply"] = (24 * S * H8 * Wl + 12 * S * H8 + 8 * H8
                                + 4 * S * H8, 0)
     # the compaction as one torch.gather over the three planes' bits
@@ -847,8 +926,7 @@ def phase_5a(dev, chk: Checks, card: str, rng, times: dict) -> None:
     col_g = Wl * torch.arange(S, device=dev)[:, None, None] + cols
     src = torch.where(col_g < seam[:, None], cols, (cols + 1) % Wl)
     index = src.expand(3, S, H8, Wl).contiguous()
-    LIBRARY["sharded_apply"] = cuda_ms(
-        lambda: torch.gather(planes, 3, index), 50)
+    time_library("sharded_apply", lambda: torch.gather(planes, 3, index))
     del luma, energy, origcol, planes, index, outs
 
     # the strips with a shard offset: 4 shards of the 8K plane
@@ -887,22 +965,52 @@ def phase_5a(dev, chk: Checks, card: str, rng, times: dict) -> None:
                     x, e, seam, 8, edges, textures, shard=shard,
                     use_pallas=p),
                 4 * (H8 * (sw + n - 1) + H8 * sw + H8),
-                dct_ops(n, H8, sw, sw + n - 1))
+                dct_ops(n, H8, sw, sw + n - 1), None)
         else:
+            # the library calls: one torch.take of the bands and one
+            # scatter_ into the shards with a spill column, indices
+            # precomputed as ops/carve.py's plain versions compute them
+            Wx = ext.shape[-1]
+            co = window_offset(n, "carve")
+            start = _strip_bounds(seam, n, W8)[0]
+            x0 = _shard_origins(shard, S, Wl, dev)
+            cols = ((start[:, None] + co + torch.arange(sw + n - 1,
+                                                        device=dev))[None]
+                    - (x0 + co)[:, None, None]).clamp(0, Wx - 1)
+            rows = (torch.arange(H8, device=dev)[:, None] + co
+                    + torch.arange(n, device=dev)).clamp(0, H8 - 1)
+            flat = (torch.arange(S, device=dev)[:, None, None, None] * H8 * Wx
+                    + rows[None, :, :, None] * Wx + cols[:, :, None, :])
+            idx = (start[:, None] + torch.arange(sw, device=dev))[None] \
+                - x0[:, None, None]
+            idx = torch.where((idx >= 0) & (idx < Wl), idx, Wl)
+            padded = torch.cat([e_sh, torch.zeros_like(e_sh[..., :1])], -1)
+            chk.require(torch.equal(torch.take(ext, flat),
+                                    strip_gather(ext, seam, n, shard=shard)),
+                        f"offset n={n} torch.take == the strip gather")
+            chk.require(torch.equal(
+                padded.clone().scatter_(-1, idx, strip)[..., :Wl],
+                strip_scatter(e_sh.clone(), strip, seam, n, shard=shard)),
+                f"offset n={n} scatter_ == the strip scatter")
             offset["strip_gather"] = (
                 lambda p, x=ext: strip_gather(x, seam, 2, shard=shard,
                                               use_pallas=p),
-                4 * (H8 * (sw + n - 1) + S * H8 * n * (sw + n - 1) + H8), 0)
+                4 * (H8 * (sw + n - 1) + S * H8 * n * (sw + n - 1) + H8), 0,
+                lambda x=ext, f=flat: torch.take(x, f))
             offset["strip_scatter"] = (
                 lambda p, e=e_sh, t=strip: strip_scatter(
                     e, t, seam, 2, shard=shard, use_pallas=p),
-                4 * (S * H8 * sw + H8 * sw + H8), 0)
-    for name, (fn, nbytes, ops) in offset.items():
+                4 * (S * H8 * sw + H8 * sw + H8), 0,
+                lambda e=padded, i=idx, t=strip: e.scatter_(-1, i, t))
+    for name, (fn, nbytes, ops, lib) in offset.items():
         k_ms, p_ms = cuda_ms(lambda: fn(True), 50), cuda_ms(lambda: fn(False),
                                                              5)
+        d_ms = device_ms(lambda: fn(True), 50)
         b_ms, b_by = bound(nbytes, ops)
+        lib_ms = (cuda_ms(lib, 50), device_ms(lib, 50)) if lib else None
         log(f"  {name} with a shard offset ({S} x {H8}x{Wl}): kernel {k_ms!r}"
-            f" ms, plain {p_ms!r} ms, bound {b_ms!r} ms ({b_by}) ({card})")
+            f" ms (device {d_ms!r}), plain {p_ms!r} ms, bound {b_ms!r} ms "
+            f"({b_by}), library (ms, device ms) {lib_ms!r} ({card})")
     for name in ("block_dp_parts", "block_dp", "seg_walk", "sharded_apply"):
         k_ms, p_ms = times[name]
         log(f"  {name:14s} kernel {k_ms!r} ms, plain {p_ms!r} ms ({card})")
@@ -910,7 +1018,8 @@ def phase_5a(dev, chk: Checks, card: str, rng, times: dict) -> None:
 
 def phase_5(dev, chk: Checks, card: str, rng) -> list:
     """The spatial route through its entry points; returns the launch
-    counts of its main-path runs (5b's 8K carve, its small-shard carve)."""
+    counts of its main-path runs (5b's 8K carve, its small-shard carve,
+    5c's grad_norm carve)."""
     import os
     import tempfile
 
@@ -1032,8 +1141,16 @@ def phase_5(dev, chk: Checks, card: str, rng) -> list:
     e = spatial_enlarge_n_seams(luma, SEAMS_5C, img_t, devices=mesh)
     chk.equal("carve", "spatial enlargement == reconstruct_enlarged",
               e.image, reconstruct_enlarged(img_t, single.vmap, SEAMS_5C))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
     g = spatial_carve_n_seams(luma, SEAMS_5C, devices=mesh,
                               energy="grad_norm")
+    torch.cuda.synchronize()
+    plugged = kernels.launch_counts()
+    got = {k: plugged[k] for k in ("strip_gather", "strip_scatter")}
+    chk.require(got == {"strip_gather": SEAMS_5C, "strip_scatter": SEAMS_5C},
+                f"spatial grad_norm carve: offset gather/scatter launches "
+                f"{got}")
     chk.equal("carve", "spatial grad_norm vmap == single-device",
               g.vmap, carve_n_seams(luma, SEAMS_5C, 8, 0.0, 1.0,
                                     energy_fn=GRAD_NORM).vmap)
@@ -1067,7 +1184,7 @@ def phase_5(dev, chk: Checks, card: str, rng) -> list:
             os.environ.pop("DCT_CARVER_STATE_DIR", None)
         else:
             os.environ["DCT_CARVER_STATE_DIR"] = old_state_dir
-    return [launches, small]
+    return [launches, small, plugged]
 
 
 def main() -> int:
@@ -1087,7 +1204,7 @@ def main() -> int:
     from dct_carver_tpu_torch import api, kernels
     from dct_carver_tpu_torch.kernels import build
     from dct_carver_tpu_torch.kernels.apply_kernel import apply_seam
-    from dct_carver_tpu_torch.kernels.dp_kernel import find_seam
+    from dct_carver_tpu_torch.kernels.dp_kernel import MAX_WIDTH, find_seam
     from dct_carver_tpu_torch.kernels.energy_kernel import dct_energy
     from dct_carver_tpu_torch.kernels.strip_kernel import strip_update
     from dct_carver_tpu_torch.models.carver import Carver
@@ -1159,6 +1276,37 @@ def main() -> int:
     chk.equal("find_seam", "4320x7680 random energy leftmost",
               find_seam(E8, 7680), find_seam(E8, 7680, use_pallas=False))
     del E8
+    # the edges of the chunked rows and of the windowed backtrack (64-row
+    # windows of 129 columns): planes narrower than a window, seams along
+    # each border, rows not a multiple of 4 (4-byte staging), and widths
+    # near MAX_WIDTH (a few rows: the widest chunk and one ring slot)
+    edge_cases = []
+    for h, w in ((H, 100), (H, 129), (H, 5), (H, 1), (301, 130)):
+        edge_cases.append((f"{h}x{w} quantized",
+                           on_card((rng.integers(0, 3, (h, w)) / 2)
+                                   .astype(np.float32)), w))
+    for col in ("0", "W-1"):
+        border = np.ones((H, W), np.float32)
+        border[:, 0 if col == "0" else W - 1] = 0
+        edge_cases.append((f"1080p seam along column {col}", on_card(border),
+                           W))
+    narrow = np.ones((H, 100), np.float32)
+    narrow[:, 99] = 0
+    edge_cases.append(("1080x100 seam along column W-1", on_card(narrow),
+                       100))
+    for w in (MAX_WIDTH, MAX_WIDTH - 3, 29024, 16385):
+        edge_cases.append((f"6x{w} random", on_card(rng.random(
+            (6, w), dtype=np.float32)), w - 11))
+    for name, e, width in edge_cases:
+        for tie in TIES:
+            got = find_seam(e, width, tie=tie)
+            chk.equal("find_seam", f"{name} {tie}", got,
+                      find_seam(e, width, tie=tie, use_pallas=False))
+            if "along" in name:
+                col = 0 if name.endswith("column 0") else e.shape[1] - 1
+                chk.require(bool((got == col).all()),
+                            f"{name} {tie}: the seam runs along it")
+    del edge_cases
 
     origcol = on_card(rng.integers(0, 4 * W, (H, W)).astype(np.int32))
     for mode in ("interior", "left", "right-edge", "shrunk"):
@@ -1204,22 +1352,20 @@ def main() -> int:
     seam = find_seam(E, W)
     outs = tuple(torch.empty_like(t) for t in (luma, origcol, E))
     e_strip = E.clone()
-    times = {
-        "energy": (cuda_ms(lambda: dct_energy(luma, 8, edges, textures), 20),
-                   cuda_ms(lambda: dct_energy(luma, 8, edges, textures,
-                                              use_pallas=False), 3)),
-        "find_seam": (cuda_ms(lambda: find_seam(E, W), 20),
-                      cuda_ms(lambda: find_seam(E, W, use_pallas=False), 2)),
-        "apply": (cuda_ms(lambda: apply_seam(luma, origcol, E, seam, W,
-                                             out=outs), 50),
-                  cuda_ms(lambda: apply_seam(luma, origcol, E, seam, W,
-                                             use_pallas=False), 20)),
-        "strip": (cuda_ms(lambda: strip_update(luma, e_strip, seam, 8, edges,
-                                               textures), 50),
-                  cuda_ms(lambda: strip_update(luma, e_strip, seam, 8, edges,
-                                               textures, use_pallas=False),
-                          20)),
-    }
+    times = {}
+    time_kernel(times, "energy", lambda: dct_energy(luma, 8, edges, textures),
+                lambda: dct_energy(luma, 8, edges, textures,
+                                   use_pallas=False), 20, 3)
+    time_kernel(times, "find_seam", lambda: find_seam(E, W),
+                lambda: find_seam(E, W, use_pallas=False), 20, 2)
+    time_kernel(times, "apply",
+                lambda: apply_seam(luma, origcol, E, seam, W, out=outs),
+                lambda: apply_seam(luma, origcol, E, seam, W,
+                                   use_pallas=False), 50, 20)
+    time_kernel(times, "strip",
+                lambda: strip_update(luma, e_strip, seam, 8, edges, textures),
+                lambda: strip_update(luma, e_strip, seam, 8, edges, textures,
+                                     use_pallas=False), 50, 20)
     for name, (k_ms, p_ms) in times.items():
         log(f"  {name:9s} kernel {k_ms!r} ms, plain {p_ms!r} ms "
             f"(1080x1920 n=8; {card})")
@@ -1236,7 +1382,7 @@ def main() -> int:
     cols = torch.arange(W, device=dev)
     index = torch.where(cols < seam[:, None], cols, (cols + 1) % W).expand(
         3, H, W).contiguous()
-    LIBRARY["apply"] = cuda_ms(lambda: torch.gather(planes, 2, index), 50)
+    time_library("apply", lambda: torch.gather(planes, 2, index))
     del planes, index
 
     phase_1b(dev, chk, card, rng)
@@ -1343,7 +1489,8 @@ def main() -> int:
     # each kernel's launches on the main paths, each run counted from 0:
     # the single-image carve of phase 2, the batch carve of phase 3b, the
     # plugged-energy carves of phase 4b (grad_norm) and 4c (batch), and the
-    # spatial carves of phase 5b (8K over 4 shards, small shards)
+    # spatial carves of phase 5b (8K over 4 shards, small shards) and 5c
+    # (grad_norm)
     runs = (launches, batch_launches, *energy_launches, *spatial_launches)
     rows = []
     for k in kernels.KERNELS:
@@ -1354,9 +1501,13 @@ def main() -> int:
             "launches": sum(run[k.name] for run in runs),
             "max_abs_err": chk.max_err[k.name], "ms": times[k.name][0],
             "plain_ms": times[k.name][1], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": LIBRARY.get(k.name)})
-        log(f"  {k.name:14s} {times[k.name][0]!r} ms, bound {bound_ms!r} ms "
-            f"({bound_by}), library {LIBRARY.get(k.name)!r} ms ({card})")
+            "bound_by": bound_by, "library_ms": LIBRARY.get(k.name),
+            "device_ms": DEVICE[k.name],
+            "library_device_ms": LIBRARY_DEVICE.get(k.name)})
+        log(f"  {k.name:14s} {times[k.name][0]!r} ms (device "
+            f"{DEVICE[k.name]!r}), bound {bound_ms!r} ms ({bound_by}), "
+            f"library {LIBRARY.get(k.name)!r} ms (device "
+            f"{LIBRARY_DEVICE.get(k.name)!r}) ({card})")
     log(json.dumps({"kernels": rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {

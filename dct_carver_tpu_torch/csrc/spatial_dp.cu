@@ -27,36 +27,43 @@
 // after the other (each needs the last row of the one before, which the
 // halo exchange between launches carries across shards).  At the 8K shard
 // shape (Wl = 1920, K = 96, Hh = 192) a block moves ~3.5 MB for 4 shards,
-// about a microsecond of bandwidth, against 96 rows of a few hundred
-// nanoseconds each.  The walk is Kb dependent steps of one thread.
+// about a microsecond of bandwidth, against 96 dependent rows.  The walk is
+// Kb dependent steps of one thread.
 //
-// Simple design.  The block DP keeps the frontier double-buffered in shared
-// memory (2 * We floats: 18 KB at We = 2304), one barrier a row, and writes
-// every row of M to device memory for the backtrack; cells outside [0,
-// width) are +inf, and so are left of column 0 and right of column We-1,
-// which stands in for the TPU's roll through a +inf lane tail.  Op order as
-// ops/dp.py: m = e + min(min(left, centre), right), each op rounded on its
-// own.  The walk stages its (Kb, 2K+1) window's parent directions in shared
-// memory (int8, -1/0/+1 by dp_kernel.py::_parent_select's tie-most rule,
-// as csrc/find_seam.cu), then one thread walks them; the window start is
-// computed here from the entry column, which replaces JAX's dynamic_slice.
-// The TPU's one-hot vector walk exists for its lane layout and is not
-// copied.
+// Design.  The block DP runs the chunked row step of dp_rows.cuh (each
+// thread C contiguous columns of the extended row in registers, only the
+// chunk's edge cells through shared memory, one barrier a row).  Each
+// extended row is assembled ahead of the recurrence: the threads copy its
+// 4-column groups from wherever they lie (the message, or the left halo,
+// the energy block and the right halo of the parts form: the three-way
+// choice is made while staging) with cp.async into a ring of kStages rows
+// in shared memory, so the row step reads one buffer and waits for no
+// load.  Every row of M goes to device memory for the
+// backtrack; cells outside [0, width) are +inf, and so are left of column 0
+// and right of column We-1, which stands in for the TPU's roll through a
+// +inf lane tail.  Op order as ops/dp.py: m = e + min(min(left, centre),
+// right), each op rounded on its own.  The walk stages its (Kb, 2K+1)
+// window's parent directions in shared memory (int8, -1/0/+1 by
+// dp_kernel.py::_parent_select's tie-most rule, as csrc/find_seam.cu), then
+// one thread walks them; the window start is computed here from the entry
+// column, which replaces JAX's dynamic_slice.  The TPU's one-hot vector walk
+// exists for its lane layout and is not copied.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "dp_rows.cuh"
+
 namespace dct_carver {
 
-constexpr int kBlockThreads = 1024;
 constexpr int kWalkThreads = 256;
 
 // #16: row r of the message; r = 0 is the frontier.
 struct MessageRows {
   const float* msg;
   int We;
-  __device__ __forceinline__ float at(int r, int j) const {
-    return msg[static_cast<size_t>(r) * We + j];
+  __device__ __forceinline__ const float* at(int r, int j) const {
+    return msg + static_cast<size_t>(r) * We + j;
   }
 };
 
@@ -69,55 +76,79 @@ struct PartRows {
   const float* rh;
   int Wl;
   int Hh;
-  __device__ __forceinline__ float at(int r, int j) const {
-    if (j < Hh) return lh[r * Hh + j];
+  __device__ __forceinline__ const float* at(int r, int j) const {
+    if (j < Hh) return lh + r * Hh + j;
     j -= Hh;
-    if (j < Wl) return r == 0 ? prev[j] : E[static_cast<size_t>(r - 1) * Wl + j];
-    return rh[r * Hh + j - Wl];
+    if (j < Wl) return r == 0 ? prev + j : E + static_cast<size_t>(r - 1) * Wl + j;
+    return rh + r * Hh + j - Wl;
   }
 };
 
+// Moves the rows of one shard for dp_rows: extended rows in, each column
+// from wherever `Rows` says it lies; rows of M out (row k of the recurrence
+// is row k - 1 of out), 16 bytes at a time when out's rows allow it.
 template <class Rows>
+struct BlockIo {
+  Rows src;
+  float* out;
+  int We;
+  bool vec;
+  __device__ __forceinline__ void load(int k, float* dst, int c) const {
+    const float* from = src.at(k, c);
+    // one 16-byte copy where the group lies in one source, aligned
+    if (c + 3 < We && src.at(k, c + 3) == from + 3
+        && reinterpret_cast<uintptr_t>(from) % 16 == 0) {
+      cp_async16(dst, from);
+      return;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (c + i < We) cp_async4(dst + i, src.at(k, c + i));
+  }
+  __device__ __forceinline__ void store(int k, float4 v, int c) const {
+    float* to = out + static_cast<size_t>(k - 1) * We + c;
+    if (vec) {
+      *reinterpret_cast<float4*>(to) = v;
+    } else {
+      const float f[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (c + i < We) to[i] = f[i];
+    }
+  }
+};
+
+// Kb DP rows of one shard from rows 0 .. Kb of `src` (row 0 the frontier)
+// into out (row r at out + r*We); extended column j is global column
+// col0 + j, live when inside [0, width).
+template <int C, class Rows>
 __device__ void block_rows(const Rows& src, float* __restrict__ out, int Kb,
                            int We, int col0, int width) {
-  extern __shared__ float frontier[];
-  float* prev = frontier;
-  float* cur = frontier + We;
-  const float inf = INFINITY;
-  for (int j = threadIdx.x; j < We; j += blockDim.x) {
-    const int c = col0 + j;
-    prev[j] = (c >= 0 && c < width) ? src.at(0, j) : inf;
-  }
-  __syncthreads();
-  for (int r = 0; r < Kb; ++r) {
-    float* out_row = out + static_cast<size_t>(r) * We;
-    for (int j = threadIdx.x; j < We; j += blockDim.x) {
-      const int c = col0 + j;
-      const float left = j > 0 ? prev[j - 1] : inf;
-      const float right = j < We - 1 ? prev[j + 1] : inf;
-      const float e = (c >= 0 && c < width) ? src.at(r + 1, j) : inf;
-      const float m = __fadd_rn(e, fminf(fminf(left, prev[j]), right));
-      cur[j] = m;
-      out_row[j] = m;
-    }
-    __syncthreads();
-    float* t = prev;
-    prev = cur;
-    cur = t;
-  }
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int j0 = threadIdx.x * C;
+  const Window win(-col0, min(width - col0, We), j0, C);
+  float m[C];
+#pragma unroll
+  for (int i = 0; i < C; ++i)
+    m[i] = win.has(i) ? *src.at(0, j0 + i) : INFINITY;
+  const bool vec = We % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  dp_rows<C, false, false>(BlockIo<Rows>{src, out, We, vec}, m, Kb, We, win,
+                           smem);
 }
 
-__global__ void __launch_bounds__(kBlockThreads)
+template <int C>
+__global__ void __launch_bounds__(kMaxThreads)
 block_dp_kernel(const float* __restrict__ msg, float* __restrict__ out,
                 long long out_ss, int Kb, int Wl, int Hh, int lo,
                 const int* __restrict__ width) {
   const int s = blockIdx.x;
   const int We = Wl + 2 * Hh;
   const MessageRows src{msg + static_cast<size_t>(s) * (Kb + 1) * We, We};
-  block_rows(src, out + s * out_ss, Kb, We, lo + s * Wl - Hh, *width);
+  block_rows<C>(src, out + s * out_ss, Kb, We, lo + s * Wl - Hh, *width);
 }
 
-__global__ void __launch_bounds__(kBlockThreads)
+template <int C>
+__global__ void __launch_bounds__(kMaxThreads)
 block_dp_parts_kernel(const float* __restrict__ prev, long long prev_ss,
                       const float* __restrict__ E, long long e_ss,
                       const float* __restrict__ lh,
@@ -128,8 +159,8 @@ block_dp_parts_kernel(const float* __restrict__ prev, long long prev_ss,
   const size_t halo = static_cast<size_t>(s) * (Kb + 1) * Hh;
   const PartRows src{prev + s * prev_ss, E + s * e_ss, lh + halo, rh + halo,
                      Wl, Hh};
-  block_rows(src, out + s * out_ss, Kb, Wl + 2 * Hh, lo + s * Wl - Hh,
-             *width);
+  block_rows<C>(src, out + s * out_ss, Kb, Wl + 2 * Hh, lo + s * Wl - Hh,
+                *width);
 }
 
 // -1/0/+1: the tie-most minimum of (left, centre, right), as find_seam.cu.
@@ -176,36 +207,33 @@ seg_walk_kernel(const float* __restrict__ rows, long long rows_ss, int Kb,
   }
 }
 
-// Raise the dynamic shared-memory limit of `kernel` when `bytes` pass the
-// 48 KB default.
-template <class Kernel>
-int allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes)));
-}
-
-int threads_for(int We) {
-  return We < kBlockThreads ? ((We + 31) / 32) * 32 : kBlockThreads;
+// Launch block kernel `kernel<C>` over S shards with the chunk width and
+// CTA that the extended row's We columns take.
+template <class Launch>
+int launch_rows(int We, Launch go) {
+  return with_chunk(We, [&](auto c) {
+    constexpr int C = decltype(c)::value;
+    const int threads = threads_for<C>(We);
+    return go(c, threads, ring_bytes<C>(threads));
+  });
 }
 
 }  // namespace dct_carver
 
 // msg: (S, Kb+1, We) f32, row 0 the frontier; out: row r of shard s at
-// out + s*out_ss + r*We.  width: one int32 on the device.  Returns the
-// cudaError_t of the attribute call or of the launch.
+// out + s*out_ss + r*We.  width: one int32 on the device.  We <= 32768.
+// Returns the cudaError_t of the attribute call or of the launch.
 extern "C" int dc_block_dp(const float* msg, float* out, long long out_ss,
                            int S, int Kb, int Wl, int Hh, int lo,
                            const int* width, void* stream) {
   using namespace dct_carver;
-  const int We = Wl + 2 * Hh;
-  const size_t smem = 2 * static_cast<size_t>(We) * sizeof(float);
-  if (const int err = allow_smem(block_dp_kernel, smem)) return err;
-  block_dp_kernel<<<S, threads_for(We), smem,
-                    static_cast<cudaStream_t>(stream)>>>(
-      msg, out, out_ss, Kb, Wl, Hh, lo, width);
-  return static_cast<int>(cudaGetLastError());
+  return launch_rows(Wl + 2 * Hh, [&](auto c, int threads, size_t smem) {
+    const auto kernel = block_dp_kernel<decltype(c)::value>;
+    if (const int err = allow_smem(kernel, smem)) return err;
+    kernel<<<S, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+        msg, out, out_ss, Kb, Wl, Hh, lo, width);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 // prev: shard s's frontier at prev + s*prev_ss (Wl f32); E: its energy
@@ -218,13 +246,13 @@ extern "C" int dc_block_dp_parts(const float* prev, long long prev_ss,
                                  int Hh, int lo, const int* width,
                                  void* stream) {
   using namespace dct_carver;
-  const int We = Wl + 2 * Hh;
-  const size_t smem = 2 * static_cast<size_t>(We) * sizeof(float);
-  if (const int err = allow_smem(block_dp_parts_kernel, smem)) return err;
-  block_dp_parts_kernel<<<S, threads_for(We), smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      prev, prev_ss, E, e_ss, lh, rh, out, out_ss, Kb, Wl, Hh, lo, width);
-  return static_cast<int>(cudaGetLastError());
+  return launch_rows(Wl + 2 * Hh, [&](auto c, int threads, size_t smem) {
+    const auto kernel = block_dp_parts_kernel<decltype(c)::value>;
+    if (const int err = allow_smem(kernel, smem)) return err;
+    kernel<<<S, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+        prev, prev_ss, E, e_ss, lh, rh, out, out_ss, Kb, Wl, Hh, lo, width);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 // rows: row r of shard s's M at rows + s*rows_ss + r*We, We = Wl + 2*Hh;

@@ -26,11 +26,15 @@ BATCH_KERNEL = Kernel(name="find_seams",
                       replaces="dct_carver_tpu/pallas/batch_dp_kernel.py:"
                                "139,171")
 
-# the double-buffered frontier (2 * W f32) plus the reduction scratch must
-# fit one block's 227 KB of shared memory
-_SMEM_LIMIT = 232448
-_REDUCTION_BYTES = 256
-MAX_WIDTH = (_SMEM_LIMIT - _REDUCTION_BYTES) // 8
+# one CTA covers a row: at most 1024 threads of 32 columns each
+# (csrc/dp_rows.cuh::chunk_for)
+MAX_WIDTH = 32768
+
+
+def parent_pitch(W: int) -> int:
+    """The row pitch of the kernel's int8 parents scratch: W rounded up to
+    4, so each thread stores its parents four to a 32-bit word."""
+    return (W + 3) // 4 * 4
 
 
 def _find_seams_cuda(kernel: Kernel, E: torch.Tensor, width, lo,
@@ -43,7 +47,7 @@ def _find_seams_cuda(kernel: Kernel, E: torch.Tensor, width, lo,
     if W > MAX_WIDTH:
         raise ValueError(
             f"find_seam kernel: width {W} exceeds {MAX_WIDTH}, the most "
-            "whose frontier fits one block's shared memory")
+            "one block's row covers")
     ptrs, scalars = [], []
     for name, v in (("lo", lo), ("width", width)):
         if isinstance(v, torch.Tensor):
@@ -53,7 +57,8 @@ def _find_seams_cuda(kernel: Kernel, E: torch.Tensor, width, lo,
         else:
             ptrs.append(None)
             scalars.append(int(v))
-    parents = torch.empty((B, H, W), dtype=torch.int8, device=dev)
+    parents = torch.empty((B, H, parent_pitch(W)), dtype=torch.int8,
+                          device=dev)
     seams = torch.empty((B, H), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         launch(kernel, "dc_find_seams", E.data_ptr(), parents.data_ptr(),

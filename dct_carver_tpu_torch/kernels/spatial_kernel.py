@@ -47,10 +47,11 @@ WALK_KERNEL = Kernel(name="seg_walk", source=_SRC + "spatial_dp.cu",
 APPLY_KERNEL = Kernel(name="sharded_apply", source=_SRC + "sharded_apply.cu",
                       replaces=_TPU + "348")
 
-# one block's shared memory (227 KB) holds the double-buffered frontier of
-# an extended row, and the walk's int8 parent window
+# one block's shared memory (227 KB) holds the walk's int8 parent window;
+# one block covers an extended row of at most 1024 threads of 32 columns
+# (csrc/dp_rows.cuh::chunk_for)
 _SMEM_LIMIT = 232448
-MAX_EXT_WIDTH = _SMEM_LIMIT // 8
+MAX_EXT_WIDTH = 32768
 
 
 def _origins(lo: int, S: int, Wl: int, device) -> torch.Tensor:
@@ -97,8 +98,8 @@ def _out_rows(out, S: int, Kb: int, We: int, device) -> torch.Tensor:
 def _check_width(We: int) -> None:
     if We > MAX_EXT_WIDTH:
         raise ValueError(f"block DP kernel: an extended row of {We} columns "
-                         f"exceeds {MAX_EXT_WIDTH}, the most whose frontier "
-                         "fits one block's shared memory")
+                         f"exceeds {MAX_EXT_WIDTH}, the most one block's "
+                         "row covers")
 
 
 # ------------------------------------------------------------ block DP ----

@@ -27,7 +27,8 @@ import math
 import torch
 
 __all__ = ["cumulative_energy", "backtrack", "find_seam", "remove_seam",
-           "mask_energy", "check_tie", "TIES"]
+           "mask_energy", "check_tie", "TIES", "parent_directions",
+           "backtrack_windowed"]
 
 TIES = ("leftmost", "rightmost")
 
@@ -107,6 +108,55 @@ def backtrack(M: torch.Tensor, delta_x: int = 1, rigidity: float = 0.0,
         j = j - delta_x + _argmin_tie(win, tie)
         seam.append(j)
     return torch.stack(seam[::-1], dim=-1).to(torch.int32)
+
+
+def parent_directions(M: torch.Tensor, tie: str = "leftmost") -> torch.Tensor:
+    """(..., H, W) cumulative energy -> (..., H, W) int8: for each cell of
+    rows 1.., the step -1/0/+1 to the `tie`-most minimum of (left, centre,
+    right) in the row above, +inf beyond the borders; row 0 holds 0.  The
+    parents the find-seam kernel (`csrc/find_seam.cu`) writes."""
+    check_tie(tie)
+    prev = M[..., :-1, :]
+    left, right = _shift_row(prev, -1), _shift_row(prev, 1)
+    if tie == "leftmost":
+        p = torch.where(left <= prev, torch.where(left <= right, -1, 1),
+                        torch.where(prev <= right, 0, 1))
+    else:
+        p = torch.where(right <= prev, torch.where(right <= left, 1, -1),
+                        torch.where(prev <= left, 0, -1))
+    return torch.cat([torch.zeros_like(p[..., :1, :]), p], dim=-2).to(
+        torch.int8)
+
+
+def backtrack_windowed(P: torch.Tensor, last: torch.Tensor, K: int = 64,
+                       tie: str = "leftmost") -> torch.Tensor:
+    """The find-seam kernel's backtrack: the `tie`-most argmin of the last
+    DP row `last` (..., W), then a walk up the parents P (..., H, W) of
+    `parent_directions` in windows of K rows.  A seam moves at most one
+    column a row, so below column j the next K rows stay inside
+    [j - K, j + K]; each window (clamped to [0, W)) is copied whole before
+    it is walked.  -> (..., H) int32.  It gives `backtrack`'s seams, and
+    is here to hold the kernel's algorithm to them."""
+    check_tie(tie)
+    H, W = P.shape[-2:]
+    ww = min(2 * K + 1, W)
+    offs = torch.arange(ww, device=P.device)
+    j = _argmin_tie(last, tie)
+    seam = [j] * H
+    for top in range(H - 1, 0, -K):
+        rows = min(K, top)
+        ws = (j - K).clamp(0, W - ww)
+        idx = (ws[..., None] + offs)[..., None, :].expand(
+            *P.shape[:-2], rows, ww)
+        # window row r is parent row top - r
+        win = P[..., top - rows + 1:top + 1, :].flip(-2).gather(-1, idx)
+        jl = j - ws
+        for r in range(rows):
+            step = win[..., r, :].gather(-1, jl[..., None])[..., 0]
+            jl = (jl + step).clamp(0, ww - 1)
+            seam[top - r - 1] = jl + ws
+        j = jl + ws
+    return torch.stack(seam, dim=-1).to(torch.int32)
 
 
 def find_seam(E: torch.Tensor, delta_x: int = 1, rigidity: float = 0.0,

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 
 from dct_carver_tpu.oracle import reference as oracle
 from dct_carver_tpu.ops import dp as jdp
+from dct_carver_tpu.pallas.batch_dp_kernel import find_seams_vec
 from dct_carver_tpu.pallas.dp_kernel import find_seam_pallas
 from dct_carver_tpu_torch import kernels
 from dct_carver_tpu_torch.kernels.dp_kernel import find_seam
@@ -86,3 +87,92 @@ def test_find_seam_rejects_bad_arguments():
         find_seam(E, W + 1)
     with pytest.raises(ValueError):
         find_seam(E, 0)
+
+
+# ---------------------------------------------- the kernel's backtrack --
+# `csrc/find_seam.cu` writes int8 parent directions in the forward and
+# walks them up in windows of K rows.  `ops/dp.py::parent_directions` and
+# `backtrack_windowed` are that algorithm in plain PyTorch; it must give
+# the seams of the JAX scan DP and of the Pallas kernel (interpret mode).
+
+
+def _windowed(E, K, tie):
+    """The kernel's algorithm on an already masked energy."""
+    M = tdp.cumulative_energy(torch.from_numpy(np.array(E)))
+    return tdp.backtrack_windowed(tdp.parent_directions(M, tie), M[..., -1, :],
+                                  K, tie).numpy()
+
+
+def _tie_heavy(shape, seed):
+    """Quantized to {0, 1/2}: most cells tie with a neighbour."""
+    return (np.random.default_rng(seed).integers(0, 2, shape) / 2).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("K", [64, 5])
+@pytest.mark.parametrize("width", [W, W - 37])
+@pytest.mark.parametrize("kind", ["random", "quantized"])
+@pytest.mark.parametrize("tie", ["leftmost", "rightmost"])
+def test_windowed_backtrack_equals_pallas_and_scan(tie, kind, width, K):
+    # K = 64: a plane narrower than one window (W = 128 < 2K + 1)
+    E = _energy(kind, 3 if kind == "random" else 4)
+    masked = np.asarray(jdp.mask_energy(jnp.asarray(E), width))
+    got = _windowed(masked, K, tie)
+    np.testing.assert_array_equal(got, np.asarray(find_seam_pallas(
+        jnp.asarray(E), width, interpret=True, tie=tie)))
+    np.testing.assert_array_equal(
+        got, np.asarray(jdp.find_seam(jnp.asarray(masked), tie=tie)))
+    assert got.dtype == np.int32 and got.shape == (H,)
+
+
+@pytest.mark.parametrize("lo,width", [(37, 80), (120, 8)])
+@pytest.mark.parametrize("tie", ["leftmost", "rightmost"])
+def test_windowed_backtrack_in_a_lo_window(tie, lo, width):
+    E = _tie_heavy((H, W), 5)
+    masked = tdp.mask_energy(torch.from_numpy(E), width, lo).numpy()
+    got = _windowed(masked, 6, tie)
+    np.testing.assert_array_equal(got, np.asarray(find_seam_pallas(
+        jnp.asarray(E), width, lo, interpret=True, tie=tie)))
+    assert (got >= lo).all() and (got < lo + width).all()
+
+
+@pytest.mark.parametrize("w", [1, 9, 10, 11, 12])
+@pytest.mark.parametrize("tie", ["leftmost", "rightmost"])
+def test_windowed_backtrack_at_window_widths(tie, w):
+    # K = 5: W < 2K + 1 (1, 9, 10), W = 2K + 1 (11) and W > 2K + 1 (12),
+    # 23 rows (no multiple of K)
+    E = _tie_heavy((23, w), 6)
+    np.testing.assert_array_equal(
+        _windowed(E, 5, tie), np.asarray(jdp.find_seam(jnp.asarray(E),
+                                                       tie=tie)))
+
+
+@pytest.mark.parametrize("K", [64, 4])
+@pytest.mark.parametrize("border", ["first", "last"])
+@pytest.mark.parametrize("tie", ["leftmost", "rightmost"])
+def test_windowed_backtrack_along_a_border(tie, border, K):
+    E = np.ones((H, W), np.float32)
+    col = 0 if border == "first" else W - 1
+    E[:, col] = 0
+    got = _windowed(E, K, tie)
+    assert (got == col).all()
+    np.testing.assert_array_equal(got, np.asarray(find_seam_pallas(
+        jnp.asarray(E), W, interpret=True, tie=tie)))
+
+
+@pytest.mark.parametrize("kind", ["random", "tie-heavy"])
+@pytest.mark.parametrize("tie", ["leftmost", "rightmost"])
+def test_windowed_backtrack_of_a_stack_with_per_image_windows(tie, kind):
+    B, Hb, Wb = 4, 24, 256
+    E = (np.random.default_rng(7).random((B, Hb, Wb), dtype=np.float32)
+         if kind == "random" else _tie_heavy((B, Hb, Wb), 8))
+    width = np.array([Wb, 200, 3, 17], np.int32)
+    lo = np.array([0, 37, 253, 0], np.int32)
+    masked = tdp.mask_energy(torch.from_numpy(E), torch.from_numpy(width),
+                             torch.from_numpy(lo)).numpy()
+    got = _windowed(masked, 8, tie)
+    np.testing.assert_array_equal(got, np.asarray(find_seams_vec(
+        jnp.asarray(E), jnp.asarray(width), jnp.asarray(lo), interpret=True,
+        tie=tie)))
+    np.testing.assert_array_equal(got, tdp.find_seam(
+        torch.from_numpy(masked), tie=tie).numpy())
