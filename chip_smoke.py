@@ -8,7 +8,12 @@ nvcc a source, all at once.  Phase 1 holds each kernel against its plain
 PyTorch version on the card, bit for bit, at the main path's shapes
 (1080x1920, and 2160x3840 at n=16), and times both; phase 1b runs whole
 4-seam carves at 4320x7680 and 4096x4096 (the shapes of the TPU's streamed
-and folded DP routes) against the plain path.  Phase 2 runs the main path
+and folded DP routes) against the plain path; phase 1c holds the tiled
+find-seam of rows wider than one thread block (32769 and 40000 columns)
+against the plain find-seam, carves a 512x40000 RGB image through
+`api.carve` with the launch counters read around it against the plain
+path, times the tiled kernel forced at 8K beside find_seam, and holds the
+apply at 65536 rows.  Phase 2 runs the main path
 through the public API: a 64-seam removal from a 1080x1920 RGB image with
 the launch counters read around it, compared element for element with the
 plain path on the card and with the CPU on a small image; then a
@@ -17,7 +22,7 @@ config 4's images): the batched kernels against their plain versions on 8
 1024x1024 planes, a 128-seam `api.carve(parallel="batch")` of 8 RGB images
 with the launch counters read around it, compared with the plain path and
 with the single-image route, and a timed, profiled `carve_batch` of 256
-such images.  Phase 4 runs the plugged energies: 4a holds the strip gather,
+such images, then the energy and strip kernels timed at that shape.  Phase 4 runs the plugged energies: 4a holds the strip gather,
 strip scatter and band-energy kernels against their plain versions (1080p
 and B=8 1024x1024) and gather -> band energy -> scatter against strip.cu;
 4b carves 64 seams from the 1080p RGB image with each builtin gradient
@@ -29,8 +34,9 @@ energy, batch).  Phase 5 runs the spatial route (BASELINE config 5) with
 four column shards on the one card: 5a holds the block DP (the parts form
 at the 8K shard shape, the message form at the small-shard carve's
 shapes), the segment walk (at both carves' segment shapes), the sharded
-apply and the strip kernels with a shard offset against their plain
-versions; 5b carves 64 seams from a 4320x7680 luma through
+apply (also at 65536 rows, and timed with the L2 flushed between calls)
+and the strip kernels with a shard offset against their plain versions;
+5b carves 64 seams from a 4320x7680 luma through
 `spatial_carve_n_seams` with the launch counters read around it, against
 the single-device carve and, for 4 seams, the plain spatial path, with its
 exchanges per seam, Mpix/s and a profile, and drives a small-shard carve
@@ -40,7 +46,9 @@ sharded checkpoint and `energy="grad_norm"`.
 
 Every kernel's line gives its time, its plain version's, the least time
 the card could take for the same work (`bound_ms`: bytes over 3.35 TB/s
-or float32 operations over 67 TFLOP/s, whichever is larger) and, where one
+or float32 operations over 33.5 T a second, half the 67 TFLOP/s
+multiply-add rate since none of them fuses, whichever is larger) and,
+where one
 PyTorch call computes the same function, that call's time (`library_ms`).
 `ms` and `library_ms` time back-to-back calls between CUDA events, so for
 the shortest kernels they time the host's launches; `device_ms` and
@@ -84,10 +92,20 @@ SEAMS_8K = 64
 PLAIN_SEAMS_8K = 4         # the plain spatial path is ~0.3 s a seam at 8K
 SEAMS_5C = 16              # phase 5c: 1080p carves on the spatial route
 TIMED_PAIRS_8K = 3         # phase 5b: spatial and single-device 8K carves
+# phase 1c: rows wider than one thread block (MAX_WIDTH) and planes taller
+# than the grid's y dimension
+TILED_ROWS = 300           # rows of the tiled find-seam's bitwise cases
+W_WIDE = 40000             # a panorama wider than one block covers
+H_WIDE = 512               # rows of the wide api.carve
+H_TALL = 65536             # rows past the grid's 65535
 # an H100 SXM's peaks (NVIDIA's data sheet): device memory, and float32
-# outside the tensor cores
+# outside the tensor cores (a fused multiply-add counted as two operations)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# the kernels' operations never fuse (the DCT chains round each multiply
+# and add on their own; the DP's adds and minimums have nothing to fuse
+# with), so each takes one issue slot: half the multiply-add rate
+F32_UNFUSED_OPS_PER_S = F32_OPS_PER_S / 2
 
 
 def log(msg: str) -> None:
@@ -106,9 +124,14 @@ def dct_ops(n: int, rows: int, cols: int, in_cols: int) -> int:
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
     """The least time in ms the card could take: every input byte read and
     every output byte written once at the memory's rate, or the float32
-    operations at the peak rate, whichever is longer."""
+    operations at the peak rate, whichever is longer.  The peak rate is
+    the unfused one, F32_UNFUSED_OPS_PER_S: no operation of these kernels
+    may fuse into a multiply-add (`dct_ops`' chains round every multiply
+    and add on its own), so each multiply, add or minimum takes an issue
+    slot of its own, and 67 TFLOP/s, which counts a fused multiply-add as
+    two operations, would halve every bound."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / F32_UNFUSED_OPS_PER_S * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops
             else (t_ops, "operations"))
 
@@ -171,22 +194,28 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, only: str | None = None) -> float:
     """Mean device milliseconds per call of fn() over `reps` calls after
     one warm-up call, under torch.profiler: the device time of the kernels
-    the calls launched, the host's time between launches left out."""
+    the calls launched (with `only`, of those whose name holds it), the
+    host's time between launches left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.self_device_time_total > 0 and not e.key.startswith("aten::"))
-    if us <= 0:
+    for _ in range(2):  # a trace that comes back empty is taken again once
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.self_device_time_total > 0
+                 and not e.key.startswith("aten::")
+                 and (only is None or only in e.key))
+        if us > 0:
+            break
+    else:
         raise RuntimeError("torch.profiler recorded no device time")
     return us / reps / 1e3
 
@@ -258,6 +287,125 @@ def phase_1b(dev, chk: Checks, card: str, rng) -> None:
         del luma, k, p
 
 
+def phase_1c(dev, chk: Checks, card: str, rng, times: dict) -> dict:
+    """Rows wider than one thread block and planes taller than the grid's
+    y: the tiled find-seam against the plain find-seam (both ties, column
+    windows, seams along either border, a stack with per-image windows), a
+    whole `api.carve` of a wide RGB image against the plain path with the
+    launch counters read around it, the apply at H_TALL rows, and the tiled
+    find-seam forced at 8K beside find_seam (a finding: the route stays
+    W > MAX_WIDTH).  Returns the launch counts of the wide carve."""
+    import torch
+
+    from dct_carver_tpu_torch import api, kernels
+    from dct_carver_tpu_torch.kernels.apply_kernel import apply_seam
+    from dct_carver_tpu_torch.kernels.dp_kernel import (
+        MAX_WIDTH, TILE_K, TILE_W, _find_seams_tiled, find_seam, find_seams)
+
+    def on_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    log(f"phase 1c: the tiled find-seam (tiles of {TILE_W} columns, K = "
+        f"{TILE_K}) vs the plain find-seam at widths past {MAX_WIDTH}")
+    for w in (MAX_WIDTH + 1, W_WIDE):
+        e_r = on_dev(rng.random((TILED_ROWS, w), dtype=np.float32))
+        e_q = on_dev((rng.integers(0, 3, (TILED_ROWS, w)) / 2)
+                     .astype(np.float32))
+        for e_name, e in (("random", e_r), ("quantized", e_q)):
+            for lo, width in ((0, w), (1000, w - 5000)):
+                for tie in TIES:
+                    chk.equal("find_seam_tiled",
+                              f"{TILED_ROWS}x{w} {e_name} [{lo}, "
+                              f"{lo + width}) {tie}",
+                              find_seams(e[None], width, lo, tie=tie),
+                              find_seams(e[None], width, lo, tie=tie,
+                                         use_pallas=False))
+        chk.equal("find_seam_tiled", f"{TILED_ROWS}x{w} find_seam width=W-3",
+                  find_seam(e_r, w - 3), find_seam(e_r, w - 3,
+                                                   use_pallas=False))
+        for col in (0, w - 1):
+            e_b = torch.ones((TILED_ROWS, w), device=dev)
+            e_b[:, col] = 0
+            for tie in TIES:
+                got = find_seam(e_b, w, tie=tie)
+                chk.equal("find_seam_tiled",
+                          f"{TILED_ROWS}x{w} seam along column {col} {tie}",
+                          got, find_seam(e_b, w, tie=tie, use_pallas=False))
+                chk.require(bool((got == col).all()),
+                            f"{TILED_ROWS}x{w} {tie}: the seam runs along "
+                            f"column {col}")
+    e2 = on_dev((rng.integers(0, 3, (2, TILED_ROWS - 43, W_WIDE)) / 2)
+                .astype(np.float32))
+    widths = on_dev(np.array([W_WIDE, MAX_WIDTH - 1700], np.int32))
+    los = on_dev(np.array([0, 7001], np.int32))
+    for tie in TIES:
+        chk.equal("find_seam_tiled", f"B=2 x {TILED_ROWS - 43}x{W_WIDE} "
+                  f"per-image windows {tie}",
+                  find_seams(e2, widths, los, tie=tie),
+                  find_seams(e2, widths, los, tie=tie, use_pallas=False))
+    del e_r, e_q, e_b, e2
+
+    # times at the wide carve's shape, and the finding at 8K
+    e_w = on_dev(rng.random((H_WIDE, W_WIDE), dtype=np.float32))
+    time_kernel(times, "find_seam_tiled", lambda: find_seam(e_w, W_WIDE),
+                lambda: find_seam(e_w, W_WIDE, use_pallas=False), 20, 2)
+    BOUNDS["find_seam_tiled"] = (4 * H_WIDE * W_WIDE + 4 * H_WIDE,
+                                 3 * H_WIDE * W_WIDE)
+    log(f"  find_seam_tiled {H_WIDE}x{W_WIDE}: kernel "
+        f"{times['find_seam_tiled'][0]!r} ms (device "
+        f"{DEVICE['find_seam_tiled']!r}), plain "
+        f"{times['find_seam_tiled'][1]!r} ms ({card})")
+    e8 = on_dev(rng.random((4320, 7680), dtype=np.float32))
+    chk.equal("find_seam_tiled", "4320x7680 forced == find_seam",
+              _find_seams_tiled(e8[None], 7680, 0, "leftmost")[0],
+              find_seam(e8, 7680))
+    one = device_ms(lambda: find_seam(e8, 7680), 10)
+    tiled = device_ms(lambda: _find_seams_tiled(e8[None], 7680, 0,
+                                                "leftmost"), 10)
+    log(f"  finding, 4320x7680: find_seam (one CTA, 8 columns a thread) "
+        f"{one!r} device ms, the tiled kernel forced (2 tiles) {tiled!r} "
+        f"device ms ({card})")
+    del e_w, e8
+
+    log(f"phase 1c: api.carve({H_WIDE}x{W_WIDE}x3, -{WHOLE_SEAMS}) on the "
+        "card")
+    img = rng.integers(0, 256, (H_WIDE, W_WIDE, 3), dtype=np.uint8)
+    kw = dict(blocksize=8, output_seams=True, output_energy=True,
+              device="cuda")
+    api.carve(img[:64, :MAX_WIDTH + 64], -2, **kw)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    res = api.carve(img, -WHOLE_SEAMS, **kw)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    log(f"  launches on the wide carve: {launches}")
+    for name, want in (("find_seam_tiled", WHOLE_SEAMS), ("find_seam", 0),
+                       ("apply", WHOLE_SEAMS), ("strip", WHOLE_SEAMS)):
+        chk.require(launches[name] == want,
+                    f"wide carve: {name} launched {want} times")
+    chk.require(launches["energy"] >= 1, "wide carve: energy launched")
+    plain = api.carve(img, -WHOLE_SEAMS, use_pallas=False, **kw)
+    for field in ("image", "visibility_map", "energy_image"):
+        a, b = getattr(res, field), getattr(plain, field)
+        chk.require(a.shape == b.shape and np.array_equal(a, b),
+                    f"wide api.carve {field} == plain path on the card")
+    chk.require(res.image.shape == (H_WIDE, W_WIDE - WHOLE_SEAMS, 3),
+                "wide carve output shape")
+    del img, res, plain
+
+    log(f"phase 1c: apply at {H_TALL} rows (rows by grid stride)")
+    x = on_dev(rng.random((H_TALL, 64), dtype=np.float32))
+    oc = on_dev(rng.integers(0, 99, (H_TALL, 64)).astype(np.int32))
+    e = on_dev(rng.random((H_TALL, 64), dtype=np.float32))
+    seam = on_dev(((np.cumsum(rng.integers(-1, 2, H_TALL)) + 30) % 60)
+                  .astype(np.int32))
+    for part, g, w_ in zip(("luma", "origcol", "energy"),
+                           apply_seam(x, oc, e, seam, 62),
+                           apply_seam(x, oc, e, seam, 62, use_pallas=False)):
+        chk.equal("apply", f"{H_TALL}x64 {part}", g, w_)
+    return launches
+
+
 def phase_3(dev, chk: Checks, card: str, rng, times: dict) -> dict:
     """The batch route; returns the launch counts of its api.carve run."""
     import torch
@@ -267,6 +415,7 @@ def phase_3(dev, chk: Checks, card: str, rng, times: dict) -> dict:
     from dct_carver_tpu_torch.kernels.dp_kernel import find_seams
     from dct_carver_tpu_torch.kernels.energy_kernel import dct_energy
     from dct_carver_tpu_torch.kernels.strip_kernel import strip_update
+    from dct_carver_tpu_torch.ops.energy import to_luma
     from dct_carver_tpu_torch.parallel.mesh import carve_batch
 
     edges, textures = 0.3, 0.7
@@ -333,10 +482,15 @@ def phase_3(dev, chk: Checks, card: str, rng, times: dict) -> dict:
     for part, g, w_ in zip(("luma", "origcol", "energy"), got, want):
         chk.equal("apply", f"B={NB} after one batched seam, {part}", g, w_)
     l1, _, e1 = want
+    for n in (2, 4, 16):
+        chk.equal("strip", f"B={NB} after one batched seam n={n}",
+                  strip_update(l1, e1.clone(), seam, n, edges, textures),
+                  strip_update(l1, e1.clone(), seam, n, edges, textures,
+                               use_pallas=False))
     k = strip_update(l1, e1.clone(), seam, 8, edges, textures)
     p = strip_update(l1, e1.clone(), seam, 8, edges, textures,
                      use_pallas=False)
-    chk.equal("strip", f"B={NB} after one batched seam", k, p)
+    chk.equal("strip", f"B={NB} after one batched seam n=8", k, p)
     full = dct_energy(l1, 8, edges, textures, use_pallas=False)
     chk.equal("strip", f"B={NB} == full recompute (live columns)",
               k[..., :WB - 1].contiguous(), full[..., :WB - 1].contiguous())
@@ -422,12 +576,32 @@ def phase_3(dev, chk: Checks, card: str, rng, times: dict) -> dict:
         f"{px / min(secs) / 1e6!r} Mpix/s; peak device memory {peak} bytes "
         f"({peak / NB_TIMED / 2**20!r} MiB an image; {card})")
     del out, vmaps
+    # the energy and the strip at the batch shape, rows of their own
+    lumas = to_luma(big, stack=True)
+    e_b = dct_energy(lumas, 8, edges, textures)
+    seam_b = find_seams(e_b, WB)
+    rows, sw = NB_TIMED * HB, 20
+    BATCH.update({
+        "energy": (device_ms(lambda: dct_energy(lumas, 8, edges, textures),
+                             3),
+                   bound(8 * rows * WB, dct_ops(8, rows, WB, WB))),
+        "strip": (device_ms(lambda: strip_update(lumas, e_b, seam_b, 8, edges,
+                                                 textures), 10),
+                  bound(4 * (rows * (sw + 7) + rows * sw + rows),
+                        dct_ops(8, rows, sw, sw + 7))),
+    })
+    for name, (d_ms, (b_ms, b_by)) in BATCH.items():
+        log(f"  {name} at B={NB_TIMED} x {HB}x{WB} n=8: device {d_ms!r} ms, "
+            f"bound {b_ms!r} ms ({b_by}) ({card})")
+    del lumas, e_b, seam_b
+
     wall, busy_us, top = device_profile(run, top=10)
     log(f"  profiled carve_batch: wall {wall * 1e3!r} ms, device busy "
         f"{busy_us / 1e3!r} ms ({100 * busy_us / 1e6 / wall!r} % of wall; "
         f"{card})")
     for name, us, count in top:
         log(f"    {us / 1e3:10.4f} ms  {count:5d} x  {name[:90]}")
+
     return launches
 
 
@@ -761,6 +935,9 @@ BOUNDS: dict[str, tuple[float, float]] = {}
 DEVICE: dict[str, float] = {}
 LIBRARY: dict[str, float] = {}
 LIBRARY_DEVICE: dict[str, float] = {}
+# the energy and the strip at phase 3c's batch shape: (device ms,
+# (bound ms, bound_by))
+BATCH: dict[str, tuple[float, tuple[float, str]]] = {}
 
 
 def phase_5a(dev, chk: Checks, card: str, rng, times: dict) -> None:
@@ -927,7 +1104,42 @@ def phase_5a(dev, chk: Checks, card: str, rng, times: dict) -> None:
     src = torch.where(col_g < seam[:, None], cols, (cols + 1) % Wl)
     index = src.expand(3, S, H8, Wl).contiguous()
     time_library("sharded_apply", lambda: torch.gather(planes, 3, index))
-    del luma, energy, origcol, planes, index, outs
+    # back to back, the 50 MB L2 may still hold lines of the call before;
+    # with 128 MB written between calls it holds none of them
+    flush = torch.empty(32 * 2**20, device=dev)
+
+    def after_flush():
+        flush.fill_(0.0)
+        sharded_apply(luma, origcol, energy, seam, edge, incoming, nw, 0,
+                      out=outs)
+
+    flushed = device_ms(after_flush, 20, only="sharded_apply")
+    log(f"  sharded_apply ({S}, {H8}, {Wl}): device {DEVICE['sharded_apply']!r}"
+        f" ms back to back, {flushed!r} ms with the L2 flushed between "
+        f"calls; bound {bound(*BOUNDS['sharded_apply'])[0]!r} ms ({card})")
+    del luma, energy, origcol, planes, index, outs, flush
+
+    # rows by grid stride: a stack of shards taller than the grid's y
+    St, Wt = 2, 32
+    luma = on_dev(rng.random((St, H_TALL, Wt), dtype=np.float32))
+    energy = on_dev(rng.random((St, H_TALL, Wt), dtype=np.float32))
+    origcol = on_dev(rng.integers(0, St * Wt, (St, H_TALL, Wt))
+                     .astype(np.int32))
+    seam_t = on_dev(((np.cumsum(rng.integers(-1, 2, H_TALL)) + Wt)
+                     % (St * Wt - 2)).astype(np.int32))
+    edge_t = on_dev(rng.random(H_TALL, dtype=np.float32))
+    first = torch.cat([luma[..., :1], energy[..., :1],
+                       origcol[..., :1].view(torch.float32)], dim=-1)
+    incoming = torch.cat([first[1:], torch.zeros_like(first[:1])])
+    nw_t = width(St * Wt - 1)
+    for part, g, w_ in zip(
+            ("luma", "origcol", "energy", "orig"),
+            sharded_apply(luma, origcol, energy, seam_t, edge_t, incoming,
+                          nw_t, 0),
+            sharded_apply(luma, origcol, energy, seam_t, edge_t, incoming,
+                          nw_t, 0, use_pallas=False)):
+        chk.equal("sharded_apply", f"({St}, {H_TALL}, {Wt}) {part}", g, w_)
+    del luma, energy, origcol, incoming, first
 
     # the strips with a shard offset: 4 shards of the 8K plane
     mesh = ShardMesh([dev] * S, W8)
@@ -1333,7 +1545,8 @@ def main() -> int:
             apply_seam(luma4, oc4, E4, seam4, W4 - 2, use_pallas=False)):
         chk.equal("apply", f"4K width=W-2 {part}", g, w_)
 
-    for name, x, n in (("1080p n=8", luma, 8), ("4K n=16", luma4, 16),
+    for name, x, n in (("1080p n=2", luma, 2), ("1080p n=4", luma, 4),
+                       ("1080p n=8", luma, 8), ("4K n=16", luma4, 16),
                        (f"{H - 3}x{W - 7} n=16", ragged, 16)):
         e0 = dct_energy(x, n, edges, textures)
         seam = find_seam(e0, x.shape[1])
@@ -1386,6 +1599,7 @@ def main() -> int:
     del planes, index
 
     phase_1b(dev, chk, card, rng)
+    wide_launches = phase_1c(dev, chk, card, rng, times)
 
     # ---------------------------------------------------------- phase 2 --
     log(f"phase 2: api.carve({H}x{W}x3, -{SEAMS}, blocksize=8) on the card")
@@ -1400,6 +1614,8 @@ def main() -> int:
     launches = kernels.launch_counts()
     log(f"  launches on the main path: {launches}")
     chk.require(launches["energy"] >= 1, "energy kernel launched")
+    chk.require(launches["find_seam_tiled"] == 0,
+                "no tiled find-seam launch at 1920 columns")
     for name in ("find_seam", "apply", "strip"):
         chk.require(launches[name] == SEAMS,
                     f"{name} kernel launched {SEAMS} times")
@@ -1487,11 +1703,12 @@ def main() -> int:
               file=sys.stderr)
         return 1
     # each kernel's launches on the main paths, each run counted from 0:
-    # the single-image carve of phase 2, the batch carve of phase 3b, the
-    # plugged-energy carves of phase 4b (grad_norm) and 4c (batch), and the
-    # spatial carves of phase 5b (8K over 4 shards, small shards) and 5c
-    # (grad_norm)
-    runs = (launches, batch_launches, *energy_launches, *spatial_launches)
+    # the wide carve of phase 1c, the single-image carve of phase 2, the
+    # batch carve of phase 3b, the plugged-energy carves of phase 4b
+    # (grad_norm) and 4c (batch), and the spatial carves of phase 5b (8K
+    # over 4 shards, small shards) and 5c (grad_norm)
+    runs = (wide_launches, launches, batch_launches, *energy_launches,
+            *spatial_launches)
     rows = []
     for k in kernels.KERNELS:
         bound_ms, bound_by = bound(*BOUNDS[k.name])
@@ -1504,6 +1721,9 @@ def main() -> int:
             "bound_by": bound_by, "library_ms": LIBRARY.get(k.name),
             "device_ms": DEVICE[k.name],
             "library_device_ms": LIBRARY_DEVICE.get(k.name)})
+        if k.name in BATCH:  # the same kernel at phase 3c's batch shape
+            b_ms, (bb_ms, _) = BATCH[k.name]
+            rows[-1].update(batch_device_ms=b_ms, batch_bound_ms=bb_ms)
         log(f"  {k.name:14s} {times[k.name][0]!r} ms (device "
             f"{DEVICE[k.name]!r}), bound {bound_ms!r} ms ({bound_by}), "
             f"library {LIBRARY.get(k.name)!r} ms (device "

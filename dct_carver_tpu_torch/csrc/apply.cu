@@ -18,9 +18,12 @@
 // before the seam and j+1 from the seam on; column W-1 wraps to column 0, as
 // jnp.roll does (that column lies in the dead region).  The edge value is
 // read here from the old luma at seam == width-1 ? width-2 : width-1.  The
-// image is the grid's z dimension and the row its y; offsets are size_t,
+// image is the grid's z dimension; rows walk the grid's y dimension by
+// stride (y is capped at 65535, so any height runs); offsets are size_t,
 // since B * H * W passes INT_MAX near B = 1024 1-Mpix images.  Every image
 // shares the logical width: each loses one seam a step.
+
+#include <algorithm>
 
 #include <cuda_runtime.h>
 
@@ -36,31 +39,34 @@ __global__ void apply_kernel(const float* __restrict__ luma,
                              int width) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= W) return;
-  const size_t row = static_cast<size_t>(blockIdx.z) * H + blockIdx.y;
-  const size_t base = row * W;
-  const int s = seam[row];
-  const int src = j < s ? j : (j + 1 == W ? 0 : j + 1);
-  if (j >= width - 1) {
-    const int edge = s == width - 1 ? width - 2 : width - 1;
-    luma_out[base + j] = luma[base + edge];
-  } else {
-    luma_out[base + j] = luma[base + src];
+  for (int y = blockIdx.y; y < H; y += gridDim.y) {
+    const size_t row = static_cast<size_t>(blockIdx.z) * H + y;
+    const size_t base = row * W;
+    const int s = seam[row];
+    const int src = j < s ? j : (j + 1 == W ? 0 : j + 1);
+    if (j >= width - 1) {
+      const int edge = s == width - 1 ? width - 2 : width - 1;
+      luma_out[base + j] = luma[base + edge];
+    } else {
+      luma_out[base + j] = luma[base + src];
+    }
+    origcol_out[base + j] = origcol[base + src];
+    energy_out[base + j] = energy[base + src];
   }
-  origcol_out[base + j] = origcol[base + src];
-  energy_out[base + j] = energy[base + src];
 }
 
 }  // namespace dct_carver
 
 // All planes (B, H, W) row-major: luma/energy f32, origcol int32; seam
-// (B, H) int32; width is the logical width before the removal.  Returns the
-// cudaError_t of the launch.
+// (B, H) int32; width is the logical width before the removal; B <= 65535
+// (grid z).  Returns the cudaError_t of the launch.
 extern "C" int dc_apply(const float* luma, const int* origcol,
                         const float* energy, const int* seam, float* luma_out,
                         int* origcol_out, float* energy_out, int B, int H,
                         int W, int width, void* stream) {
   const dim3 block(256);
-  const dim3 grid((W + block.x - 1) / block.x, H, B);
+  // rows by grid stride: y is capped at 65535
+  const dim3 grid((W + block.x - 1) / block.x, std::min(H, 65535), B);
   dct_carver::apply_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       luma, origcol, energy, seam, luma_out, origcol_out, energy_out, H, W,
       width);

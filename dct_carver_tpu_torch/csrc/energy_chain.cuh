@@ -1,19 +1,23 @@
-// The DCT energy of one pixel, shared by the full-map kernel (energy.cu), the
-// strip kernel (strip.cu) and the band kernel (strip_bands.cu).  All call
-// the same device function, so a strip update, a full recompute and the
-// energy of gathered bands run the identical op sequence and agree bit for
-// bit.
+// The parts of the DCT energy, shared by the full-map kernel (energy.cu), the
+// strip kernel (strip.cu) and the band kernel (strip_bands.cu).  All build
+// each coefficient from the same chains in the same op order, so a strip
+// update, a full recompute and the energy of gathered bands agree bit for
+// bit, however each kernel spreads the chains over its threads.
 //
 // Contract: dct_carver_tpu_torch/ops/dct.py::energy_from_bands (and the JAX
 // package's ops/dct.py:84-116).  For each ky, the n values V[ky][col+dx] are
-// n-term dy chains over edge-clamped rows; for each kx, the coefficient is
-// the n-term dx chain over V.  The DC atom is excluded; the largest |coeff|
-// wins, and among equal values the largest rank kx*n+ky.  The result is
-// multiplied by `edges` when the winner is atom (0,1) or (1,0) (rank 1 or
-// n), else by `textures`.  Every multiply and add is rounded on its own
-// (__fmul_rn/__fadd_rn, and the library is built with -fmad=false): a fused
-// multiply-add would change the low bits and break bitwise parity with the
-// plain PyTorch version.
+// n-term dy chains over edge-clamped rows (the vertical chain); for each kx,
+// the coefficient is the n-term dx chain over V (the atom chain).  The DC
+// atom is excluded; the largest |coeff| wins, and among equal values the
+// largest rank kx*n+ky (the pick).  The result is multiplied by `edges` when
+// the winner is atom (0,1) or (1,0) (rank 1 or n), else by `textures`.
+// Every multiply and add is rounded on its own (__fmul_rn/__fadd_rn, and the
+// library is built with -fmad=false): a fused multiply-add would change the
+// low bits and break bitwise parity with the plain PyTorch version.
+//
+// The pick is the largest (|coeff|, rank) pair in lexicographic order, so it
+// does not depend on the order in which atoms are seen: atoms may be spread
+// over threads and their picks combined in any order (Pick::add).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -21,8 +25,29 @@
 
 namespace dct_carver {
 
-// Copy the n*n f32 taps (row k = frequency, column j = sample) into shared
-// memory.  Every thread of the block must call it (it synchronises).
+// The n*n f32 taps (row k = frequency, column j = sample) by value: as a
+// kernel parameter they sit in constant memory, and a multiply whose tap
+// index is known at compile time takes the tap as an operand, with no load
+// and no register.
+template <int N>
+struct Taps {
+  float d[N * N];
+  __device__ __forceinline__ float operator()(int k, int j) const {
+    return d[k * N + j];
+  }
+};
+
+// The same taps copied into shared memory (strip_bands.cu's band kernel).
+template <int N>
+struct SharedTaps {
+  const float* d;
+  __device__ __forceinline__ float operator()(int k, int j) const {
+    return d[k * N + j];
+  }
+};
+
+// Copy the n*n f32 taps into shared memory.  Every thread of the block must
+// call it (it synchronises).
 __device__ __forceinline__ void load_taps(const float* __restrict__ taps,
                                           float* s_taps, int n) {
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
@@ -30,69 +55,79 @@ __device__ __forceinline__ void load_taps(const float* __restrict__ taps,
   __syncthreads();
 }
 
-// The chain of one pixel over a window whose row d starts at src + roff[d]
-// and whose column dx is at index cidx[dx] of each row.  The caller picks
-// the addressing: clamped rows and columns of a luma plane (energy_at, for
-// energy.cu and strip.cu) or the rows of a gathered band (strip_bands.cu),
-// so every kernel runs this one op sequence.  D is the n*n tap matrix in
-// shared memory.
-template <int N>
+// One chain: sum_j D(k, j) * x(j), j = 0 .. N-1 in order, each op rounded.
+// The vertical chain is chain(D, ky, band column), the atom chain
+// chain(D, kx, V row).
+template <int N, class D, class X>
+__device__ __forceinline__ float chain(const D& taps, int k, X x) {
+  float v = __fmul_rn(taps(k, 0), x(0));
+#pragma unroll
+  for (int j = 1; j < N; ++j) v = __fadd_rn(v, __fmul_rn(taps(k, j), x(j)));
+  return v;
+}
+
+// A running pick: the largest |coeff| and, among equals, the largest rank.
+// It starts at (-inf, -1); a NaN never enters, as in the sequential loop.
+struct Pick {
+  float v = -INFINITY;
+  int rank = -1;
+  // Take (a, r) when a is larger, or equal with a larger rank.  Also the
+  // combine of two picks: add(other.v, other.rank).
+  __device__ __forceinline__ void add(float a, int r) {
+    if (a > v || (a == v && r > rank)) {
+      v = a;
+      rank = r;
+    }
+  }
+  template <int N>
+  __device__ __forceinline__ float energy(float edges, float textures) const {
+    const bool is_edge = rank == 1 || rank == N;
+    return __fmul_rn(v, is_edge ? edges : textures);
+  }
+};
+
+// The pick of one ky row of atoms: x(kx) gives the coefficient of atom
+// (kx, ky).  Ranks grow with kx within a ky, so a later equal value wins
+// (>=); the row's pick then joins `p` by the full rule.
+template <int N, class X>
+__device__ __forceinline__ void pick_row(Pick& p, int ky, X coeff) {
+  float m = -INFINITY;
+  int best = -1;
+#pragma unroll
+  for (int kx = 0; kx < N; ++kx) {
+    if (kx == 0 && ky == 0) continue;  // DC atom (src/dct.c:103)
+    const float a = fabsf(coeff(kx));
+    if (a >= m) {
+      m = a;
+      best = kx;
+    }
+  }
+  if (best >= 0) p.add(m, best * N + ky);
+}
+
+// The energy of one pixel over a window whose row d starts at src + roff[d]
+// and whose column dx is at index cidx[dx] of each row (strip_bands.cu's
+// gathered bands): the parts above, one ky at a time.
+template <int N, class D>
 __device__ __forceinline__ float energy_chain(const float* __restrict__ src,
                                               const int (&roff)[N],
                                               const int (&cidx)[N],
-                                              const float* D, float edges,
+                                              const D& taps, float edges,
                                               float textures) {
-  float maxval = -INFINITY;
-  int winner = -1;
+  Pick p;
 #pragma unroll 1
   for (int ky = 0; ky < N; ++ky) {
-    const float* Dy = D + ky * N;
     float V[N];
 #pragma unroll
-    for (int dx = 0; dx < N; ++dx) {
-      float v = __fmul_rn(Dy[0], __ldg(src + roff[0] + cidx[dx]));
-#pragma unroll
-      for (int dy = 1; dy < N; ++dy)
-        v = __fadd_rn(v, __fmul_rn(Dy[dy], __ldg(src + roff[dy] + cidx[dx])));
-      V[dx] = v;
-    }
-#pragma unroll
-    for (int kx = 0; kx < N; ++kx) {
-      if (ky == 0 && kx == 0) continue;  // DC atom (src/dct.c:103)
-      const float* Dx = D + kx * N;
-      float t = __fmul_rn(Dx[0], V[0]);
-#pragma unroll
-      for (int dx = 1; dx < N; ++dx) t = __fadd_rn(t, __fmul_rn(Dx[dx], V[dx]));
-      const float a = fabsf(t);
-      const int rank = kx * N + ky;
-      if (a > maxval) {
-        maxval = a;
-        winner = rank;
-      } else if (a == maxval) {
-        winner = max(winner, rank);
-      }
-    }
+    for (int dx = 0; dx < N; ++dx)
+      V[dx] = chain<N>(taps, ky, [&](int dy) {
+        return __ldg(src + roff[dy] + cidx[dx]);
+      });
+    pick_row<N>(p, ky, [&](int kx) {
+      return chain<N>(taps, kx, [&](int dx) { return V[dx]; });
+    });
   }
-  const bool is_edge = winner == 1 || winner == N;
-  return __fmul_rn(maxval, is_edge ? edges : textures);
-}
-
-// Energy of pixel (row, col) of the (H, W) row-major luma plane.  The window
-// starts `co` rows/columns before the pixel (ops/dct.py::window_offset) and
-// is clamped to the plane.
-template <int N>
-__device__ __forceinline__ float energy_at(const float* __restrict__ luma,
-                                           int H, int W, int row, int col,
-                                           int co, const float* D,
-                                           float edges, float textures) {
-  int roff[N];
-  int cidx[N];
-#pragma unroll
-  for (int d = 0; d < N; ++d) {
-    roff[d] = min(max(row + co + d, 0), H - 1) * W;
-    cidx[d] = min(max(col + co + d, 0), W - 1);
-  }
-  return energy_chain<N>(luma, roff, cidx, D, edges, textures);
+  return p.energy<N>(edges, textures);
 }
 
 }  // namespace dct_carver

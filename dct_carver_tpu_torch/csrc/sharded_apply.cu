@@ -12,7 +12,8 @@
 // planes are read once and written once, 24 bytes a pixel: 796 MB a seam
 // for an 8K panorama (4320 x 7680), about 0.24 ms at the card's 3.35 TB/s.
 //
-// Simple design, as csrc/apply.cu: it reads one set of state buffers and
+// Simple design, as csrc/apply.cu (rows by grid stride, so any height
+// runs): it reads one set of state buffers and
 // writes a second (the carve swaps them every seam), because compacting in
 // place across parallel blocks would race.  Column j of shard s takes input
 // column j before the seam and j+1 from the seam on; the last column takes
@@ -23,6 +24,8 @@
 // part of the removed pixel's original column (0 where the seam lies on
 // another shard), which the caller sums over the shards, as the TPU
 // kernel's one-hot side output.
+
+#include <algorithm>
 
 #include <cuda_runtime.h>
 
@@ -37,33 +40,34 @@ __global__ void sharded_apply_kernel(
     int lo, const int* __restrict__ new_width) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= Wl) return;
-  const int row = blockIdx.y;
   const int lo_s = lo + static_cast<int>(blockIdx.z) * Wl;
-  const size_t r = static_cast<size_t>(blockIdx.z) * H + row;
-  const size_t base = r * Wl;
-  const int s = seam[row];
-  float l, e;
-  int o;
-  if (lo_s + j < s) {
-    l = luma[base + j];
-    e = energy[base + j];
-    o = origcol[base + j];
-  } else if (j == Wl - 1) {
-    const float* in = incoming + r * 3;
-    l = in[0];
-    e = in[1];
-    o = __float_as_int(in[2]);
-  } else {
-    l = luma[base + j + 1];
-    e = energy[base + j + 1];
-    o = origcol[base + j + 1];
-  }
-  luma_out[base + j] = lo_s + j >= *new_width ? edge[row] : l;
-  energy_out[base + j] = e;
-  origcol_out[base + j] = o;
-  if (j == 0) {
-    const int li = s - lo_s;
-    orig[r] = (li >= 0 && li < Wl) ? origcol[base + li] : 0;
+  for (int row = blockIdx.y; row < H; row += gridDim.y) {
+    const size_t r = static_cast<size_t>(blockIdx.z) * H + row;
+    const size_t base = r * Wl;
+    const int s = seam[row];
+    float l, e;
+    int o;
+    if (lo_s + j < s) {
+      l = luma[base + j];
+      e = energy[base + j];
+      o = origcol[base + j];
+    } else if (j == Wl - 1) {
+      const float* in = incoming + r * 3;
+      l = in[0];
+      e = in[1];
+      o = __float_as_int(in[2]);
+    } else {
+      l = luma[base + j + 1];
+      e = energy[base + j + 1];
+      o = origcol[base + j + 1];
+    }
+    luma_out[base + j] = lo_s + j >= *new_width ? edge[row] : l;
+    energy_out[base + j] = e;
+    origcol_out[base + j] = o;
+    if (j == 0) {
+      const int li = s - lo_s;
+      orig[r] = (li >= 0 && li < Wl) ? origcol[base + li] : 0;
+    }
   }
 }
 
@@ -71,8 +75,8 @@ __global__ void sharded_apply_kernel(
 
 // luma, origcol, energy and the three outputs: (S, H, Wl) row-major;
 // seam, edge: (H,); incoming: (S, H, 3) f32; orig: (S, H) int32 out;
-// new_width: one int32 on the device, the logical width after the removal.
-// Returns the cudaError_t of the launch.
+// new_width: one int32 on the device, the logical width after the removal;
+// S <= 65535 (grid z).  Returns the cudaError_t of the launch.
 extern "C" int dc_sharded_apply(const float* luma, const int* origcol,
                                 const float* energy, const int* seam,
                                 const float* edge, const float* incoming,
@@ -81,7 +85,8 @@ extern "C" int dc_sharded_apply(const float* luma, const int* origcol,
                                 int Wl, int lo, const int* new_width,
                                 void* stream) {
   const dim3 block(256);
-  const dim3 grid((Wl + block.x - 1) / block.x, H, S);
+  // rows by grid stride: y is capped at 65535
+  const dim3 grid((Wl + block.x - 1) / block.x, std::min(H, 65535), S);
   dct_carver::sharded_apply_kernel<<<grid, block, 0,
                                      static_cast<cudaStream_t>(stream)>>>(
       luma, origcol, energy, seam, edge, incoming, luma_out, origcol_out,

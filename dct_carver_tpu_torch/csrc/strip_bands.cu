@@ -10,8 +10,8 @@
 //                    into the energy;
 //   dc_band_energy   replaces _strip_energy_call (:401,
 //                    _make_strip_energy_kernel :351): the DCT energy of
-//                    gathered bands, through the same energy_chain as
-//                    energy.cu and strip.cu.
+//                    gathered bands, from the same chains and pick
+//                    (energy_chain.cuh) as energy.cu and strip.cu.
 //
 // Geometry: the port's per-row strip (ops/carve.py::_strip_bounds), not the
 // TPU's R-row blocks, 256-lane windows and lane rotations, which exist for
@@ -110,8 +110,8 @@ __global__ void band_energy_kernel(const float* __restrict__ bands,
     roff[d] = d * C;
     cidx[d] = p + d;
   }
-  out[e] = energy_chain<N>(bands + r * N * C, roff, cidx, s_taps, edges,
-                           textures);
+  out[e] = energy_chain<N>(bands + r * N * C, roff, cidx,
+                           SharedTaps<N>{s_taps}, edges, textures);
 }
 
 }  // namespace dct_carver

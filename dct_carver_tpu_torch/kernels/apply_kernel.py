@@ -44,9 +44,8 @@ def _apply_cuda(luma, origcol, energy, seam, width, out):
         if o.shape != src.shape or o.data_ptr() == src.data_ptr():
             raise ValueError(f"{name}: needs a separate buffer of shape "
                              f"{tuple(src.shape)}")
-    if max(H, B) > 65535:
-        raise ValueError(f"apply kernel: {H} rows or {B} images exceed the "
-                         "grid's 65535")
+    if B > 65535:
+        raise ValueError(f"apply kernel: {B} images exceed the grid's 65535")
     with torch.cuda.device(dev):
         launch(KERNEL, "dc_apply", luma.data_ptr(), origcol.data_ptr(),
                energy.data_ptr(), seam.data_ptr(), out[0].data_ptr(),

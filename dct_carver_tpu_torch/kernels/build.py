@@ -38,15 +38,19 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 SIGNATURES = {
-    # luma, out, taps, B, H, W, n, co, edges, textures, stream
+    # luma, out, taps (host), B, H, W, n, co, edges, textures, stream
     "dc_energy": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
     # E, parents, seams, B, H, W, lo[B], width[B], lo0, width0, rightmost,
     # stream
     "dc_find_seams": (_P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _P),
+    # E, parents, seams, front, B, H, W, lo[B], width[B], lo0, width0,
+    # rightmost, Wt, K, stream
+    "dc_find_seams_tiled": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I,
+                            _I, _I, _P),
     # luma, origcol, energy, seam, luma', origcol', energy', B, H, W, width,
     # stream
     "dc_apply": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # luma, energy, seam, taps, B, H, W, Wx, Wg, lo, lo_step, xoff,
+    # luma, energy, seam, taps (host), B, H, W, Wx, Wg, lo, lo_step, xoff,
     # seam_step, n, co, half, strip_w, edges, textures, stream
     "dc_strip": (_P, _P, _P, _P, *(_I,) * 13, _F, _F, _P),
     # luma, seam, bands, B, H, Wx, Wg, lo, lo_step, xoff, seam_step, n, co,

@@ -17,7 +17,7 @@ from ..ops.dct import (BLOCKSIZES, _dct_matrix_np, dct_energy_map,
                        window_offset)
 from .build import Kernel, check_plane, launch
 
-__all__ = ["dct_energy", "KERNEL"]
+__all__ = ["dct_energy", "KERNEL", "host_taps", "dct_taps"]
 
 KERNEL = Kernel(name="energy",
                 source="dct_carver_tpu_torch/csrc/energy.cu",
@@ -25,10 +25,18 @@ KERNEL = Kernel(name="energy",
 
 
 @functools.lru_cache(maxsize=None)
-def dct_taps(n: int, device: torch.device) -> torch.Tensor:
-    """The (n, n) f32 DCT taps on `device` — the kernels read these, never
+def host_taps(n: int) -> np.ndarray:
+    """The (n, n) f32 DCT taps in host memory, kept alive here: the energy
+    and strip kernels take them by value as a kernel parameter, never
     cosines computed on the device."""
-    return torch.from_numpy(_dct_matrix_np(n).astype(np.float32)).to(device)
+    return np.ascontiguousarray(_dct_matrix_np(n).astype(np.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def dct_taps(n: int, device: torch.device) -> torch.Tensor:
+    """The (n, n) f32 DCT taps on `device`, for the band kernel, which
+    copies them into shared memory."""
+    return torch.from_numpy(host_taps(n)).to(device)
 
 
 def _energy_cuda(luma: torch.Tensor, n: int, edges, textures,
@@ -39,10 +47,9 @@ def _energy_cuda(luma: torch.Tensor, n: int, edges, textures,
     if B > 65535:
         raise ValueError(f"energy kernel: {B} images exceed the grid's 65535")
     out = torch.empty_like(luma)
-    taps = dct_taps(n, luma.device)
     with torch.cuda.device(luma.device):
         launch(KERNEL, "dc_energy", luma.data_ptr(), out.data_ptr(),
-               taps.data_ptr(), B, H, W, n, window_offset(n, center),
+               host_taps(n).ctypes.data, B, H, W, n, window_offset(n, center),
                float(edges), float(textures),
                torch.cuda.current_stream().cuda_stream)
     return out

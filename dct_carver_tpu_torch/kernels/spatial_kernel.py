@@ -313,9 +313,9 @@ def sharded_apply(luma: torch.Tensor, origcol: torch.Tensor,
                 or not t.is_contiguous()):
             raise ValueError(f"sharded_apply: {name} must be a contiguous "
                              f"{dtype} {shape} tensor on {dev}")
-    if H > 65535:
-        raise ValueError(f"sharded_apply kernel: {H} rows exceed the grid's "
-                         "65535")
+    if S > 65535:
+        raise ValueError(f"sharded_apply kernel: {S} shards exceed the "
+                         "grid's 65535")
     if out is None:
         out = (torch.empty_like(luma), torch.empty_like(origcol),
                torch.empty_like(energy))

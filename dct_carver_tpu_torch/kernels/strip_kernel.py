@@ -32,7 +32,7 @@ from ..ops.carve import (ShardOffset, _gather_strip_bands,
                          _recompute_strip, _scatter_strips, _strip_extent)
 from ..ops.dct import BLOCKSIZES, energy_from_bands, window_offset
 from .build import Kernel, check_plane, launch
-from .energy_kernel import dct_taps
+from .energy_kernel import dct_taps, host_taps
 
 __all__ = ["strip_update", "strip_gather", "strip_scatter", "band_energy",
            "KERNEL", "GATHER_KERNEL", "SCATTER_KERNEL", "BAND_KERNEL"]
@@ -93,12 +93,11 @@ def _strip_cuda(luma, energy, seam, n, edges, textures, delta_x, shard):
     B, geometry = _layout(energy.shape, W, luma.shape[-1], seam, n, shard,
                           "strip")
     half, strip_w = _strip_extent(n, delta_x)
-    taps = dct_taps(n, dev)
     with torch.cuda.device(dev):
         launch(KERNEL, "dc_strip", luma.data_ptr(), energy.data_ptr(),
-               seam.data_ptr(), taps.data_ptr(), B, H, W, luma.shape[-1],
-               *geometry, n, window_offset(n, "carve"), half, strip_w,
-               float(edges), float(textures),
+               seam.data_ptr(), host_taps(n).ctypes.data, B, H, W,
+               luma.shape[-1], *geometry, n, window_offset(n, "carve"), half,
+               strip_w, float(edges), float(textures),
                torch.cuda.current_stream().cuda_stream)
     return energy
 

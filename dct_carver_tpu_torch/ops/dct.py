@@ -23,7 +23,8 @@ import numpy as np
 import torch
 
 __all__ = ["dct_energy_map", "energy_from_bands", "rows_to_bands",
-           "window_offset", "BLOCKSIZES"]
+           "window_offset", "BLOCKSIZES", "ky_picks", "combine_picks",
+           "pick_energy"]
 
 BLOCKSIZES = (2, 4, 8, 16)
 
@@ -106,6 +107,60 @@ def energy_from_bands(bands: torch.Tensor, n: int, edges,
         torch.tensor(textures, dtype=bands.dtype, device=bands.device),
     )
     return maxval * w
+
+
+def ky_picks(bands: torch.Tensor, n: int):
+    """The kernels' decomposition of `energy_from_bands`'s running argmax
+    (`csrc/energy_chain.cuh`): for each ky, the pick of that ky's row of
+    atoms, a (value, rank) pair of (..., H, C - n + 1) tensors holding the
+    largest |coefficient| over kx (DC excluded) and, among equal values,
+    the largest rank kx*n + ky; (-inf, -1) where there is none.  Same
+    chains, same op order as `energy_from_bands`."""
+    *lead, nb, C = bands.shape
+    if nb != n:
+        raise ValueError(f"bands hold {nb} rows, expected {n}")
+    Cout = C - n + 1
+    D = _taps(n, bands.dtype)
+    picks = []
+    for ky in range(n):
+        v = D[ky][0] * bands[..., 0, :]
+        for dy in range(1, n):
+            v = v + D[ky][dy] * bands[..., dy, :]
+        sh = [v[..., dx:dx + Cout] for dx in range(n)]
+        m = torch.full((*lead, Cout), -math.inf, dtype=bands.dtype,
+                       device=bands.device)
+        rank = torch.full((*lead, Cout), -1, dtype=torch.int32,
+                          device=bands.device)
+        for kx in range(1 if ky == 0 else 0, n):
+            t = D[kx][0] * sh[0]
+            for dx in range(1, n):
+                t = t + D[kx][dx] * sh[dx]
+            a = torch.abs(t)
+            take = a >= m  # ranks grow with kx: a later equal value wins
+            m = torch.where(take, a, m)
+            rank = torch.where(take, kx * n + ky, rank)
+        picks.append((m, rank))
+    return picks
+
+
+def combine_picks(p, q):
+    """The pick of two picks (value, rank): q's where its value is larger,
+    or equal with a larger rank.  A lexicographic maximum, so picks combine
+    in any order (the kernels combine per-ky picks across threads)."""
+    (pv, pr), (qv, qr) = p, q
+    take = (qv > pv) | ((qv == pv) & (qr > pr))
+    return torch.where(take, qv, pv), torch.where(take, qr, pr)
+
+
+def pick_energy(pick, n: int, edges, textures) -> torch.Tensor:
+    """The energy of a combined pick: its value weighted by `edges` for
+    atoms (0,1)/(1,0), else `textures` (as `energy_from_bands`)."""
+    v, rank = pick
+    is_edge = (rank == 1) | (rank == n)
+    w = torch.where(is_edge,
+                    torch.tensor(edges, dtype=v.dtype, device=v.device),
+                    torch.tensor(textures, dtype=v.dtype, device=v.device))
+    return v * w
 
 
 def window_offset(n: int, center: str = "carve") -> int:

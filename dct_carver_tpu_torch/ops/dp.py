@@ -28,7 +28,7 @@ import torch
 
 __all__ = ["cumulative_energy", "backtrack", "find_seam", "remove_seam",
            "mask_energy", "check_tie", "TIES", "parent_directions",
-           "backtrack_windowed"]
+           "backtrack_windowed", "find_seam_tiled"]
 
 TIES = ("leftmost", "rightmost")
 
@@ -157,6 +157,51 @@ def backtrack_windowed(P: torch.Tensor, last: torch.Tensor, K: int = 64,
             seam[top - r - 1] = jl + ws
         j = jl + ws
     return torch.stack(seam, dim=-1).to(torch.int32)
+
+
+def find_seam_tiled(E: torch.Tensor, width, lo=0, tie: str = "leftmost", *,
+                    tile: int = 3840, K: int = 128) -> torch.Tensor:
+    """The tiled find-seam kernel's algorithm (`csrc/find_seam_tiled.cu`):
+    (..., H, W) energy, masked to the column window [lo, lo + width) (ints,
+    or (B,) tensors for a stack), -> (..., H) int32 seams.
+
+    The row is cut into tiles of `tile` owned columns, each computed over
+    an extended row with Hh = K rounded up to 4 halo columns a side (+inf
+    outside [0, W)), K rows at a time from a frontier that holds the last
+    DP row of the K rows before (ping-pong in the kernel).  Each tile keeps
+    the parents and the last row of its owned columns only; the owned
+    values are exact because a value |dc| columns from the extended row's
+    ends is exact for |dc| rows.  Then `backtrack_windowed`.  It gives
+    `find_seam`'s seams, and is here to hold the kernel's algorithm to
+    them.  The defaults are the kernel's (`kernels/dp_kernel.py`'s TILE_W
+    and TILE_K)."""
+    check_tie(tie)
+    if tile < 4 or tile % 4 or K < 1:
+        raise ValueError(f"tile must be a positive multiple of 4 and K >= 1, "
+                         f"got tile={tile}, K={K}")
+    H, W = E.shape[-2:]
+    Hh = (K + 3) // 4 * 4
+    masked = mask_energy(E, width, lo)
+    inf = torch.tensor(math.inf, dtype=E.dtype, device=E.device)
+    P = torch.zeros(masked.shape, dtype=torch.int8, device=E.device)
+    front = masked[..., 0, :]
+    for r0 in range(0, H - 1, K):
+        N = min(K, H - 1 - r0)
+        rows = torch.cat([front[..., None, :], masked[..., r0 + 1:r0 + N + 1, :]],
+                         dim=-2)
+        nxt = torch.empty_like(front)
+        for g0 in range(0, W, tile):
+            cols = torch.arange(g0 - Hh, g0 + tile + Hh, device=E.device)
+            inside = (cols >= 0) & (cols < W)
+            ext = torch.where(inside, rows[..., cols.clamp(0, W - 1)], inf)
+            M = cumulative_energy(ext)
+            par = parent_directions(M, tie)
+            g1 = min(g0 + tile, W)
+            own = slice(Hh, Hh + g1 - g0)
+            P[..., r0 + 1:r0 + N + 1, g0:g1] = par[..., 1:, own]
+            nxt[..., g0:g1] = M[..., -1, own]
+        front = nxt
+    return backtrack_windowed(P, front, tie=tie)
 
 
 def find_seam(E: torch.Tensor, delta_x: int = 1, rigidity: float = 0.0,
