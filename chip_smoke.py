@@ -33,16 +33,20 @@ batch route against the single-image route; 4d drives the CLI in-process
 energy, batch).  Phase 5 runs the spatial route (BASELINE config 5) with
 four column shards on the one card: 5a holds the block DP (the parts form
 at the 8K shard shape, the message form at the small-shard carve's
-shapes), the segment walk (at both carves' segment shapes), the sharded
-apply (also at 65536 rows, and timed with the L2 flushed between calls)
-and the strip kernels with a shard offset against their plain versions;
-5b carves 64 seams from a 4320x7680 luma through
-`spatial_carve_n_seams` with the launch counters read around it, against
-the single-device carve and, for 4 seams, the plain spatial path, with its
-exchanges per seam, Mpix/s and a profile, and drives a small-shard carve
-through `api.carve` (the message form); 5c runs `api.carve` and the CLI on
-the spatial route against the single-image route, enlargement, a resumed
-sharded checkpoint and `energy="grad_norm"`.
+shapes), the segment walk (at both carves' segment shapes, windows clamped
+at either end, unaligned rows, K = 200; timed also with the L2 flushed),
+the sharded apply (also at 65536 rows, and timed with the L2 flushed
+between calls) and the strip kernels with a shard offset against their
+plain versions; 5b carves 64 seams from a 4320x7680 luma through
+`spatial_carve_n_seams` (the seam step as CUDA graph replays) with the
+launch counters and the replays read around it, against the single-device
+carve and, for 4 seams, the plain spatial path, a chunked carve against the
+unchunked one, launches and exchanges a seam under replay, the two routes
+timed in turns, the capture time and a profile, and drives a small-shard
+carve through `api.carve` (the message form); 5c runs `api.carve` and the
+CLI on the spatial route against the single-image route, enlargement, a
+resumed sharded checkpoint and `energy="grad_norm"`, each counting its
+graph replays.
 
 Every kernel's line gives its time, its plain version's, the least time
 the card could take for the same work (`bound_ms`: bytes over 3.35 TB/s
@@ -60,6 +64,7 @@ kernels' JSON line and the card's name and power limit.  Any failed phase
 exits non-zero and prints no result.  Imports nothing of JAX.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -92,6 +97,8 @@ SEAMS_8K = 64
 PLAIN_SEAMS_8K = 4         # the plain spatial path is ~0.3 s a seam at 8K
 SEAMS_5C = 16              # phase 5c: 1080p carves on the spatial route
 TIMED_PAIRS_8K = 3         # phase 5b: spatial and single-device 8K carves
+CHUNKED_SEAMS_8K = 16      # phase 5b: the chunked 8K carve and the counts
+# under replay
 # phase 1c: rows wider than one thread block (MAX_WIDTH) and planes taller
 # than the grid's y dimension
 TILED_ROWS = 300           # rows of the tiled find-seam's bitwise cases
@@ -938,6 +945,9 @@ LIBRARY_DEVICE: dict[str, float] = {}
 # the energy and the strip at phase 3c's batch shape: (device ms,
 # (bound ms, bound_by))
 BATCH: dict[str, tuple[float, tuple[float, str]]] = {}
+# device ms a call with the 50 MB L2 flushed between calls, where a kernel's
+# inputs are cold in the carve
+FLUSHED: dict[str, float] = {}
 
 
 def phase_5a(dev, chk: Checks, card: str, rng, times: dict) -> None:
@@ -1059,6 +1069,26 @@ def phase_5a(dev, chk: Checks, card: str, rng, times: dict) -> None:
                           seg_walk(rows, entry, 0, K, Hh, tie=tie),
                           seg_walk(rows, entry, 0, K, Hh, tie=tie,
                                    use_pallas=False))
+    # windows clamped at column 0 and at We - ww (halos narrower than K),
+    # and extended rows that are no multiple of 4 (4-byte staging); then
+    # K = 200: a 401-column window in 13 chunks through a ring of 8
+    for K3, Hh3, Kbs in ((K, 8, (K, 50)), (K, 9, (K,)),
+                         (200, 400, (200, 133))):
+        We3 = Wl + 2 * Hh3
+        buf = on_dev((rng.integers(0, 3, (S, max(Kbs) + 3, We3)) / 2)
+                     .astype(np.float32))
+        for Kb in Kbs:
+            for j in (0, Wl, Wl + 1, Wl + 2, Wl + 3, 2 * Wl - 1, W8 // 2 + 5,
+                      W8 - 1):
+                for tie in TIES:
+                    entry = torch.tensor([j], dtype=torch.int32, device=dev)
+                    chk.equal("seg_walk", f"K={K3} Hh={Hh3} Kb={Kb} "
+                              f"entry={j} {tie}",
+                              seg_walk(buf[:, 3:3 + Kb], entry, 0, K3, Hh3,
+                                       tie=tie),
+                              seg_walk(buf[:, 3:3 + Kb], entry, 0, K3, Hh3,
+                                       tie=tie, use_pallas=False))
+    del buf
     rows = rows_buf[:, 7:7 + K]
     entry = torch.tensor([W8 // 2 + 3], dtype=torch.int32, device=dev)
     time_kernel(times, "seg_walk", lambda: seg_walk(rows, entry, 0, K, Hh),
@@ -1066,6 +1096,20 @@ def phase_5a(dev, chk: Checks, card: str, rng, times: dict) -> None:
                 50, 3)
     BOUNDS["seg_walk"] = (4 * (K * (2 * K + 1) + S * K + 1),
                           4 * K * (2 * K + 1))
+    # in the carve the walk's rows have left the L2 (the seam's M is 159 MB):
+    # the same call with 128 MB written before it
+    flush = torch.empty(32 * 2**20, device=dev)
+
+    def walk_after_flush():
+        flush.fill_(0.0)
+        seg_walk(rows, entry, 0, K, Hh)
+
+    FLUSHED["seg_walk"] = device_ms(walk_after_flush, 20, only="seg_walk")
+    log(f"  seg_walk ({S} shards, K={K}, Kb={K}): device "
+        f"{DEVICE['seg_walk']!r} ms back to back, {FLUSHED['seg_walk']!r} ms "
+        f"with the L2 flushed between calls; bound "
+        f"{bound(*BOUNDS['seg_walk'])[0]!r} ms ({card})")
+    del flush
 
     # the sharded apply at the 8K shard shape, the seam on shard boundaries
     luma = on_dev(rng.random((S, H8, Wl), dtype=np.float32))
@@ -1113,7 +1157,8 @@ def phase_5a(dev, chk: Checks, card: str, rng, times: dict) -> None:
         sharded_apply(luma, origcol, energy, seam, edge, incoming, nw, 0,
                       out=outs)
 
-    flushed = device_ms(after_flush, 20, only="sharded_apply")
+    FLUSHED["sharded_apply"] = flushed = device_ms(after_flush, 20,
+                                                   only="sharded_apply")
     log(f"  sharded_apply ({S}, {H8}, {Wl}): device {DEVICE['sharded_apply']!r}"
         f" ms back to back, {flushed!r} ms with the L2 flushed between "
         f"calls; bound {bound(*BOUNDS['sharded_apply'])[0]!r} ms ({card})")
@@ -1228,6 +1273,31 @@ def phase_5a(dev, chk: Checks, card: str, rng, times: dict) -> None:
         log(f"  {name:14s} kernel {k_ms!r} ms, plain {p_ms!r} ms ({card})")
 
 
+@contextlib.contextmanager
+def count_replays():
+    """Count the CUDA graph replays inside the block: yields a one-element
+    list that holds the count."""
+    import torch
+
+    graph_cls = torch.cuda.CUDAGraph
+    own = "replay" in graph_cls.__dict__
+    replay = graph_cls.replay
+    count = [0]
+
+    def counted(self, *args, **kwargs):
+        count[0] += 1
+        return replay(self, *args, **kwargs)
+
+    graph_cls.replay = counted
+    try:
+        yield count
+    finally:
+        if own:
+            graph_cls.replay = replay
+        else:
+            del graph_cls.replay
+
+
 def phase_5(dev, chk: Checks, card: str, rng) -> list:
     """The spatial route through its entry points; returns the launch
     counts of its main-path runs (5b's 8K carve, its small-shard carve,
@@ -1245,7 +1315,8 @@ def phase_5(dev, chk: Checks, card: str, rng) -> list:
     from dct_carver_tpu_torch.parallel.mesh import make_mesh
     from dct_carver_tpu_torch.parallel.spatial import (
         collectives_per_seam, measure_collectives_per_seam,
-        spatial_carve_n_seams, spatial_enlarge_n_seams)
+        spatial_carve_n_seams, spatial_carve_seams, spatial_enlarge_n_seams,
+        spatial_make_state)
     from dct_carver_tpu_torch.utils.image import load_image, save_image
 
     def on_dev(a):
@@ -1257,15 +1328,23 @@ def phase_5(dev, chk: Checks, card: str, rng) -> list:
     mesh = make_mesh(devices=[dev] * SHARDS)
     nb = -(-H8 // K8)
     log(f"phase 5b: spatial_carve_n_seams({H8}x{W8}, {SEAMS_8K}) over "
-        f"{SHARDS} shards on the card, n=8, K={K8}")
+        f"{SHARDS} shards on the card, n=8, K={K8}: the first seam eager, "
+        "the rest CUDA graph replays")
     luma8 = on_dev(rng.random((H8, W8), dtype=np.float32))
     spatial_carve_n_seams(luma8[:2 * K8, :1024], 2, devices=mesh)  # warm-up
     torch.cuda.synchronize()
     kernels.reset_launches()
-    res = spatial_carve_n_seams(luma8, SEAMS_8K, devices=mesh)
-    torch.cuda.synchronize()
+    with count_replays() as replays:
+        res = spatial_carve_n_seams(luma8, SEAMS_8K, devices=mesh)
+        torch.cuda.synchronize()
     launches = kernels.launch_counts()
     log(f"  launches on the spatial route: {launches}")
+    chk.require(replays[0] == SEAMS_8K - 1,
+                f"8K spatial carve: {replays[0]} graph replays for "
+                f"{SEAMS_8K} seams")
+    log(f"  graph capture of the 8K seam step (both directions): "
+        f"{res.capture_seconds * 1e3!r} ms of host time, inside the carve's "
+        f"wall time ({card})")
     want = {"block_dp_parts": nb * SEAMS_8K, "seg_walk": nb * SEAMS_8K,
             "sharded_apply": SEAMS_8K, "strip": SEAMS_8K, "energy": 1,
             "block_dp": 0, "find_seam": 0, "apply": 0}
@@ -1283,16 +1362,49 @@ def phase_5(dev, chk: Checks, card: str, rng) -> list:
     short = spatial_carve_n_seams(luma8, PLAIN_SEAMS_8K, devices=mesh)
     chk.equal("carve", f"8K spatial {PLAIN_SEAMS_8K}-seam vmap == plain "
               "spatial path", short.vmap, plain.vmap)
+    # chunks of an odd size share one capture: the vmap equals the first
+    # seams of the unchunked carve
+    with count_replays() as replays:
+        chunked = spatial_carve_n_seams(luma8, CHUNKED_SEAMS_8K,
+                                        devices=mesh, chunk=5)
+    chk.equal("carve", f"8K spatial {CHUNKED_SEAMS_8K}-seam carve in chunks "
+              "of 5 == unchunked", chunked.vmap,
+              torch.where(res.vmap <= CHUNKED_SEAMS_8K, res.vmap, 0))
+    chk.require(replays[0] == CHUNKED_SEAMS_8K - 1,
+                f"chunked carve: {replays[0]} replays, one capture "
+                f"({chunked.capture_seconds * 1e3!r} ms)")
+    # launches and exchanges a seam under replay, on a mesh held here
+    st, shard_mesh = spatial_make_state(luma8, devices=mesh)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    shard_mesh.exchanges = 0
+    spatial_carve_seams(st, shard_mesh, 0, CHUNKED_SEAMS_8K)
+    torch.cuda.synchronize()
+    counted = kernels.launch_counts()
+    per_seam = {k: counted[k] / CHUNKED_SEAMS_8K
+                for k in ("block_dp_parts", "seg_walk", "sharded_apply",
+                          "strip")}
+    chk.require(per_seam == {"block_dp_parts": nb, "seg_walk": nb,
+                             "sharded_apply": 1, "strip": 1},
+                f"launches a seam under replay {per_seam}")
+    chk.require(shard_mesh.exchanges
+                == CHUNKED_SEAMS_8K * collectives_per_seam(H8, K8,
+                                                           fused_apply=True),
+                f"exchanges under replay {shard_mesh.exchanges} == "
+                f"{CHUNKED_SEAMS_8K} x collectives_per_seam")
+    del st, shard_mesh, chunked
     # the two routes in turns, so that their comparison carries its spread
     spatial = f"spatial ({SHARDS} shards)"
     secs = {spatial: [], "single-device": []}
+    captures = []
     for r in range(TIMED_PAIRS_8K):
         order = list(secs)[::1 if r % 2 == 0 else -1]
         for route in order:
             torch.cuda.synchronize()
             t = time.perf_counter()
             if route == spatial:
-                spatial_carve_n_seams(luma8, SEAMS_8K, devices=mesh)
+                captures.append(spatial_carve_n_seams(
+                    luma8, SEAMS_8K, devices=mesh).capture_seconds * 1e3)
             else:
                 carve_n_seams(luma8, SEAMS_8K, 8, 0.0, 1.0)
             torch.cuda.synchronize()
@@ -1302,19 +1414,42 @@ def phase_5(dev, chk: Checks, card: str, rng) -> list:
         med = sorted(ts)[len(ts) // 2]
         log(f"  8K {route} carve, in turns: {ts!r} s; "
             f"median {px / med / 1e6!r} Mpix/s, {med * 1e3 / SEAMS_8K!r} ms "
-            f"a seam ({card})")
+            f"a seam, spread {min(ts) * 1e3 / SEAMS_8K!r}-"
+            f"{max(ts) * 1e3 / SEAMS_8K!r} ms a seam ({card})")
+    log(f"  8K spatial captures in turns: {captures!r} ms ({card})")
     m = measure_collectives_per_seam(H8, W8, mesh, use_pallas=True)
     chk.require(m["total"] == m["designed"]
                 == collectives_per_seam(H8, K8, fused_apply=True),
                 f"exchanges a seam {m['total']} == collectives_per_seam "
                 f"{m['designed']}")
+    profiled = []
     wall, busy_us, top = device_profile(
-        lambda: spatial_carve_n_seams(luma8, SEAMS_5C, devices=mesh), top=10)
-    log(f"  profiled {SEAMS_5C}-seam 8K spatial carve: wall "
+        lambda: profiled.append(spatial_carve_n_seams(luma8, SEAMS_8K,
+                                                      devices=mesh)), top=16)
+    cap = profiled[-1].capture_seconds
+    log(f"  profiled {SEAMS_8K}-seam 8K spatial carve: wall "
         f"{wall * 1e3!r} ms, device busy {busy_us / 1e3!r} ms "
-        f"({100 * busy_us / 1e6 / wall!r} % of wall; {card})")
+        f"({100 * busy_us / 1e6 / wall!r} % of wall; "
+        f"{100 * busy_us / 1e6 / (wall - cap)!r} % of the wall without the "
+        f"capture's {cap * 1e3!r} ms; {busy_us / 1e3 / SEAMS_8K!r} device ms "
+        f"a seam; {card})")
     for name, us, count in top:
         log(f"    {us / 1e3:10.4f} ms  {count:5d} x  {name[:90]}")
+    # whether the profiler names the kernels that run inside the graph
+    # replays: then the walk counts nb a seam over every seam, the first
+    # (eager) one included
+    walks = [(us, count) for name, us, count in top if "seg_walk" in name]
+    seen = bool(walks) and walks[0][1] == nb * SEAMS_8K
+    log(f"  the profiler {'names' if seen else 'does NOT name'} the kernels "
+        f"inside graph replays (seg_walk rows: {walks})")
+    if walks:
+        log(f"  seg_walk in the carve: {walks[0][0] / 1e3 / walks[0][1]!r} "
+            f"ms a call ({card})")
+    if not seen:  # the carve's time between events instead
+        ev_ms = cuda_ms(lambda: spatial_carve_n_seams(luma8, SEAMS_8K,
+                                                      devices=mesh), 1)
+        log(f"  {SEAMS_8K}-seam 8K spatial carve between CUDA events: "
+            f"{ev_ms!r} ms ({card})")
     del luma8, res, single, plain, short
 
     log("phase 5b: api.carve(256x256x3, -8, parallel='spatial') over 8 "
@@ -1342,7 +1477,10 @@ def phase_5(dev, chk: Checks, card: str, rng) -> list:
     log(f"phase 5c: the spatial route's entry points at {H}x{W}, "
         f"{SEAMS_5C} seams, {SHARDS} shards")
     img = rng.integers(0, 256, (H, W, 3), dtype=np.uint8)
-    a = api.carve(img, -SEAMS_5C, parallel="spatial", devices=mesh, **kw)
+    with count_replays() as replays:
+        a = api.carve(img, -SEAMS_5C, parallel="spatial", devices=mesh, **kw)
+    chk.require(replays[0] == SEAMS_5C - 1,
+                f"spatial api.carve: {replays[0]} graph replays")
     b = api.carve(img, -SEAMS_5C, device=dev.type, **kw)
     for field in ("image", "visibility_map", "energy_image"):
         same(getattr(a, field), getattr(b, field),
@@ -1355,10 +1493,13 @@ def phase_5(dev, chk: Checks, card: str, rng) -> list:
               e.image, reconstruct_enlarged(img_t, single.vmap, SEAMS_5C))
     torch.cuda.synchronize()
     kernels.reset_launches()
-    g = spatial_carve_n_seams(luma, SEAMS_5C, devices=mesh,
-                              energy="grad_norm")
-    torch.cuda.synchronize()
+    with count_replays() as replays:
+        g = spatial_carve_n_seams(luma, SEAMS_5C, devices=mesh,
+                                  energy="grad_norm")
+        torch.cuda.synchronize()
     plugged = kernels.launch_counts()
+    chk.require(replays[0] == SEAMS_5C - 1,
+                f"spatial grad_norm carve: {replays[0]} graph replays")
     got = {k: plugged[k] for k in ("strip_gather", "strip_scatter")}
     chk.require(got == {"strip_gather": SEAMS_5C, "strip_scatter": SEAMS_5C},
                 f"spatial grad_norm carve: offset gather/scatter launches "
@@ -1378,17 +1519,23 @@ def phase_5(dev, chk: Checks, card: str, rng) -> list:
             chk.require(sorted(os.listdir(ck)) == [
                 "meta.json", f"state-{SEAMS_5C // 2:08d}"],
                 f"sharded checkpoint steps {sorted(os.listdir(ck))}")
-            res = spatial_carve_n_seams(luma, SEAMS_5C, devices=mesh,
-                                        image=img_t, resume_from=ck)
+            with count_replays() as replays:
+                res = spatial_carve_n_seams(luma, SEAMS_5C, devices=mesh,
+                                            image=img_t, resume_from=ck)
+            chk.require(replays[0] == SEAMS_5C // 2 - 1,
+                        f"resumed sharded carve: {replays[0]} graph replays")
             chk.equal("carve", "resumed sharded checkpoint vmap == "
                       "uninterrupted", res.vmap, whole.vmap)
             chk.equal("carve", "resumed sharded checkpoint image == "
                       "uninterrupted", res.image, whole.image)
             inp, out = (os.path.join(tmp, f) for f in ("in.ppm", "out.ppm"))
             save_image(inp, img)
-            rc = cli.main(["carve", inp, out, "--seams", f"-{SEAMS_5C}",
-                           "--parallel", "spatial"])
-            chk.require(rc == 0, f"CLI --parallel spatial rc {rc}")
+            with count_replays() as replays:
+                rc = cli.main(["carve", inp, out, "--seams", f"-{SEAMS_5C}",
+                               "--parallel", "spatial"])
+            chk.require(rc == 0 and replays[0] == SEAMS_5C - 1,
+                        f"CLI --parallel spatial rc {rc}, {replays[0]} "
+                        "graph replays")
             same(load_image(out), b.image,
                  "CLI --parallel spatial == single-image api.carve")
     finally:
@@ -1721,6 +1868,8 @@ def main() -> int:
             "bound_by": bound_by, "library_ms": LIBRARY.get(k.name),
             "device_ms": DEVICE[k.name],
             "library_device_ms": LIBRARY_DEVICE.get(k.name)})
+        if k.name in FLUSHED:
+            rows[-1]["device_ms_l2_flushed"] = FLUSHED[k.name]
         if k.name in BATCH:  # the same kernel at phase 3c's batch shape
             b_ms, (bb_ms, _) = BATCH[k.name]
             rows[-1].update(batch_device_ms=b_ms, batch_bound_ms=bb_ms)

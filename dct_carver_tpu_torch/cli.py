@@ -10,8 +10,8 @@ wherever `JAX_PLATFORMS` points: with no card visible the CLI raises unless
 `--device cpu` asks for the CPU.  `--spatial` / `--parallel spatial`
 column-shard the image over every visible card (`parallel/spatial.py`), or
 over one CPU shard with `--device cpu`.  The `interactive` and `ui`
-commands stay in the parser and raise `NotImplementedError` naming their
-ROADMAP item.
+commands stay in the parser and raise `NotImplementedError` naming the
+modules they wait for.
 
 Usage examples:
     python -m dct_carver_tpu_torch.cli carve in.png out.png --seams -64
@@ -144,7 +144,7 @@ def main(argv=None) -> int:
     it = sub.add_parser(
         "interactive",
         help="precompute-once / slide-many retargeting (not ported yet: "
-             "ROADMAP Queue 1 item 7)")
+             "models/retarget.py)")
     it.add_argument("input")
     it.add_argument("output_pattern",
                     help="output path with a {w} placeholder, e.g. out_{w}.png")
@@ -171,8 +171,8 @@ def main(argv=None) -> int:
 
     u = sub.add_parser(
         "ui",
-        help="interactive browser UI (not ported yet: ROADMAP Queue 1 "
-             "item 7)")
+        help="interactive browser UI (not ported yet: models/retarget.py "
+             "and ui/)")
     u.add_argument("input")
     u.add_argument("--host", default="127.0.0.1")
     u.add_argument("--port", type=int, default=8707)
@@ -184,8 +184,8 @@ def main(argv=None) -> int:
 
     if args.cmd in ("interactive", "ui"):
         raise NotImplementedError(
-            f"the {args.cmd!r} command is not ported yet (ROADMAP Queue 1 "
-            "item 7: models/retarget.py and ui/)")
+            f"the {args.cmd!r} command is not ported yet: "
+            "models/retarget.py and ui/")
 
     from .utils.image import load_image, save_image, seam_overlay
 

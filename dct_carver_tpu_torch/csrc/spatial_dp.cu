@@ -27,8 +27,11 @@
 // after the other (each needs the last row of the one before, which the
 // halo exchange between launches carries across shards).  At the 8K shard
 // shape (Wl = 1920, K = 96, Hh = 192) a block moves ~3.5 MB for 4 shards,
-// about a microsecond of bandwidth, against 96 dependent rows.  The walk is
-// Kb dependent steps of one thread.
+// about a microsecond of bandwidth, against 96 dependent rows.  The walk
+// reads ~75 KB and does Kb dependent steps of one thread: its time is one
+// trip to device memory (in the carve its rows have left the 50 MB L2: the
+// seam's M is 4 x 4320 x 2304 f32 = 159 MB) plus Kb steps of shared-memory
+// latency.
 //
 // Design.  The block DP runs the chunked row step of dp_rows.cuh (each
 // thread C contiguous columns of the extended row in registers, only the
@@ -42,15 +45,26 @@
 // backtrack; cells outside [0, width) are +inf, and so are left of column 0
 // and right of column We-1, which stands in for the TPU's roll through a
 // +inf lane tail.  Op order as ops/dp.py: m = e + min(min(left, centre),
-// right), each op rounded on its own.  The walk stages its (Kb, 2K+1)
-// window's parent directions in shared memory (int8, -1/0/+1 by
-// dp_kernel.py::_parent_select's tie-most rule, as csrc/find_seam.cu), then
-// one thread walks them; the window start is computed here from the entry
-// column, which replaces JAX's dynamic_slice.  The TPU's one-hot vector walk
-// exists for its lane layout and is not copied.
-
+// right), each op rounded on its own.
+//
+// The walk launches one CTA a shard; every CTA but the owner of the entry
+// column writes its zeros and exits.  The owner computes the window start
+// from the entry column (this replaces JAX's dynamic_slice), aligns it down
+// to 4 columns, and stages the window's f32 rows, kWalkRows-row chunks from
+// the bottom up, into a ring of up to kWalkDepth chunk slots in shared
+// memory: each warp takes a row, its lanes 16-byte cp.async copies along
+// it (4-byte copies where rows are not 16-byte aligned), and every chunk
+// the ring holds is in flight before the walk waits for the first, so the
+// window costs about one trip to device memory, and a chunk that had to
+// wait for a free slot loads under the walk of the chunks before it.  One
+// thread then walks each chunk as it lands: three shared-memory reads a
+// row around the current column and the tie-most rule of parent() (+inf
+// outside the window), with no parent plane computed ahead.  The TPU's
+// one-hot vector walk exists for its lane layout and is not copied.
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <algorithm>
 
 #include "dp_rows.cuh"
 
@@ -171,11 +185,34 @@ __device__ __forceinline__ signed char parent(float left, float centre,
   return right <= centre ? (right <= left ? 1 : -1) : (centre <= left ? 0 : -1);
 }
 
+// Wait until at most n of this thread's copy groups are in flight, n <
+// kWalkDepth.
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<7>(); break;
+  }
+}
+
+// The walk's ring: chunks of kWalkRows rows, each row `pitch` floats, at
+// most kWalkDepth chunks in flight.
+constexpr int kWalkRows = 16;
+constexpr int kWalkDepth = 8;
+constexpr size_t kSmemMax = 232448;  // one block's shared memory
+
+inline int walk_pitch(int K) { return (2 * K + 1 + 3 + 3) / 4 * 4; }
+
 __global__ void __launch_bounds__(kWalkThreads)
 seg_walk_kernel(const float* __restrict__ rows, long long rows_ss, int Kb,
                 int Wl, int Hh, int K, int lo, const int* __restrict__ entry,
-                int rightmost, int* __restrict__ seg) {
-  extern __shared__ signed char par[];
+                int rightmost, int pitch, int depth, int* __restrict__ seg) {
+  extern __shared__ __align__(16) float ring[];
   const int s = blockIdx.x;
   const int j = *entry;
   const int lo_s = lo + s * Wl;
@@ -188,22 +225,64 @@ seg_walk_kernel(const float* __restrict__ rows, long long rows_ss, int Kb,
   const int We = Wl + 2 * Hh;
   const int ww = 2 * K + 1;
   const int wstart = min(max(j - lo_s + Hh - K, 0), We - ww);
-  const float* win = rows + s * rows_ss + wstart;
-  for (int e = threadIdx.x; e < Kb * ww; e += blockDim.x) {
-    const int r = e / ww;
-    const int w = e - r * ww;
-    const float* row = win + static_cast<size_t>(r) * We;
-    const float left = w > 0 ? row[w - 1] : inf;
-    const float right = w < ww - 1 ? row[w + 1] : inf;
-    par[e] = parent(left, row[w], right, rightmost);
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int jl = K;  // the entry column, below the segment's last row
-    for (int r = Kb - 1; r >= 0; --r) {
-      jl += par[r * ww + min(max(jl, 0), ww - 1)];
-      out[r] = jl + j - K;
+  // staged columns [a0, a0 + ncols): the window, 4-column aligned
+  const int a0 = wstart & ~3;
+  const int ncols = (wstart + ww - a0 + 3) & ~3;
+  const float* shard = rows + s * rows_ss;
+  const float* src0 = shard + a0;
+  const bool vec =
+      We % 4 == 0 && reinterpret_cast<uintptr_t>(shard) % 16 == 0;
+  const int nchunks = (Kb + kWalkRows - 1) / kWalkRows;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int warps = blockDim.x / 32;
+
+  // chunk c: rows [r1 - kWalkRows, r1) clipped at 0, r1 = Kb - c*kWalkRows;
+  // row r at slot row r1 - 1 - r
+  auto stage = [&](int c) {
+    const int r1 = Kb - c * kWalkRows;
+    const int r0 = max(r1 - kWalkRows, 0);
+    float* slot = ring + static_cast<size_t>(c % depth) * kWalkRows * pitch;
+    for (int r = r1 - 1 - warp; r >= r0; r -= warps) {
+      const float* src = src0 + static_cast<size_t>(r) * We;
+      float* dst = slot + (r1 - 1 - r) * pitch;
+      for (int g = 4 * lane; g < ncols; g += 128) {
+        if (vec) {
+          cp_async16(dst + g, src + g);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (a0 + g + i < We) cp_async4(dst + g + i, src + g + i);
+        }
+      }
     }
+  };
+
+  for (int c = 0; c < depth; ++c) {
+    if (c < nchunks) stage(c);
+    cp_async_commit();
+  }
+  int jl = K;  // the entry column, below the segment's last row
+  for (int c = 0; c < nchunks; ++c) {
+    cp_async_wait_n(depth - 1);  // chunk c has landed
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const int r1 = Kb - c * kWalkRows;
+      const int r0 = max(r1 - kWalkRows, 0);
+      const float* win = ring + static_cast<size_t>(c % depth) * kWalkRows
+                         * pitch + (wstart - a0);
+      for (int r = r1 - 1; r >= r0; --r) {
+        const float* row = win + (r1 - 1 - r) * pitch;
+        const int w = min(max(jl, 0), ww - 1);
+        const float left = w > 0 ? row[w - 1] : inf;
+        const float right = w < ww - 1 ? row[w + 1] : inf;
+        jl += parent(left, row[w], right, rightmost);
+        out[r] = jl + j - K;
+      }
+    }
+    __syncthreads();  // slot c % depth is free
+    if (c + depth < nchunks) stage(c + depth);
+    cp_async_commit();
   }
 }
 
@@ -258,16 +337,24 @@ extern "C" int dc_block_dp_parts(const float* prev, long long prev_ss,
 // rows: row r of shard s's M at rows + s*rows_ss + r*We, We = Wl + 2*Hh;
 // entry: the global seam column below the last row (one int32 on the
 // device); seg: (S, Kb) int32 out, the owner's global columns and 0
-// elsewhere.  Returns the cudaError_t of the attribute call or the launch.
+// elsewhere.  Takes any K whose kWalkRows-row chunk of 2K+1 (+6) columns
+// fits one block's shared memory.  Returns the cudaError_t of the attribute
+// call or the launch.
 extern "C" int dc_seg_walk(const float* rows, long long rows_ss, int S,
                            int Kb, int Wl, int Hh, int K, int lo,
                            const int* entry, int rightmost, int* seg,
                            void* stream) {
   using namespace dct_carver;
-  const size_t smem = static_cast<size_t>(Kb) * (2 * K + 1);
+  const int pitch = walk_pitch(K);
+  const size_t chunk = static_cast<size_t>(kWalkRows) * pitch * sizeof(float);
+  const int nchunks = std::max((Kb + kWalkRows - 1) / kWalkRows, 1);
+  const int depth = static_cast<int>(
+      std::min<size_t>(std::min(nchunks, kWalkDepth), kSmemMax / chunk));
+  if (depth < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = depth * chunk;
   if (const int err = allow_smem(seg_walk_kernel, smem)) return err;
   seg_walk_kernel<<<S, kWalkThreads, smem,
                     static_cast<cudaStream_t>(stream)>>>(
-      rows, rows_ss, Kb, Wl, Hh, K, lo, entry, rightmost, seg);
+      rows, rows_ss, Kb, Wl, Hh, K, lo, entry, rightmost, pitch, depth, seg);
   return static_cast<int>(cudaGetLastError());
 }

@@ -47,10 +47,13 @@ WALK_KERNEL = Kernel(name="seg_walk", source=_SRC + "spatial_dp.cu",
 APPLY_KERNEL = Kernel(name="sharded_apply", source=_SRC + "sharded_apply.cu",
                       replaces=_TPU + "348")
 
-# one block's shared memory (227 KB) holds the walk's int8 parent window;
-# one block covers an extended row of at most 1024 threads of 32 columns
+# one block's shared memory (227 KB) holds at least one of the walk's
+# chunks: _WALK_ROWS rows of the window's 2K+1 columns, aligned down to 4
+# and padded to a multiple of 4 (csrc/spatial_dp.cu::walk_pitch); one block
+# covers an extended row of at most 1024 threads of 32 columns
 # (csrc/dp_rows.cuh::chunk_for)
 _SMEM_LIMIT = 232448
+_WALK_ROWS = 16
 MAX_EXT_WIDTH = 32768
 
 
@@ -59,8 +62,10 @@ def _origins(lo: int, S: int, Wl: int, device) -> torch.Tensor:
     return lo + Wl * torch.arange(S, device=device)
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _stream(device) -> int:
+    # naming the device skips torch's lookup of the current one, which
+    # costs more host time than the launch
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _rows(name: str, t: torch.Tensor, ndim: int, dtype, device) -> int:
@@ -153,7 +158,7 @@ def block_dp(msg: torch.Tensor, lo: int, width: torch.Tensor, Hh: int, *,
     with torch.cuda.device(dev):
         launch(BLOCK_KERNEL, "dc_block_dp", msg.data_ptr(), out.data_ptr(),
                out_ss, S, Kb1 - 1, Wl, Hh, lo, _scalar("width", width, dev),
-               _stream())
+               _stream(dev))
     return out
 
 
@@ -193,7 +198,7 @@ def block_dp_parts(prev: torch.Tensor, E_blk: torch.Tensor, lh: torch.Tensor,
         launch(PARTS_KERNEL, "dc_block_dp_parts", prev.data_ptr(), prev_ss,
                E_blk.data_ptr(), e_ss, lh.data_ptr(), rh.data_ptr(),
                out.data_ptr(), out_ss, S, Kb, Wl, Hh, lo,
-               _scalar("width", width, dev), _stream())
+               _scalar("width", width, dev), _stream(dev))
     return out
 
 
@@ -246,15 +251,19 @@ def seg_walk(rows: torch.Tensor, entry: torch.Tensor, lo: int, K: int,
     if not (rows.is_cuda and use_pallas):
         return walk_rows(rows, entry, lo, K, Hh, tie)
     dev = rows.device
-    if Kb * (2 * K + 1) > _SMEM_LIMIT:
-        raise ValueError(f"seg_walk kernel: a {Kb} x {2 * K + 1} window "
-                         "exceeds one block's shared memory")
+    pitch = (2 * K + 1 + 6) // 4 * 4
+    if _WALK_ROWS * pitch * 4 > _SMEM_LIMIT:
+        raise ValueError(f"seg_walk kernel: a {_WALK_ROWS}-row chunk of a "
+                         f"{2 * K + 1}-column window exceeds one block's "
+                         "shared memory")
     rows_ss = _rows("rows", rows, 3, torch.float32, dev)
     seg = torch.empty((S, Kb), dtype=torch.int32, device=dev)
+    if Kb == 0:
+        return seg
     with torch.cuda.device(dev):
         launch(WALK_KERNEL, "dc_seg_walk", rows.data_ptr(), rows_ss, S, Kb,
                We - 2 * Hh, Hh, K, lo, _scalar("entry", entry, dev),
-               int(tie == "rightmost"), seg.data_ptr(), _stream())
+               int(tie == "rightmost"), seg.data_ptr(), _stream(dev))
     return seg
 
 
@@ -293,14 +302,19 @@ def sharded_apply(luma: torch.Tensor, origcol: torch.Tensor,
                   energy: torch.Tensor, seam: torch.Tensor, edge: torch.Tensor,
                   incoming: torch.Tensor, new_width: torch.Tensor, lo: int, *,
                   out=None, use_pallas: bool = True):
-    """#19: `apply_rows` in one pass over (S, H, Wl) planes.  With CUDA
-    tensors the kernel writes into `out` (a (luma, origcol, energy) set of
-    separate buffers, allocated when None); the plain version returns new
-    tensors."""
+    """#19: `apply_rows` in one pass over (S, H, Wl) planes.  The kernel
+    and the plain version both write into `out` when it is given (a (luma,
+    origcol, energy) set of separate buffers); with None the kernel
+    allocates one and the plain version returns new tensors."""
     S, H, Wl = luma.shape
     if not (luma.is_cuda and use_pallas):
-        return apply_rows(luma, origcol, energy, seam, edge, incoming,
-                          new_width, lo)
+        res = apply_rows(luma, origcol, energy, seam, edge, incoming,
+                         new_width, lo)
+        if out is None:
+            return res
+        for o, r in zip(out, res):
+            o.copy_(r)
+        return (*out, res[3])
     dev = luma.device
     for name, t, shape, dtype in (
             ("luma", luma, (S, H, Wl), torch.float32),
@@ -331,5 +345,5 @@ def sharded_apply(luma: torch.Tensor, origcol: torch.Tensor,
                origcol.data_ptr(), energy.data_ptr(), seam.data_ptr(),
                edge.data_ptr(), incoming.data_ptr(), out[0].data_ptr(),
                out[1].data_ptr(), out[2].data_ptr(), orig.data_ptr(), S, H,
-               Wl, lo, _scalar("new_width", new_width, dev), _stream())
+               Wl, lo, _scalar("new_width", new_width, dev), _stream(dev))
     return (*out, orig)

@@ -37,6 +37,15 @@ Per seam, with collectives blocked every K rows (K = `frontier_block`):
   shard writing the overlap of each row's strip with its own columns.
 * the vmap record is deferred to one scatter a chunk.
 
+The step writes into static buffers (`_SeamSteps`): two sets of planes that
+swap every seam, the extended M, and the logical width on the device, which
+the step decrements.  So on one card with the kernels it is captured once a
+carve in two CUDA graphs, one for each direction between the sets, and
+every seam after the first replays one: the port's counterpart of the JAX
+package's jitted chunk (`_spatial_chunk_jit`, `jax.jit` over `shard_map`
+over `lax.fori_loop`).  CPU meshes, the plain path and meshes over several
+cards run the same step eagerly.
+
 Seams equal the single-device carve's (`ops/carve.py`), element for
 element.  `collectives_per_seam` is the design's exchange count per seam,
 and `measure_collectives_per_seam` counts the exchanges of a real seam step.
@@ -44,12 +53,15 @@ and `measure_collectives_per_seam` counts the exchanges of a real seam step.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..kernels import KERNELS
 from ..kernels.spatial_kernel import (block_dp, block_dp_parts, scan_rows,
                                       seg_walk, sharded_apply, walk_rows)
 from ..kernels.strip_kernel import strip_update as dct_strip_update
@@ -101,10 +113,13 @@ class SpatialCarveState(NamedTuple):
 
 
 class SpatialCarveResult:
-    def __init__(self, vmap, width, image=None):
+    def __init__(self, vmap, width, image=None, capture_seconds=0.0):
         self.vmap = vmap     # (H, W) int32 on the mesh's first device
         self.width = width   # int
         self.image = image   # compacted (H, W[, C]); columns >= width dead
+        # host seconds spent capturing the seam step's CUDA graphs (0.0
+        # when every step ran eagerly), inside the carve's wall time
+        self.capture_seconds = capture_seconds
 
 
 class _Params(NamedTuple):
@@ -240,23 +255,22 @@ def _col_g(mesh: ShardMesh, g: int, x) -> torch.Tensor:
             + torch.arange(mesh.Wl, device=x.device))
 
 
-def _sharded_remove(mesh: ShardMesh, parts, seam):
+def _sharded_remove(mesh: ShardMesh, parts, seam, out):
     """Compaction with the boundary pixel flowing in from the right
-    neighbour.  parts: (S, H, Wl[, C])."""
+    neighbour, into `out` (a buffer of each part's shape a stack).  parts:
+    (S, H, Wl[, C])."""
     incoming = mesh.from_right([x[:, :, :1] for x in parts])
-    out = []
-    for g, (x, inc) in enumerate(zip(parts, incoming)):
+    for g, (x, inc, o) in enumerate(zip(parts, incoming, out)):
         keep = _col_g(mesh, g, x) < seam[g][:, None]
         if x.ndim == 4:
             keep = keep[..., None]
-        out.append(torch.where(keep, x, torch.cat([x[:, :, 1:], inc],
-                                                  dim=2)))
+        torch.where(keep, x, torch.cat([x[:, :, 1:], inc], dim=2), out=o)
     return out
 
 
 def _sharded_edge_fill(mesh: ShardMesh, luma, width):
     """Replicate the logical edge column (global width-1) into the dead
-    region."""
+    region, in place."""
     Wl = mesh.Wl
     picks = []
     for g, x in enumerate(luma):
@@ -266,13 +280,14 @@ def _sharded_edge_fill(mesh: ShardMesh, luma, width):
         picks.append(torch.where(owned[:, None], x.gather(-1, idx)[..., 0],
                                  0.0))
     edge = mesh.psum(picks)
-    return [torch.where(_col_g(mesh, g, x) < width[g], x, e[:, None])
-            for g, (x, e) in enumerate(zip(luma, edge))]
+    for g, (x, e) in enumerate(zip(luma, edge)):
+        x.copy_(torch.where(_col_g(mesh, g, x) < width[g], x, e[:, None]))
 
 
 def _fused_removal(mesh: ShardMesh, st, seam, new_width, p: _Params, out):
-    """Kernel #19 with the packed incoming column; returns (luma, origcol,
-    energy, orig)."""
+    """Kernel #19 with the packed incoming column, into `out`'s luma,
+    origcol and energy; returns orig, each stack's (H,) removed original
+    columns."""
     Wl = mesh.Wl
     incoming = mesh.from_right([
         torch.cat([l[..., :1], e[..., :1], oc[..., :1].view(torch.float32)],
@@ -303,71 +318,84 @@ def _fused_removal(mesh: ShardMesh, st, seam, new_width, p: _Params, out):
     else:
         edges = [torch.zeros(x.shape[1], dtype=torch.float32,
                              device=x.device) for x in st.luma]
-    res = [sharded_apply(l, oc, e, s, ed, inc, w, mesh.lo(g),
-                         out=None if out is None else out[g],
-                         use_pallas=p.use_pallas)
-           for g, (l, oc, e, s, ed, inc, w) in enumerate(zip(
-               st.luma, st.origcol, st.energy, seam, edges, incoming,
-               new_width))]
-    luma, origcol, energy, orig_p = (list(t) for t in zip(*res))
+    orig_p = [sharded_apply(l, oc, e, s, ed, inc, w, mesh.lo(g),
+                            out=(out.luma[g], out.origcol[g], out.energy[g]),
+                            use_pallas=p.use_pallas)[3]
+              for g, (l, oc, e, s, ed, inc, w) in enumerate(zip(
+                  st.luma, st.origcol, st.energy, seam, edges, incoming,
+                  new_width))]
     orig = mesh.psum(orig_p)
     if D is not None:
-        x = luma[-1][-1, :, Wl - D:]                    # the last shard
+        x = out.luma[-1][-1, :, Wl - D:]                # the last shard
         colw = mesh.width - D + torch.arange(D, device=x.device)
         ev = torch.where(colw == new_width[-1] - 1, x, 0.0).sum(-1)
         x.copy_(torch.where(colw >= new_width[-1], ev[:, None], x))
-    return luma, origcol, energy, orig
+    return orig
 
 
 # ------------------------------------------------------------ seam step ---
 
-def _seam_step(mesh: ShardMesh, st: SpatialCarveState, width, new_width,
-               p: _Params, ext_M, out):
+class _Planes(NamedTuple):
+    """One set of the carve's sharded planes, a (S_d, H, Wl[, C]) tensor a
+    stack each (`image` None when no image is carried)."""
+    luma: list
+    image: list | None
+    origcol: list
+    energy: list
+
+
+def _seam_step(mesh: ShardMesh, st: _Planes, out: _Planes, width, new_width,
+               p: _Params, ext_M, orig) -> None:
     """One sharded seam: DP -> backtrack -> compaction -> energy update.
-    Returns (state, orig): orig is each stack's (H,) replicated original
-    column of the removed pixels."""
+    Reads `st`'s planes and writes the compacted ones into `out`'s, separate
+    buffers of the same shapes, and each stack's (H,) replicated original
+    column of the removed pixels into `orig`.  `width` / `new_width`: the
+    logical width before and after, a one-element int32 tensor a stack.
+    Allocates nothing that outlives it and never waits for the devices, so
+    a CUDA graph can capture it."""
     Hh = _sharded_dp(mesh, st.energy, width, p, ext_M)
     seam = _sharded_backtrack(mesh, ext_M, width, Hh, p)
     if p.use_pallas:
-        luma, origcol, energy, orig = _fused_removal(mesh, st, seam,
-                                                     new_width, p, out)
+        removed = _fused_removal(mesh, st, seam, new_width, p, out)
     else:
-        orig = mesh.psum([
+        removed = mesh.psum([
             torch.where(_col_g(mesh, g, oc) == seam[g][:, None], oc,
                         0).sum(-1, dtype=torch.int32)
             for g, oc in enumerate(st.origcol)])
-        luma = _sharded_edge_fill(mesh, _sharded_remove(mesh, st.luma, seam),
-                                  new_width)
-        origcol = _sharded_remove(mesh, st.origcol, seam)
-        energy = (_sharded_remove(mesh, st.energy, seam)
-                  if p.strip_update else None)
-    image = (None if st.image is None
-             else _sharded_remove(mesh, st.image, seam))
+        _sharded_edge_fill(mesh, _sharded_remove(mesh, st.luma, seam,
+                                                 out.luma), new_width)
+        _sharded_remove(mesh, st.origcol, seam, out.origcol)
+        if p.strip_update:
+            _sharded_remove(mesh, st.energy, seam, out.energy)
+    for o, r in zip(orig, removed):
+        o.copy_(r)
+    if st.image is not None:
+        _sharded_remove(mesh, st.image, seam, out.image)
     if p.strip_update:
         n = p.energy_fn.n if p.energy_fn is not None else p.blocksize
-        ext = mesh.edge_clamped_halo(luma, n // 2 - 1, n // 2)
+        ext = mesh.edge_clamped_halo(out.luma, n // 2 - 1, n // 2)
         for g in range(len(ext)):
             shard = ShardOffset(mesh.lo(g), p.W)
             if p.energy_fn is None:
-                dct_strip_update(ext[g], energy[g], seam[g], n, p.edges,
+                dct_strip_update(ext[g], out.energy[g], seam[g], n, p.edges,
                                  p.textures, delta_x=p.delta_x,
                                  use_pallas=p.use_pallas, shard=shard)
             else:
-                _update_strip_fn(ext[g], energy[g], seam[g], p.energy_fn,
+                _update_strip_fn(ext[g], out.energy[g], seam[g], p.energy_fn,
                                  p.delta_x, p.use_pallas, shard)
     else:
-        energy = _sharded_energy(mesh, luma, p)
-    return SpatialCarveState(luma, image, origcol, st.vmap, energy,
-                             st.width - 1), orig
+        for e, f in zip(out.energy, _sharded_energy(mesh, out.luma, p)):
+            e.copy_(f)
 
 
 def _record(mesh: ShardMesh, vmap, recs, base: int):
     """Write each removed pixel's seam label (base+1, base+2, ...) into the
-    vmap shard owning its original column: one scatter a chunk.  Original
-    columns are unique and their vmap cells still 0, so adding a scattered
-    plane is exact; other stacks' columns land in one spare cell."""
+    vmap shard owning its original column: one scatter a chunk.  recs: a
+    (count, H) tensor of original columns a stack.  Original columns are
+    unique and their vmap cells still 0, so adding a scattered plane is
+    exact; other stacks' columns land in one spare cell."""
     for g, v in enumerate(vmap):
-        cols = torch.stack(recs[g]).to(torch.int64)         # (count, H)
+        cols = recs[g].to(torch.int64)                     # (count, H)
         S, H, Wl = v.shape
         count = cols.shape[0]
         local = cols - mesh.lo(g)
@@ -383,28 +411,142 @@ def _record(mesh: ShardMesh, vmap, recs, base: int):
         v += plane[:-1].view(S, H, Wl)
 
 
-def _carve_chunk(mesh: ShardMesh, st: SpatialCarveState, base: int,
-                 count: int, p: _Params) -> SpatialCarveState:
-    """Carve seams base+1 .. base+count; never waits for the devices."""
-    H = st.luma[0].shape[1]
-    We = mesh.Wl + 4 * p.K * p.delta_x
-    ext_M = [torch.empty((x.shape[0], H, We), dtype=torch.float32,
-                         device=x.device) for x in st.luma]
-    # the logical width of every step, read by the kernels on the device
-    widths = mesh.replicate(torch.arange(st.width, st.width - count - 1, -1,
-                                         dtype=torch.int32))
-    recs = [[] for _ in mesh.stacks]
-    spare = None
-    for k in range(count):
-        new, orig = _seam_step(mesh, st, [w[k:k + 1] for w in widths],
-                               [w[k + 1:k + 2] for w in widths], p, ext_M,
-                               spare)
-        spare = list(zip(st.luma, st.origcol, st.energy))
-        st = new
-        for g, o in enumerate(orig):
-            recs[g].append(o)
-    _record(mesh, st.vmap, recs, base)
-    return st
+class _SeamSteps:
+    """A carve's seam step over static buffers, the counterpart of JAX's
+    `_spatial_chunk_jit`: two sets of planes that swap every seam, the
+    halo-extended M, the logical width before and after the step on the
+    device (the step decrements both), and the removed pixels' original
+    columns, which are copied into a chunk's record after each step.
+
+    On a mesh whose stacks all lie on one CUDA card, with the kernels
+    (`use_pallas`), the carve's first seam runs eagerly, which builds the
+    kernels and sets their shared-memory limits, and every later seam
+    replays one of two CUDA graphs of the same step, captured once a carve
+    on a side stream, one for each direction between the sets: the host
+    issues one graph a seam instead of ~420 launches.  A replay credits the
+    kernels' launch counts and the mesh's exchange count with what its
+    capture counted.  CPU meshes, `use_pallas=False` and meshes over several
+    cards run every step eagerly.  A capture or replay that fails raises;
+    nothing falls back to eager steps."""
+
+    def __init__(self, mesh: ShardMesh, st: SpatialCarveState, p: _Params):
+        self.mesh, self.p = mesh, p
+        H = st.luma[0].shape[1]
+        We = mesh.Wl + 4 * p.K * p.delta_x
+
+        def like(xs):
+            return None if xs is None else [torch.empty_like(x) for x in xs]
+
+        self.sets = [_Planes(st.luma, st.image, st.origcol, st.energy),
+                     _Planes(like(st.luma), like(st.image),
+                             like(st.origcol), like(st.energy))]
+        self.cur = 0
+        self.ext_M = [torch.empty((x.shape[0], H, We), dtype=torch.float32,
+                                  device=x.device) for x in st.luma]
+        self.width, self.new_width, self.orig = (
+            [torch.zeros(n, dtype=torch.int32, device=x.device)
+             for x in st.luma] for n in (1, 1, H))
+        # the card the step is captured on; None: every step runs eagerly
+        devices = {x.device for x in st.luma}
+        dev = devices.pop() if len(devices) == 1 else None
+        self.graph_device = dev if p.use_pallas and dev is not None \
+            and dev.type == "cuda" else None
+        # src set -> (graph, [(kernel, launches)], exchanges) of one step
+        self.graphs = None
+        self.warm = False
+        self.capture_seconds = 0.0
+
+    def set_width(self, width: int) -> None:
+        """The logical width that the next step starts from."""
+        for w, nw in zip(self.width, self.new_width):
+            w.fill_(width)
+            nw.fill_(width - 1)
+
+    def _step(self, src: int) -> None:
+        _seam_step(self.mesh, self.sets[src], self.sets[1 - src], self.width,
+                   self.new_width, self.p, self.ext_M, self.orig)
+        for w, nw in zip(self.width, self.new_width):
+            w.sub_(1)
+            nw.sub_(1)
+
+    def _capture(self) -> None:
+        t = time.perf_counter()
+        dev = self.graph_device
+        torch.cuda.synchronize(dev)
+        pool = torch.cuda.graph_pool_handle()
+        graphs = {}
+        for src in (self.cur, 1 - self.cur):
+            launches = [k.launches for k in KERNELS]
+            exchanges = self.mesh.exchanges
+            graph = torch.cuda.CUDAGraph()
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            try:
+                with torch.cuda.device(dev), torch.cuda.stream(side):
+                    graph.capture_begin(pool=pool)
+                    try:
+                        self._step(src)
+                    except BaseException:
+                        with contextlib.suppress(RuntimeError):
+                            graph.capture_end()
+                        raise
+                    graph.capture_end()
+            except Exception as e:
+                name = (self.p.energy_fn.name if self.p.energy_fn is not None
+                        else "dct")
+                raise RuntimeError(
+                    f"spatial seam step (energy {name!r}): its CUDA graph "
+                    f"capture failed: {e}.  Every op of the step, a plugged "
+                    "energy's bands_fn included, must run on the card "
+                    "without waiting for it, as JAX needs the step to trace "
+                    "under jit") from e
+            finally:
+                deltas = [(k, k.launches - n)
+                          for k, n in zip(KERNELS, launches)
+                          if k.launches != n]
+                exchanged = self.mesh.exchanges - exchanges
+                for k, n in zip(KERNELS, launches):
+                    k.launches = n
+                self.mesh.exchanges = exchanges
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graphs[src] = (graph, deltas, exchanged)
+        self.graphs = graphs
+        self.capture_seconds += time.perf_counter() - t
+
+    def _replay(self, src: int) -> None:
+        if self.graphs is None:
+            self._capture()
+        graph, launches, exchanges = self.graphs[src]
+        try:
+            graph.replay()
+        except RuntimeError as e:
+            raise RuntimeError(f"spatial seam step: CUDA graph replay "
+                               f"failed: {e}") from e
+        for k, n in launches:
+            k.launches += n
+        self.mesh.exchanges += exchanges
+
+    def carve(self, st: SpatialCarveState, base: int,
+              count: int) -> SpatialCarveState:
+        """Seams base+1 .. base+count from `st`, the state whose planes are
+        this object's current set; never waits for the devices."""
+        H = st.luma[0].shape[1]
+        self.set_width(st.width)
+        recs = [torch.empty((count, H), dtype=torch.int32, device=o.device)
+                for o in self.orig]
+        for k in range(count):
+            if self.graph_device is not None and self.warm:
+                self._replay(self.cur)
+            else:
+                self._step(self.cur)
+                self.warm = True
+            self.cur ^= 1
+            for r, o in zip(recs, self.orig):
+                r[k].copy_(o)
+        _record(self.mesh, st.vmap, recs, base)
+        planes = self.sets[self.cur]
+        return SpatialCarveState(planes.luma, planes.image, planes.origcol,
+                                 st.vmap, planes.energy, st.width - count)
 
 
 def _params(W: int, H: int, *, blocksize: int = 8, edges: float = 0.0,
@@ -435,7 +577,7 @@ def spatial_carve_seams(state: SpatialCarveState, mesh: ShardMesh,
     H = state.luma[0].shape[1]
     W = mesh.width if image_width is None else int(image_width)
     p = _params(W, H, dead_max=(mesh.width - W) + first + count, **knobs)
-    return _carve_chunk(mesh, state, first, count, p)
+    return _SeamSteps(mesh, state, p).carve(state, first, count)
 
 
 def measure_collectives_per_seam(H: int, W: int, devices=None, *,
@@ -459,12 +601,10 @@ def measure_collectives_per_seam(H: int, W: int, devices=None, *,
                 delta_x=delta_x, rigidity=rigidity, use_pallas=use_pallas,
                 dead_max=64)
     st, mesh = _make_state(luma, None, devices, p)
-    ext_M = [torch.empty((x.shape[0], H, mesh.Wl + 4 * p.K * delta_x),
-                         device=x.device) for x in st.luma]
-    widths = mesh.replicate(torch.tensor([W, W - 1], dtype=torch.int32))
+    steps = _SeamSteps(mesh, st, p)
+    steps.set_width(W)
     mesh.exchanges = 0
-    _seam_step(mesh, st, [w[:1] for w in widths], [w[1:] for w in widths], p,
-               ext_M, None)
+    steps._step(0)
     return {"total": mesh.exchanges,
             "designed": collectives_per_seam(H, p.K,
                                              fused_apply=use_pallas)}
@@ -670,9 +810,10 @@ def spatial_carve_n_seams(luma, n_seams: int, *, blocksize: int = 8,
         if done:
             progress.update(done / n_seams)
     step = chunk if chunk > 0 else n_seams
+    steps = _SeamSteps(mesh, state, p)  # one capture serves every chunk
     while done < n_seams:
         count = min(step, n_seams - done)
-        state = _carve_chunk(mesh, state, done, count, p)
+        state = steps.carve(state, done, count)
         for st in mesh.stacks:
             if st.device.type == "cuda":
                 torch.cuda.synchronize(st.device)
@@ -689,7 +830,7 @@ def spatial_carve_n_seams(luma, n_seams: int, *, blocksize: int = 8,
         progress.end()
     vmap = mesh.join(state.vmap)[:, :W]
     img = None if state.image is None else mesh.join(state.image)[:, :W]
-    return SpatialCarveResult(vmap, state.width, img)
+    return SpatialCarveResult(vmap, state.width, img, steps.capture_seconds)
 
 
 def spatial_enlarge_n_seams(luma, n_seams: int, image, *, devices=None,

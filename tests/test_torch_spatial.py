@@ -81,6 +81,80 @@ def test_spatial_carve_equals_jax(mesh8, case):
     _same(got, want, image=image is not None)
 
 
+@pytest.mark.parametrize("case", [
+    # an odd seam count in odd chunks: the step ends on either buffer set
+    # and a chunk boundary falls after each parity
+    dict(h=16, w=64, n=5, chunk=3, image=True),
+    dict(h=24, w=64, n=5, chunk=2, kw=dict(energy="grad_norm")),
+    dict(h=16, w=61, n=7, chunk=1, kw=dict(tie="rightmost", blocksize=4)),
+], ids=["chunk3-image", "chunk2-grad_norm", "chunk1-rightmost"])
+def test_chunked_static_steps_equal_jax(mesh8, case):
+    """The seam step over static buffers (two plane sets that swap every
+    seam, the width on the device, a record a chunk), run eagerly on the
+    CPU mesh, equals JAX's uninterrupted spatial carve."""
+    luma, img = _luma(case["h"], case["w"], seed=case["n"] + case["chunk"])
+    image = img if case.get("image") else None
+    kw = case.get("kw", {})
+    want = jsp.spatial_carve_n_seams(luma, case["n"], mesh=mesh8,
+                                     image=image, **kw)
+    got = tsp.spatial_carve_n_seams(luma, case["n"], devices=CPU8,
+                                    image=image, chunk=case["chunk"], **kw)
+    _same(got, want, image=image is not None)
+    assert got.capture_seconds == 0.0  # no graph on the CPU
+
+
+def test_chunked_enlarge_equals_jax(mesh8):
+    luma, img = _luma(16, 61, seed=37)
+    want = jsp.spatial_enlarge_n_seams(luma, 5, img, mesh=mesh8)
+    got = tsp.spatial_enlarge_n_seams(luma, 5, img, devices=CPU8, chunk=3)
+    _same(got, want, image=True)
+
+
+def test_resumed_checkpoint_equals_jax(mesh8, tmp_path):
+    """A checkpointed carve in chunks of 3, resumed in chunks of 1 on a
+    fresh set of buffers, equals JAX's uninterrupted carve."""
+    luma, img = _luma(16, 64, seed=17)
+    n = 7
+    want = jsp.spatial_carve_n_seams(luma, n, mesh=mesh8, image=img)
+    ck = str(tmp_path / "ck")
+    tsp.spatial_carve_n_seams(luma, n, devices=CPU8, image=img, chunk=3,
+                              checkpoint_dir=ck)
+    with open(os.path.join(ck, "meta.json")) as f:
+        meta = json.load(f)
+    meta["seams_done"] = 3
+    with open(os.path.join(ck, "meta.json"), "w") as f:
+        json.dump(meta, f)
+    # the newest committed step (6 seams) is the one resumed
+    got = tsp.spatial_carve_n_seams(luma, n, devices=CPU8, image=img,
+                                    resume_from=ck, chunk=1)
+    _same(got, want, image=True)
+
+
+def test_static_steps_swap_two_buffer_sets():
+    """Seams alternate between the two plane sets, across chunks, and the
+    carve's buffers are those sets; on the CPU every step runs eagerly."""
+    luma, img = _luma(16, 64, seed=23)
+    st, mesh = tsp.spatial_make_state(luma, devices=CPU8, image=img)
+    p = tsp._params(64, 16, dead_max=5)
+    steps = tsp._SeamSteps(mesh, st, p)
+    assert steps.graph_device is None
+    assert steps.sets[0].luma is st.luma
+    mid = steps.carve(st, 0, 3)
+    assert mid.luma is steps.sets[1].luma and mid.image is steps.sets[1].image
+    assert mid.width == 61
+    end = steps.carve(mid, 3, 2)
+    assert end.luma is steps.sets[1].luma and end.energy is \
+        steps.sets[1].energy
+    assert [int(w) for w in steps.width] == [59]
+    whole = tsp.spatial_carve_n_seams(luma, 5, devices=CPU8, image=img)
+    np.testing.assert_array_equal(mesh.join(end.vmap).numpy(),
+                                  whole.vmap.numpy())
+    np.testing.assert_array_equal(mesh.join(end.image).numpy(),
+                                  whole.image.numpy())
+    plain = tsp._SeamSteps(mesh, st, tsp._params(64, 16, use_pallas=False))
+    assert plain.graph_device is None
+
+
 def test_spatial_enlarge_equals_jax(mesh8):
     luma, img = _luma(16, 61, seed=31)
     gray = img[..., 0]
@@ -163,7 +237,9 @@ def test_spatial_enlarge_rgb_equals_reconstruct_enlarged():
 
 
 @pytest.mark.parametrize("hwkp", [(32, 512, 8, False), (48, 1024, 16, False),
-                                  (32, 2048, 8, True)])
+                                  (32, 2048, 8, True),
+                                  # a remainder block, the fused removal
+                                  (40, 1024, 16, True)])
 def test_exchanges_equal_design(hwkp):
     """The exchanges of one seam step, counted by the exchange layer, equal
     the design's `collectives_per_seam`, as the JAX package's compiled HLO

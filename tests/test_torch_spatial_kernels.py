@@ -110,6 +110,167 @@ def test_seg_walk_equals_jax(tie, entry, Kb):
     assert not others.any()
 
 
+# ------------------------------------------- the staged walk's algorithm --
+
+_WALK_ROWS, _WALK_DEPTH, _SMEM = 16, 8, 232448
+
+
+def _parent(left, centre, right, tie):
+    """csrc/spatial_dp.cu::parent: -1/0/+1, the tie-most minimum."""
+    if tie == "leftmost":
+        if left <= centre:
+            return -1 if left <= right else 1
+        return 0 if centre <= right else 1
+    if right <= centre:
+        return 1 if right <= left else -1
+    return 0 if centre <= left else -1
+
+
+def _staged_walk(rows, entry, lo, K, Hh, tie, depth=None):
+    """The algorithm of `csrc/spatial_dp.cu::seg_walk_kernel` in numpy:
+    the owner aligns its window start down to 4 columns, stages the window's
+    f32 rows in _WALK_ROWS-row chunks from the bottom up into a ring of
+    `depth` slots (a slot is staged again only after its chunk was walked),
+    and walks each chunk on the f32 values with parent()'s rule, +inf
+    outside the window.  Unstaged ring cells are NaN, so a read of one shows
+    as a wrong seam."""
+    S, Kb, We = rows.shape
+    Wl = We - 2 * Hh
+    ww = 2 * K + 1
+    pitch = (ww + 6) // 4 * 4
+    nchunks = max(-(-Kb // _WALK_ROWS), 1)
+    if depth is None:
+        depth = min(nchunks, _WALK_DEPTH, _SMEM // (_WALK_ROWS * pitch * 4))
+    seg = np.zeros((S, Kb), np.int32)
+    for s in range(S):
+        lo_s = lo + s * Wl
+        if not lo_s <= entry < lo_s + Wl:
+            continue
+        wstart = min(max(entry - lo_s + Hh - K, 0), We - ww)
+        a0 = wstart & ~3
+        ncols = (wstart + ww - a0 + 3) & ~3
+        assert wstart - a0 < 4 and ncols <= pitch
+        ring = np.full((depth, _WALK_ROWS, pitch), np.nan, np.float32)
+
+        def bounds(c):
+            r1 = Kb - c * _WALK_ROWS
+            return max(r1 - _WALK_ROWS, 0), r1
+
+        def stage(c):
+            r0, r1 = bounds(c)
+            slot = ring[c % depth]
+            slot[:] = np.nan
+            n = min(ncols, We - a0)
+            for r in range(r1 - 1, r0 - 1, -1):
+                slot[r1 - 1 - r, :n] = rows[s, r, a0:a0 + n]
+
+        for c in range(min(depth, nchunks)):
+            stage(c)
+        jl = K
+        for c in range(nchunks):
+            r0, r1 = bounds(c)
+            win = ring[c % depth][:, wstart - a0:]
+            for r in range(r1 - 1, r0 - 1, -1):
+                row = win[r1 - 1 - r]
+                w = min(max(jl, 0), ww - 1)
+                left = row[w - 1] if w > 0 else np.inf
+                right = row[w + 1] if w < ww - 1 else np.inf
+                jl += _parent(left, row[w], right, tie)
+                seg[s, r] = jl + entry - K
+            if c + depth < nchunks:
+                stage(c + depth)
+    return seg
+
+
+@pytest.mark.parametrize("tie", ["leftmost", "rightmost"])
+@pytest.mark.parametrize("K,Hh,Kb,entry", [
+    (8, 16, 8, 21),     # inside shard 1, one chunk
+    (24, 4, 24, 64),    # the window clamped at column 0
+    (24, 4, 24, 127),   # the window clamped at We - ww
+    (24, 48, 24, 64),   # window starts 24 .. 27: every residue mod 4
+    (24, 48, 24, 65),
+    (24, 48, 24, 66),
+    (24, 48, 24, 67),
+    (40, 80, 37, 100),  # Kb < K, three chunks, the last one short
+    (40, 80, 5, 191),   # a short segment, the last column of the last shard
+])
+def test_staged_walk_equals_jax(tie, K, Hh, Kb, entry):
+    """The staged walk (aligned window, chunked bottom-up staging, the walk
+    on f32 values) equals JAX's one-hot walk in interpret mode, the plain
+    walk and `seg_walk`; every other shard gets zeros."""
+    S, Wl = 3, 64
+    We = Wl + 2 * Hh
+    rng = np.random.default_rng(K * 1000 + entry + Kb)
+    rows = _energy(rng, (S, Kb, We), quantized=True)
+    got = _staged_walk(rows, entry, 0, K, Hh, tie)
+    owner = entry // Wl
+    start = min(max(entry - owner * Wl + Hh - K, 0), We - (2 * K + 1))
+    win = jnp.asarray(rows[owner, :, start:start + 2 * K + 1])
+    want = np.asarray(jsp.seg_walk_rows(win, K, interpret=True, tie=tie))
+    np.testing.assert_array_equal(got[owner], want + entry - K)
+    assert not np.delete(got, owner, axis=0).any()
+    t, e = torch.from_numpy(rows), torch.tensor([entry], dtype=torch.int32)
+    np.testing.assert_array_equal(
+        got, walk_rows(t, e, 0, K, Hh, tie).numpy())
+    np.testing.assert_array_equal(
+        got, seg_walk(t, e, 0, K, Hh, tie=tie).numpy())
+    for depth in (1, 2):  # rings that a slot must be staged again in
+        np.testing.assert_array_equal(
+            got, _staged_walk(rows, entry, 0, K, Hh, tie, depth=depth))
+
+
+@pytest.fixture(scope="module")
+def jax_walk():
+    """JAX's scalar-scan segment walk (`parallel/spatial.py::_seg_walk`,
+    the form for windows wider than 256 lanes) on the 8-device CPU mesh:
+    (rows (8, Kb, We), entry, K, tie) -> (Kb,) global columns."""
+    import jax
+    from jax import shard_map
+    from jax.sharding import PartitionSpec as P
+
+    from dct_carver_tpu.parallel import spatial as jspatial
+    from dct_carver_tpu.parallel.mesh import make_mesh as jax_mesh
+
+    mesh = jax_mesh(axis_name="x")
+    fns = {}
+
+    def walk(rows, entry, K, tie):
+        S, Kb, We = rows.shape
+        Hh = 2 * K
+        key = (Kb, We, K, tie)
+        if key not in fns:
+            fns[key] = jax.jit(shard_map(
+                lambda r, j: jspatial._seg_walk(r[0], j[0], We - 2 * Hh, K,
+                                                "x", tie=tie),
+                mesh=mesh, in_specs=(P("x"), P()), out_specs=P(),
+                check_vma=False))
+        return np.asarray(fns[key](jnp.asarray(rows),
+                                   jnp.asarray([entry], jnp.int32)))
+
+    return walk
+
+
+@pytest.mark.parametrize("tie", ["leftmost", "rightmost"])
+@pytest.mark.parametrize("Kb,entry", [(200, 37), (150, 127)])
+def test_staged_walk_at_k200_equals_jax_scan(jax_walk, tie, Kb, entry):
+    """K = 200: a 401-column window in 13 chunks through a ring of 8 slots
+    (the most one block's shared memory holds at this K), against the plain
+    walk and JAX's scalar scan."""
+    S, Wl, K = 8, 16, 200
+    Hh = 2 * K
+    rng = np.random.default_rng(Kb + entry)
+    rows = _energy(rng, (S, Kb, Wl + 2 * Hh), quantized=True)
+    got = _staged_walk(rows, entry, 0, K, Hh, tie)
+    want = jax_walk(rows, entry, K, tie)
+    owner = entry // Wl
+    np.testing.assert_array_equal(got[owner], want)
+    assert not np.delete(got, owner, axis=0).any()
+    t, e = torch.from_numpy(rows), torch.tensor([entry], dtype=torch.int32)
+    np.testing.assert_array_equal(got, walk_rows(t, e, 0, K, Hh, tie).numpy())
+    np.testing.assert_array_equal(got,
+                                  seg_walk(t, e, 0, K, Hh, tie=tie).numpy())
+
+
 def test_walk_rows_generalized_equals_scalar_walk():
     """delta_x = 2 with rigidity: the plain walk of the route's generalized
     DP equals ops/dp.py's backtrack on the same window."""
