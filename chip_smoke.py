@@ -9,11 +9,17 @@ PyTorch version on the card, bit for bit, at the main path's shapes
 (1080x1920, and 2160x3840 at n=16), and times both; phase 1b runs whole
 4-seam carves at 4320x7680 and 4096x4096 (the shapes of the TPU's streamed
 and folded DP routes) against the plain path; phase 1c holds the tiled
-find-seam of rows wider than one thread block (32769 and 40000 columns)
-against the plain find-seam, carves a 512x40000 RGB image through
-`api.carve` with the launch counters read around it against the plain
-path, times the tiled kernel forced at 8K beside find_seam, and holds the
-apply at 65536 rows.  Phase 2 runs the main path
+find-seam (one warp a column tile) against the plain find-seam at rows
+wider than one thread block (32769 and 40000 columns) and at its own
+geometry (1080p, 4K, 8K repeated, windows and seams at tile edges, H = 1,
+2 and 999, per-image windows, several tiles a warp), sweeps the tiled
+kernel's geometry and both find-seam kernels over widths and batch sizes
+(the tables the tiled constants and `seam_route`'s thresholds come from),
+carves a 512x40000 RGB image through `api.carve` with the
+launch counters read around it against the plain path, and holds the
+apply at 65536 rows.  Every find-seam launch count is checked against the
+kernel `seam_route` picks for the shape, and find_seam.cu is held and
+timed through its C entry whatever the route says.  Phase 2 runs the main path
 through the public API: a 64-seam removal from a 1080x1920 RGB image with
 the launch counters read around it, compared element for element with the
 plain path on the card and with the CPU on a small image; then a
@@ -102,9 +108,24 @@ CHUNKED_SEAMS_8K = 16      # phase 5b: the chunked 8K carve and the counts
 # phase 1c: rows wider than one thread block (MAX_WIDTH) and planes taller
 # than the grid's y dimension
 TILED_ROWS = 300           # rows of the tiled find-seam's bitwise cases
+REPEATS_8K = 20            # the tiled find-seam's 8K case, each tie: its
+# frontier between warps is where a race would show
 W_WIDE = 40000             # a panorama wider than one block covers
 H_WIDE = 512               # rows of the wide api.carve
 H_TALL = 65536             # rows past the grid's 65535
+# the width sweep of the two find-seam kernels: B = 1 at these widths with
+# SWEEP_ROWS rows (H8 at W8), and stacks of (B, W) with HB rows
+SWEEP_WIDTHS = (64, 128, 256, 512, 1024, 1920, 3840, 4096, 4097, 5760, 7680,
+                16384, 32768, 40000)
+SWEEP_ROWS = 1080
+SWEEP_BATCHES = ((8, WB), (16, WB), (32, WB), (64, WB), (128, WB), (256, WB),
+                 (32, W), (64, W), (32, 4096), (64, 4096))
+# the tiled kernel's geometry sweep: (columns a lane, owned columns, K),
+# each extended row one warp wide, times warp-tiles a CTA, at these shapes
+GEOMETRIES = ((4, 64, 32), (4, 96, 16), (8, 128, 64), (8, 192, 32))
+GEOMETRY_WARPS = (1, 4)
+GEOMETRY_SHAPES = ((1, H, W), (1, H8, W8), (1, H_WIDE, W_WIDE),
+                   (NB, HB, WB))
 # an H100 SXM's peaks (NVIDIA's data sheet): device memory, and float32
 # outside the tensor cores (a fused multiply-add counted as two operations)
 HBM_BYTES_PER_S = 3.35e12
@@ -141,6 +162,22 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     t_ops = ops / F32_UNFUSED_OPS_PER_S * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops
             else (t_ops, "operations"))
+
+
+def dp_launches(B: int, W: int, calls: int, plane: bool = True) -> dict:
+    """The find-seam launches that `calls` seam searches of a (B, H, W)
+    stack (H > 1; a plane when `plane`) make: all on the kernel that
+    `seam_route` picks, three a call on the tiled one (the frontier's
+    memset, the forward, the finish) and one on find_seam.cu's record, none
+    on the others."""
+    from dct_carver_tpu_torch.kernels.dp_kernel import seam_route
+
+    want = {"find_seam": 0, "find_seams": 0, "find_seam_tiled": 0}
+    if seam_route(B, W) == "tiled":
+        want["find_seam_tiled"] = 3 * calls
+    else:
+        want["find_seam" if plane else "find_seams"] = calls
+    return want
 
 
 def card_line() -> str:
@@ -211,7 +248,7 @@ def device_ms(fn, reps: int, only: str | None = None) -> float:
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):  # a trace that comes back empty is taken again once
+    for _ in range(4):  # a trace that comes back empty is taken again
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -295,25 +332,35 @@ def phase_1b(dev, chk: Checks, card: str, rng) -> None:
 
 
 def phase_1c(dev, chk: Checks, card: str, rng, times: dict) -> dict:
-    """Rows wider than one thread block and planes taller than the grid's
-    y: the tiled find-seam against the plain find-seam (both ties, column
-    windows, seams along either border, a stack with per-image windows), a
-    whole `api.carve` of a wide RGB image against the plain path with the
-    launch counters read around it, the apply at H_TALL rows, and the tiled
-    find-seam forced at 8K beside find_seam (a finding: the route stays
-    W > MAX_WIDTH).  Returns the launch counts of the wide carve."""
+    """The tiled find-seam (one warp a column tile) against the plain
+    find-seam: rows wider than one thread block (both ties, column windows,
+    seams along either border, a stack with per-image windows), then at
+    the tiled kernel's own geometry (1080p, 4K and 8K planes, 8K repeated,
+    a window cutting a tile, seams along a tile edge, H not a multiple of
+    K, H = 1 and 2, a B = 8 stack with per-image windows, several tiles a
+    warp); the geometry sweep of the tiled kernel and the width sweep of
+    both kernels, which its constants and `seam_route`'s thresholds come
+    from; a whole `api.carve` of a wide RGB image against the plain
+    path with the launch counters read around it; the apply at H_TALL
+    rows.  Returns the launch counts of the wide carve."""
     import torch
 
     from dct_carver_tpu_torch import api, kernels
     from dct_carver_tpu_torch.kernels.apply_kernel import apply_seam
     from dct_carver_tpu_torch.kernels.dp_kernel import (
-        MAX_WIDTH, TILE_K, TILE_W, _find_seams_tiled, find_seam, find_seams)
+        BATCH_KERNEL, KERNEL, MAX_WIDTH, TILE_C, TILE_K, TILE_W, TILE_WARPS,
+        _find_seams_one_cta, _find_seams_tiled, find_seam, find_seams,
+        seam_route)
 
     def on_dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    log(f"phase 1c: the tiled find-seam (tiles of {TILE_W} columns, K = "
-        f"{TILE_K}) vs the plain find-seam at widths past {MAX_WIDTH}")
+    def tiled(e, width, lo=0, tie="leftmost", **kw):
+        return _find_seams_tiled(e, width, lo, tie, **kw)
+
+    log(f"phase 1c: the tiled find-seam (one warp a tile: {TILE_W} owned "
+        f"columns, K = {TILE_K}, {TILE_C} columns a lane, {TILE_WARPS} "
+        f"tiles a CTA) vs the plain find-seam at widths past {MAX_WIDTH}")
     for w in (MAX_WIDTH + 1, W_WIDE):
         e_r = on_dev(rng.random((TILED_ROWS, w), dtype=np.float32))
         e_q = on_dev((rng.integers(0, 3, (TILED_ROWS, w)) / 2)
@@ -341,6 +388,12 @@ def phase_1c(dev, chk: Checks, card: str, rng, times: dict) -> dict:
                 chk.require(bool((got == col).all()),
                             f"{TILED_ROWS}x{w} {tie}: the seam runs along "
                             f"column {col}")
+        # more tiles than warps: 97 warps of ceil(w / TILE_W) / 97 tiles
+        for tie in TIES:
+            chk.equal("find_seam_tiled", f"{TILED_ROWS}x{w} quantized, 97 "
+                      f"warps (several tiles a warp) {tie}",
+                      tiled(e_q[None], w, 0, tie, max_warps=97),
+                      find_seams(e_q[None], w, tie=tie, use_pallas=False))
     e2 = on_dev((rng.integers(0, 3, (2, TILED_ROWS - 43, W_WIDE)) / 2)
                 .astype(np.float32))
     widths = on_dev(np.array([W_WIDE, MAX_WIDTH - 1700], np.int32))
@@ -352,27 +405,127 @@ def phase_1c(dev, chk: Checks, card: str, rng, times: dict) -> dict:
                   find_seams(e2, widths, los, tie=tie, use_pallas=False))
     del e_r, e_q, e_b, e2
 
-    # times at the wide carve's shape, and the finding at 8K
+    log("phase 1c: the tiled find-seam at its own geometry")
+    for h, w in ((H, W), (H4, W4), (H8, W8)):
+        e = on_dev(rng.random((h, w), dtype=np.float32))
+        for tie in TIES:
+            want = find_seam(e, w, tie=tie, use_pallas=False)
+            reps = REPEATS_8K if w == W8 else 1
+            same = sum(bool(torch.equal(tiled(e[None], w, 0, tie)[0], want))
+                       for _ in range(reps))
+            chk.equal("find_seam_tiled", f"{h}x{w} random {tie}"
+                      + (f" (1 of {reps})" if reps > 1 else ""),
+                      tiled(e[None], w, 0, tie)[0], want)
+            if reps > 1:
+                chk.require(same == reps, f"{h}x{w} {tie}: {same} of {reps} "
+                            "repeated tiled runs bitwise")
+        del e
+    e_q = on_dev((rng.integers(0, 3, (H, W)) / 2).astype(np.float32))
+    lo = 3 * TILE_W + 5
+    for tie in TIES:  # [lo, lo + width) starts and ends inside a tile
+        chk.equal("find_seam_tiled", f"{H}x{W} quantized [{lo}, "
+                  f"{W - 131}) {tie}", tiled(e_q[None], W - 131 - lo, lo,
+                                             tie)[0],
+                  find_seams(e_q[None], W - 131 - lo, lo, tie=tie,
+                             use_pallas=False)[0])
+    for col in (TILE_W - 1, TILE_W, 5 * TILE_W):
+        e_b = torch.ones((H, W), device=dev)
+        e_b[:, col] = 0
+        for tie in TIES:
+            got = tiled(e_b[None], W, 0, tie)[0]
+            chk.equal("find_seam_tiled", f"{H}x{W} seam along tile-edge "
+                      f"column {col} {tie}", got,
+                      find_seam(e_b, W, tie=tie, use_pallas=False))
+            chk.require(bool((got == col).all()),
+                        f"{H}x{W} {tie}: the seam runs along column {col}")
+    for h in (1, 2, 999):  # one row (the finish alone), one DP row, H % K
+        e = on_dev((rng.integers(0, 3, (h, 5000)) / 2).astype(np.float32))
+        for tie in TIES:
+            chk.equal("find_seam_tiled", f"{h}x5000 quantized {tie}",
+                      tiled(e[None], 4990, 3, tie)[0],
+                      find_seams(e[None], 4990, 3, tie=tie,
+                                 use_pallas=False)[0])
+    e8 = on_dev((rng.integers(0, 3, (NB, TILED_ROWS, 5001)) / 2)
+                .astype(np.float32))
+    w8 = on_dev(np.array([5001, 4000, 1, 2, 333, 5000, 64, 2500], np.int32))
+    l8 = on_dev(np.array([0, 1001, 5000, 0, 4600, 1, 700, 2501], np.int32))
+    for tie in TIES:
+        want = find_seams(e8, w8, l8, tie=tie, use_pallas=False)
+        chk.equal("find_seam_tiled", f"B={NB} x {TILED_ROWS}x5001 per-image "
+                  f"windows {tie}", tiled(e8, w8, l8, tie), want)
+        chk.equal("find_seam_tiled", f"B={NB} x {TILED_ROWS}x5001 per-image "
+                  f"windows, 5 warps (several tiles a warp) {tie}",
+                  tiled(e8, w8, l8, tie, max_warps=5), want)
+    del e_q, e_b, e8
+
+    # row 3's times at the wide carve's shape
     e_w = on_dev(rng.random((H_WIDE, W_WIDE), dtype=np.float32))
     time_kernel(times, "find_seam_tiled", lambda: find_seam(e_w, W_WIDE),
                 lambda: find_seam(e_w, W_WIDE, use_pallas=False), 20, 2)
     BOUNDS["find_seam_tiled"] = (4 * H_WIDE * W_WIDE + 4 * H_WIDE,
                                  3 * H_WIDE * W_WIDE)
+    parts = {part: device_ms(lambda: find_seam(e_w, W_WIDE), 20, only=part)
+             for part in ("tile_rows", "finish")}
     log(f"  find_seam_tiled {H_WIDE}x{W_WIDE}: kernel "
         f"{times['find_seam_tiled'][0]!r} ms (device "
-        f"{DEVICE['find_seam_tiled']!r}), plain "
+        f"{DEVICE['find_seam_tiled']!r}: forward {parts['tile_rows']!r}, "
+        f"finish {parts['finish']!r}), plain "
         f"{times['find_seam_tiled'][1]!r} ms ({card})")
-    e8 = on_dev(rng.random((4320, 7680), dtype=np.float32))
-    chk.equal("find_seam_tiled", "4320x7680 forced == find_seam",
-              _find_seams_tiled(e8[None], 7680, 0, "leftmost")[0],
-              find_seam(e8, 7680))
-    one = device_ms(lambda: find_seam(e8, 7680), 10)
-    tiled = device_ms(lambda: _find_seams_tiled(e8[None], 7680, 0,
-                                                "leftmost"), 10)
-    log(f"  finding, 4320x7680: find_seam (one CTA, 8 columns a thread) "
-        f"{one!r} device ms, the tiled kernel forced (2 tiles) {tiled!r} "
-        f"device ms ({card})")
-    del e_w, e8
+    del e_w
+
+    log("phase 1c: geometry sweep of the tiled kernel, device ms under "
+        "torch.profiler (columns a lane C, owned columns Wt, rows a block K, "
+        "warp-tiles a CTA)")
+    totals = {}
+    for b, h, w in GEOMETRY_SHAPES:
+        e = on_dev(rng.random((b, h, w), dtype=np.float32))
+        for c, wt, k in GEOMETRIES:
+            for warps in GEOMETRY_WARPS:
+                ms = device_ms(lambda: tiled(e, w, tile=wt, K=k, chunk=c,
+                                             warps=warps), 5)
+                key = (c, wt, k, warps)
+                totals[key] = totals.get(key, 0.0) + ms
+                log(f"  geometry B={b} {h}x{w} C={c} Wt={wt} K={k} "
+                    f"warps={warps}: {ms!r} ms ({card})")
+        del e
+    best = min(totals, key=totals.get)
+    log(f"  geometry sums over the shapes: "
+        + ", ".join(f"{k}: {v!r}" for k, v in sorted(totals.items(),
+                                                   key=lambda kv: kv[1]))
+        + f"; least {best}, the default is "
+        f"{(TILE_C, TILE_W, TILE_K, TILE_WARPS)} ({card})")
+
+    log("phase 1c: width sweep, find_seam.cu (its C entry, whatever the "
+        "route) against the tiled kernel, device ms under torch.profiler")
+    table = []
+    shapes = [(1, H8 if w == W8 else SWEEP_ROWS, w) for w in SWEEP_WIDTHS]
+    shapes += [(b, HB, w) for b, w in SWEEP_BATCHES]
+    for b, h, w in shapes:
+        e = on_dev(rng.random((b, h, w), dtype=np.float32))
+        reps = 5 if b * w >= 65536 else 10
+        one = (device_ms(lambda: _find_seams_one_cta(
+            KERNEL if b == 1 else BATCH_KERNEL, e, w, 0, "leftmost"), reps)
+            if w <= MAX_WIDTH else None)
+        til = device_ms(lambda: tiled(e, w), reps)
+        fwd = device_ms(lambda: tiled(e, w), reps, only="tile_rows")
+        route = seam_route(b, w)
+        row = {"B": b, "H": h, "W": w, "find_seam_ms": one,
+               "tiled_ms": til, "tiled_forward_ms": fwd,
+               "find_seam_us_a_row": None if one is None
+               else one * 1e3 / h, "tiled_us_a_row": til * 1e3 / h,
+               "ratio": None if one is None else one / til, "route": route}
+        table.append(row)
+        faster = "tiled" if one is None or til < one else "find_seam"
+        log(f"  sweep B={b} {h}x{w}: find_seam.cu {one!r} ms, tiled {til!r} "
+            f"ms (forward {fwd!r}), us a row {row['find_seam_us_a_row']!r} / "
+            f"{row['tiled_us_a_row']!r}, find_seam/tiled {row['ratio']!r}; "
+            f"faster: {faster}, seam_route: {route}"
+            f"{'' if faster == route else ' (DIFFERS)'} ({card})")
+        del e
+    log("  sweep table (B, H, W, find_seam.cu ms, tiled ms, ratio, route): "
+        + json.dumps([[r["B"], r["H"], r["W"], r["find_seam_ms"],
+                       r["tiled_ms"], r["ratio"], r["route"]]
+                      for r in table]))
 
     log(f"phase 1c: api.carve({H_WIDE}x{W_WIDE}x3, -{WHOLE_SEAMS}) on the "
         "card")
@@ -382,14 +535,18 @@ def phase_1c(dev, chk: Checks, card: str, rng, times: dict) -> dict:
     api.carve(img[:64, :MAX_WIDTH + 64], -2, **kw)  # warm-up
     torch.cuda.synchronize()
     kernels.reset_launches()
+    t = time.perf_counter()
     res = api.carve(img, -WHOLE_SEAMS, **kw)
     torch.cuda.synchronize()
+    sec = time.perf_counter() - t
     launches = kernels.launch_counts()
+    log(f"  wide api.carve: {sec!r} s, host copies included ({card})")
     log(f"  launches on the wide carve: {launches}")
-    for name, want in (("find_seam_tiled", WHOLE_SEAMS), ("find_seam", 0),
-                       ("apply", WHOLE_SEAMS), ("strip", WHOLE_SEAMS)):
-        chk.require(launches[name] == want,
-                    f"wide carve: {name} launched {want} times")
+    want = {**dp_launches(1, W_WIDE, WHOLE_SEAMS), "apply": WHOLE_SEAMS,
+            "strip": WHOLE_SEAMS}
+    for name, n in want.items():
+        chk.require(launches[name] == n,
+                    f"wide carve: {name} launched {n} times")
     chk.require(launches["energy"] >= 1, "wide carve: energy launched")
     plain = api.carve(img, -WHOLE_SEAMS, use_pallas=False, **kw)
     for field in ("image", "visibility_map", "energy_image"):
@@ -413,13 +570,15 @@ def phase_1c(dev, chk: Checks, card: str, rng, times: dict) -> dict:
     return launches
 
 
-def phase_3(dev, chk: Checks, card: str, rng, times: dict) -> dict:
-    """The batch route; returns the launch counts of its api.carve run."""
+def phase_3(dev, chk: Checks, card: str, rng, times: dict) -> list:
+    """The batch route; returns the launch counts of its api.carve run and
+    of one carve_batch of NB_TIMED images."""
     import torch
 
     from dct_carver_tpu_torch import api, kernels
     from dct_carver_tpu_torch.kernels.apply_kernel import apply_seam
-    from dct_carver_tpu_torch.kernels.dp_kernel import find_seams
+    from dct_carver_tpu_torch.kernels.dp_kernel import (
+        BATCH_KERNEL, _find_seams_one_cta, find_seams, seam_route)
     from dct_carver_tpu_torch.kernels.energy_kernel import dct_energy
     from dct_carver_tpu_torch.kernels.strip_kernel import strip_update
     from dct_carver_tpu_torch.ops.energy import to_luma
@@ -429,6 +588,18 @@ def phase_3(dev, chk: Checks, card: str, rng, times: dict) -> dict:
 
     def on_dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def seams_pair(case, e, widths, lo, tie="leftmost"):
+        """find_seam.cu's batched launch (its C entry, whatever the route)
+        and the routed find_seams against the plain version; returns the
+        routed seams."""
+        want = find_seams(e, widths, lo, tie=tie, use_pallas=False)
+        chk.equal("find_seams", case, _find_seams_one_cta(
+            BATCH_KERNEL, e, widths, lo, tie), want)
+        got = find_seams(e, widths, lo, tie=tie)
+        if seam_route(e.shape[0], e.shape[2]) == "tiled":
+            chk.equal("find_seam_tiled", f"{case} (routed)", got, want)
+        return got
 
     log(f"phase 3: the batch route; kernels vs plain versions on B={NB} "
         f"{HB}x{WB} planes")
@@ -448,14 +619,9 @@ def phase_3(dev, chk: Checks, card: str, rng, times: dict) -> dict:
     for lo_name, lo in los.items():
         for e_name, e in (("random", E), ("quantized", E_q)):
             for tie in TIES:
-                chk.equal("find_seams",
-                          f"B={NB} {e_name}, widths W/W-37/{WB // 2 + 5}/17, "
-                          f"{lo_name}, {tie}",
-                          find_seams(e, widths, lo, tie=tie),
-                          find_seams(e, widths, lo, tie=tie,
-                                     use_pallas=False))
-    chk.equal("find_seams", f"B={NB} one shared width W-5",
-              find_seams(E, WB - 5), find_seams(E, WB - 5, use_pallas=False))
+                seams_pair(f"B={NB} {e_name}, widths W/W-37/{WB // 2 + 5}/17,"
+                           f" {lo_name}, {tie}", e, widths, lo, tie)
+    seams_pair(f"B={NB} one shared width W-5", E, WB - 5, 0)
     # per-image windows on planes narrower than a backtrack window, and
     # windows that force the seam along column 0 or the window's last column
     for h, w in ((HB, 100), (257, 130)):
@@ -465,17 +631,14 @@ def phase_3(dev, chk: Checks, card: str, rng, times: dict) -> dict:
         ln = on_dev(np.resize([0, 7, w - 1, 0, 50, 1, w - 5, 3], NB)
                     .astype(np.int32))
         for tie in TIES:
-            chk.equal("find_seams", f"B={NB} {h}x{w} per-image windows {tie}",
-                      find_seams(e_n, wn, ln, tie=tie),
-                      find_seams(e_n, wn, ln, tie=tie, use_pallas=False))
+            seams_pair(f"B={NB} {h}x{w} per-image windows {tie}", e_n, wn, ln,
+                       tie)
     e_b = torch.ones((NB, 300, WB), device=dev)
     e_b[:, :, 0] = 0
     e_b[:, :, WB - 1] = 0
     wb = on_dev(np.resize([WB, WB - 1], NB).astype(np.int32))
     for tie in TIES:
-        got = find_seams(e_b, wb, 0, tie=tie)
-        chk.equal("find_seams", f"B={NB} border seams {tie}", got,
-                  find_seams(e_b, wb, 0, tie=tie, use_pallas=False))
+        got = seams_pair(f"B={NB} border seams {tie}", e_b, wb, 0, tie)
         want = torch.where((wb == WB) & (tie == "rightmost"), WB - 1, 0)
         chk.require(bool((got == want[:, None]).all()),
                     f"B={NB} border seams {tie}: along column 0 or W-1")
@@ -501,8 +664,9 @@ def phase_3(dev, chk: Checks, card: str, rng, times: dict) -> dict:
     full = dct_energy(l1, 8, edges, textures, use_pallas=False)
     chk.equal("strip", f"B={NB} == full recompute (live columns)",
               k[..., :WB - 1].contiguous(), full[..., :WB - 1].contiguous())
-    time_kernel(times, "find_seams", lambda: find_seams(E, WB),
-                lambda: find_seams(E, WB, use_pallas=False), 20, 2)
+    time_kernel(times, "find_seams", lambda: _find_seams_one_cta(
+        BATCH_KERNEL, E, WB, 0, "leftmost"),
+        lambda: find_seams(E, WB, use_pallas=False), 20, 2)
     log(f"  find_seams kernel {times['find_seams'][0]!r} ms, plain "
         f"{times['find_seams'][1]!r} ms (B={NB} x {HB}x{WB}; {card})")
     BOUNDS["find_seams"] = (NB * (4 * HB * WB + 4 * HB), 3 * NB * HB * WB)
@@ -520,14 +684,14 @@ def phase_3(dev, chk: Checks, card: str, rng, times: dict) -> dict:
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     log(f"  launches on the batch route: {launches}")
-    for name in ("find_seams", "apply", "strip"):
-        chk.require(launches[name] == SEAMS_B,
-                    f"{name} kernel launched {SEAMS_B} times for {NB} images")
+    want = {**dp_launches(NB, WB, SEAMS_B, plane=False), "apply": SEAMS_B,
+            "strip": SEAMS_B}
+    for name, n in want.items():
+        chk.require(launches[name] == n,
+                    f"{name} kernel launched {n} times for {NB} images")
     chk.require(launches["energy"] == 2,
                 "energy kernel launched twice (export, first map), not once "
                 "an image")
-    chk.require(launches["find_seam"] == 0,
-                "no single-image find_seam launch on the batch route")
     t = time.perf_counter()
     plain = api.carve(imgs, -SEAMS_B, parallel="batch", use_pallas=False,
                       **kw)
@@ -565,6 +729,16 @@ def phase_3(dev, chk: Checks, card: str, rng, times: dict) -> dict:
 
     run()
     torch.cuda.synchronize()
+    kernels.reset_launches()
+    run()
+    torch.cuda.synchronize()
+    big_launches = kernels.launch_counts()
+    log(f"  launches on carve_batch of {NB_TIMED}: {big_launches}")
+    want = {**dp_launches(NB_TIMED, WB, SEAMS_B, plane=False),
+            "apply": SEAMS_B, "strip": SEAMS_B}
+    for name, n in want.items():
+        chk.require(big_launches[name] == n,
+                    f"carve_batch B={NB_TIMED}: {name} launched {n} times")
     secs = []
     for _ in range(2):
         torch.cuda.reset_peak_memory_stats(dev)
@@ -609,7 +783,7 @@ def phase_3(dev, chk: Checks, card: str, rng, times: dict) -> dict:
     for name, us, count in top:
         log(f"    {us / 1e3:10.4f} ms  {count:5d} x  {name[:90]}")
 
-    return launches
+    return [launches, big_launches]
 
 
 def phase_4a(dev, chk: Checks, card: str, rng, times: dict) -> None:
@@ -753,9 +927,9 @@ def phase_4(dev, chk: Checks, card: str, rng, dct_rate: float) -> list:
     # a radius-2 window energy: the mean absolute deviation from the pixel
     absdev = custom_energy(
         2, lambda w: torch.sum(torch.abs(w - w[1, 1])), name="absdev")
-    on_path = {"find_seam": SEAMS, "apply": SEAMS, "strip_gather": SEAMS,
-               "strip_scatter": SEAMS, "energy": 0, "strip": 0,
-               "band_energy": 0}
+    on_path = {**dp_launches(1, W, SEAMS), "apply": SEAMS,
+               "strip_gather": SEAMS, "strip_scatter": SEAMS, "energy": 0,
+               "strip": 0, "band_energy": 0}
     kw = dict(output_seams=True, output_energy=True, device=dev.type)
 
     log(f"phase 4b: api.carve({H}x{W}x3, -{SEAMS}, energy=...) on the card")
@@ -846,9 +1020,9 @@ def phase_4(dev, chk: Checks, card: str, rng, dct_rate: float) -> list:
     launches = kernels.launch_counts()
     main_launches.append(launches)
     require_launches(launches, {
-        "find_seams": SEAMS_BE, "apply": SEAMS_BE, "strip_gather": SEAMS_BE,
-        "strip_scatter": SEAMS_BE, "find_seam": 0, "energy": 0, "strip": 0},
-        f"batch {SEAMS_BE}-seam carve of {NB} images")
+        **dp_launches(NB, WB, SEAMS_BE, plane=False), "apply": SEAMS_BE,
+        "strip_gather": SEAMS_BE, "strip_scatter": SEAMS_BE, "energy": 0,
+        "strip": 0}, f"batch {SEAMS_BE}-seam carve of {NB} images")
     singles = []
     for b in range(NB):
         one = api.carve(imgs[b], -SEAMS_BE, energy="grad_norm", **kw)
@@ -921,8 +1095,8 @@ def phase_4(dev, chk: Checks, card: str, rng, dct_rate: float) -> list:
             torch.cuda.synchronize()
             chk.require(rc == 0, f"CLI batch rc {rc}")
             require_launches(kernels.launch_counts(), {
-                "find_seams": SEAMS_BE, "strip_gather": SEAMS_BE,
-                "strip_scatter": SEAMS_BE, "find_seam": 0},
+                **dp_launches(4, WB, SEAMS_BE, plane=False),
+                "strip_gather": SEAMS_BE, "strip_scatter": SEAMS_BE},
                 "CLI batch of 4 images")
             for b in range(4):
                 same(load_image(os.path.join(dst, f"im{b}.ppm")), singles[b],
@@ -1347,7 +1521,8 @@ def phase_5(dev, chk: Checks, card: str, rng) -> list:
         f"wall time ({card})")
     want = {"block_dp_parts": nb * SEAMS_8K, "seg_walk": nb * SEAMS_8K,
             "sharded_apply": SEAMS_8K, "strip": SEAMS_8K, "energy": 1,
-            "block_dp": 0, "find_seam": 0, "apply": 0}
+            "block_dp": 0, "find_seam": 0, "find_seams": 0,
+            "find_seam_tiled": 0, "apply": 0}
     got = {k: launches[k] for k in want}
     chk.require(got == want, f"8K spatial launches {got}")
     log("  launches a seam: " + ", ".join(
@@ -1563,7 +1738,8 @@ def main() -> int:
     from dct_carver_tpu_torch import api, kernels
     from dct_carver_tpu_torch.kernels import build
     from dct_carver_tpu_torch.kernels.apply_kernel import apply_seam
-    from dct_carver_tpu_torch.kernels.dp_kernel import MAX_WIDTH, find_seam
+    from dct_carver_tpu_torch.kernels.dp_kernel import (
+        KERNEL, MAX_WIDTH, _find_seams_one_cta, find_seam, seam_route)
     from dct_carver_tpu_torch.kernels.energy_kernel import dct_energy
     from dct_carver_tpu_torch.kernels.strip_kernel import strip_update
     from dct_carver_tpu_torch.models.carver import Carver
@@ -1600,6 +1776,21 @@ def main() -> int:
     luma_q = on_card((rng.integers(0, 3, (H, W)) / 2).astype(np.float32))
     luma4 = on_card(rng.random((H4, W4), dtype=np.float32))
 
+    def one_cta(e, width, tie="leftmost"):
+        """find_seam.cu through its C entry, whatever the route says."""
+        return _find_seams_one_cta(KERNEL, e[None], width, 0, tie)[0]
+
+    def seam_pair(name, e, width, tie):
+        """find_seam.cu and the routed find_seam against the plain version;
+        the routed result is the seam (kernel as seam_route picks it)."""
+        want = find_seam(e, width, tie=tie, use_pallas=False)
+        chk.equal("find_seam", f"{name} {tie}", one_cta(e, width, tie), want)
+        routed = seam_route(1, e.shape[1])
+        got = find_seam(e, width, tie=tie)
+        if routed == "tiled":
+            chk.equal("find_seam_tiled", f"{name} {tie} (routed)", got, want)
+        return got
+
     def energy_pair(x, n, center="carve"):
         return (dct_energy(x, n, edges, textures, center=center),
                 dct_energy(x, n, edges, textures, center=center,
@@ -1626,14 +1817,11 @@ def main() -> int:
                            (f"{H - 3}x{W - 7} energy", E_r, W - 7),
                            ("4K n=16 energy", E4, W4)):
         for tie in ("leftmost", "rightmost"):
-            chk.equal("find_seam", f"{name} {tie}",
-                      find_seam(e, width, tie=tie),
-                      find_seam(e, width, tie=tie, use_pallas=False))
+            seam_pair(name, e, width, tie)
     # 8K: the frontier (2 * 7680 f32) is past the 48 KB default of shared
-    # memory, so this takes the kernel's opt-in launch
+    # memory, so this takes find_seam.cu's opt-in launch
     E8 = on_card(rng.random((4320, 7680), dtype=np.float32))
-    chk.equal("find_seam", "4320x7680 random energy leftmost",
-              find_seam(E8, 7680), find_seam(E8, 7680, use_pallas=False))
+    seam_pair("4320x7680 random energy", E8, 7680, "leftmost")
     del E8
     # the edges of the chunked rows and of the windowed backtrack (64-row
     # windows of 129 columns): planes narrower than a window, seams along
@@ -1658,9 +1846,7 @@ def main() -> int:
             (6, w), dtype=np.float32)), w - 11))
     for name, e, width in edge_cases:
         for tie in TIES:
-            got = find_seam(e, width, tie=tie)
-            chk.equal("find_seam", f"{name} {tie}", got,
-                      find_seam(e, width, tie=tie, use_pallas=False))
+            got = seam_pair(name, e, width, tie)
             if "along" in name:
                 col = 0 if name.endswith("column 0") else e.shape[1] - 1
                 chk.require(bool((got == col).all()),
@@ -1716,7 +1902,7 @@ def main() -> int:
     time_kernel(times, "energy", lambda: dct_energy(luma, 8, edges, textures),
                 lambda: dct_energy(luma, 8, edges, textures,
                                    use_pallas=False), 20, 3)
-    time_kernel(times, "find_seam", lambda: find_seam(E, W),
+    time_kernel(times, "find_seam", lambda: one_cta(E, W),
                 lambda: find_seam(E, W, use_pallas=False), 20, 2)
     time_kernel(times, "apply",
                 lambda: apply_seam(luma, origcol, E, seam, W, out=outs),
@@ -1761,11 +1947,9 @@ def main() -> int:
     launches = kernels.launch_counts()
     log(f"  launches on the main path: {launches}")
     chk.require(launches["energy"] >= 1, "energy kernel launched")
-    chk.require(launches["find_seam_tiled"] == 0,
-                "no tiled find-seam launch at 1920 columns")
-    for name in ("find_seam", "apply", "strip"):
-        chk.require(launches[name] == SEAMS,
-                    f"{name} kernel launched {SEAMS} times")
+    want = {**dp_launches(1, W, SEAMS), "apply": SEAMS, "strip": SEAMS}
+    for name, n in want.items():
+        chk.require(launches[name] == n, f"{name} kernel launched {n} times")
 
     plain = api.carve(img, -SEAMS, use_pallas=False, **kw)
     for field in ("image", "visibility_map", "energy_image"):
@@ -1851,10 +2035,10 @@ def main() -> int:
         return 1
     # each kernel's launches on the main paths, each run counted from 0:
     # the wide carve of phase 1c, the single-image carve of phase 2, the
-    # batch carve of phase 3b, the plugged-energy carves of phase 4b
+    # batch carves of phases 3b and 3c, the plugged-energy carves of phase 4b
     # (grad_norm) and 4c (batch), and the spatial carves of phase 5b (8K
     # over 4 shards, small shards) and 5c (grad_norm)
-    runs = (wide_launches, launches, batch_launches, *energy_launches,
+    runs = (wide_launches, launches, *batch_launches, *energy_launches,
             *spatial_launches)
     rows = []
     for k in kernels.KERNELS:

@@ -5,8 +5,9 @@ one public function: a CUDA tensor with `use_pallas` goes to the kernel
 (built from `csrc/` at first use, see `build.py`), or raises; any other
 tensor goes to the plain version.  Each wrapper counts its launches on its
 module's `KERNEL`; `dp_kernel.find_seams`, the batch route's DP, counts on
-`dp_kernel.BATCH_KERNEL`, the tiled find-seam of rows wider than one block
-on `dp_kernel.TILED_KERNEL`, `strip_kernel`'s plugged-energy strip kernels
+`dp_kernel.BATCH_KERNEL`, the tiled find-seam (where `dp_kernel.seam_route`
+sends a shape; three launches a call) on `dp_kernel.TILED_KERNEL`,
+`strip_kernel`'s plugged-energy strip kernels
 on `GATHER_KERNEL`, `SCATTER_KERNEL` and `BAND_KERNEL`, and the spatial
 route's four on `spatial_kernel`'s records.  Every wrapper takes a (H, W)
 plane or a (B, H, W) stack, one launch for the whole stack (`band_energy`

@@ -44,9 +44,9 @@ SIGNATURES = {
     # stream
     "dc_find_seams": (_P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _P),
     # E, parents, seams, front, B, H, W, lo[B], width[B], lo0, width0,
-    # rightmost, Wt, K, stream
+    # rightmost, C, Wt, K, warps, max_warps, stream
     "dc_find_seams_tiled": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I,
-                            _I, _I, _P),
+                            _I, _I, _I, _I, _I, _P),
     # luma, origcol, energy, seam, luma', origcol', energy', B, H, W, width,
     # stream
     "dc_apply": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -194,11 +194,11 @@ def check_plane(name: str, t, dtype, device) -> None:
             f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
 
 
-def launch(kernel: Kernel, fn_name: str, *args) -> None:
-    """Call C entry point `fn_name`, raise on a launch error, and count the
-    launch on `kernel`."""
+def launch(kernel: Kernel, fn_name: str, *args, launches: int = 1) -> None:
+    """Call C entry point `fn_name`, raise on a launch error, and count on
+    `kernel` the `launches` (kernels and memsets) the entry point makes."""
     err = getattr(load(), fn_name)(*args)
     if err != 0:
         raise RuntimeError(
             f"{kernel.name} kernel ({fn_name}) failed with cudaError_t {err}")
-    kernel.launches += 1
+    kernel.launches += launches

@@ -5,12 +5,14 @@
 `find_seam` (one (H, W) plane) is the counterpart of
 `dct_carver_tpu/pallas/dp_kernel.py::find_seam_pallas`; `find_seams` (a
 (B, H, W) stack, one column window per image) of
-`dct_carver_tpu/pallas/batch_dp_kernel.py::find_seams_vec`.  Both launch
-the same C entry, a plane as a batch of one, and count their launches on
-their own records.  Rows wider than one thread block covers (`MAX_WIDTH`)
-go, from either, to the tiled kernel (the counterpart of the streamed
-route `dp_forward` + `dp_backtrack`), which counts one launch a call on
-`TILED_KERNEL`.
+`dct_carver_tpu/pallas/batch_dp_kernel.py::find_seams_vec`.  On a card
+both ask `seam_route(B, W)` which kernel serves the shape: `find_seam.cu`
+(one CTA an image, a plane as a batch of one) or the tiled kernel (one
+warp a column tile, the counterpart of the streamed route `dp_forward` +
+`dp_backtrack`), which every row wider than one thread block
+(`MAX_WIDTH`) takes.  Each counts on its own record the launches its C
+entry makes: `KERNEL` and `BATCH_KERNEL` one a call, `TILED_KERNEL` three
+(the frontier's memset, the forward, the finish; one for a one-row plane).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from ..ops.dp import (check_tie, find_seam as find_seam_plain,
                       find_seam_tiled, mask_energy)
 from .build import Kernel, check_plane, launch
 
-__all__ = ["find_seam", "find_seams", "KERNEL", "BATCH_KERNEL",
+__all__ = ["find_seam", "find_seams", "seam_route", "KERNEL", "BATCH_KERNEL",
            "TILED_KERNEL", "MAX_WIDTH"]
 
 KERNEL = Kernel(name="find_seam",
@@ -38,10 +40,60 @@ TILED_KERNEL = Kernel(name="find_seam_tiled",
 # one CTA covers a row of at most 1024 threads of 32 columns each
 # (csrc/dp_rows.cuh::chunk_for); wider rows take the tiled kernel
 MAX_WIDTH = 32768
-# the tiled kernel's rows a launch and owned columns a tile: the extended
-# row of TILE_W + 2 * TILE_K columns stays at 4 columns a thread
-TILE_K = 128
-TILE_W = 4096 - 2 * TILE_K
+# The tiled kernel's geometry: TILE_C columns a lane, so a warp-tile's
+# extended row of TILE_W owned columns and a halo of TILE_K (rounded up to
+# 4) columns a side fits 32 * TILE_C columns; TILE_K rows a block;
+# TILE_WARPS warp-tiles a CTA.  From chip_smoke.py's geometry sweep (phase
+# 1c) on an NVIDIA H100 80GB HBM3 at 700.00 W: (4, 64, 32) takes the least
+# device time summed over its shapes; one and four tiles a CTA are within
+# 3 % of each other there.  PERF.md §6 holds the table.
+TILE_C = 4
+TILE_K = 32
+TILE_W = 64
+TILE_WARPS = 1
+# seam_route's thresholds, from chip_smoke.py's width sweep (phase 1c) on
+# the same card.  One image: the tiled kernel beats find_seam.cu at every
+# width swept, ROUTE_MIN_WIDTH (64) to 32768 columns (narrower rows were not
+# measured).  A stack: at 1024, 1920 and 4096 columns it wins up to
+# ROUTE_MAX_BATCH (32) images and loses from 64 on, where its warps fill
+# the card and its halos cost more than find_seam.cu's barriers.  PERF.md
+# §6 holds the sweep, with the run it comes from.
+ROUTE_MIN_WIDTH = 64
+ROUTE_MAX_BATCH = 32
+
+
+def seam_route(B: int, W: int) -> str:
+    """The kernel that finds the seams of a (B, H, W) stack on a card:
+    "tiled" for rows wider than one thread block, and below that where the
+    tiled kernel's device time beats find_seam.cu's; else "find_seam"."""
+    if W > MAX_WIDTH:
+        return "tiled"
+    if W >= ROUTE_MIN_WIDTH and B <= ROUTE_MAX_BATCH:
+        return "tiled"
+    return "find_seam"
+
+
+def tile_halo(K: int) -> int:
+    """The tiled kernel's halo columns a side for K rows a block: K
+    rounded up to 4, so every tile starts on a 16-byte boundary."""
+    return (K + 3) // 4 * 4
+
+
+def check_tile_geometry(tile: int, K: int, chunk: int = TILE_C,
+                        warps: int = TILE_WARPS) -> None:
+    """Raise ValueError unless the tiled kernel runs this geometry: `tile`
+    owned columns (a multiple of 4), K >= 1 rows a block whose halo
+    (`tile_halo(K)`) reaches no further than the neighbouring tiles (halo
+    <= tile), an extended row of tile + 2 * halo within one warp's 32 *
+    `chunk` columns (chunk 4 or 8), and 1..8 warp-tiles a CTA."""
+    halo = tile_halo(K)
+    if chunk not in (4, 8) or tile < 4 or tile % 4 or K < 1 \
+            or halo > tile or tile + 2 * halo > 32 * chunk \
+            or not 1 <= warps <= 8:
+        raise ValueError(
+            f"tiled find_seam: tile={tile} (a multiple of 4), K={K} >= 1 "
+            f"(halo {halo} <= tile), chunk={chunk} (4 or 8) with tile + "
+            f"2 * halo <= 32 * chunk, and warps={warps} in 1..8")
 
 
 def parent_pitch(W: int) -> int:
@@ -68,14 +120,25 @@ def _pointer_args(width, lo, dev) -> tuple[list, list]:
 
 def _find_seams_cuda(kernel: Kernel, E: torch.Tensor, width, lo,
                      tie: str) -> torch.Tensor:
-    """(B, H, W) -> (B, H) seams in one launch, or through the tiled
-    kernel for W > MAX_WIDTH.  `width`/`lo` are ints shared by every image,
-    or (B,) int32 tensors on E's device."""
-    if E.shape[-1] > MAX_WIDTH:
+    """(B, H, W) -> (B, H) seams on the card, through the kernel that
+    `seam_route` picks (`kernel` is find_seam.cu's record to count on).
+    `width`/`lo` are ints shared by every image, or (B,) int32 tensors on
+    E's device."""
+    if seam_route(E.shape[0], E.shape[-1]) == "tiled":
         return _find_seams_tiled(E, width, lo, tie)
+    return _find_seams_one_cta(kernel, E, width, lo, tie)
+
+
+def _find_seams_one_cta(kernel: Kernel, E: torch.Tensor, width, lo,
+                        tie: str) -> torch.Tensor:
+    """(B, H, W) -> (B, H) seams through find_seam.cu, one launch, whatever
+    `seam_route` says (W <= MAX_WIDTH); counted on `kernel`."""
     dev = E.device
     check_plane("energy", E, torch.float32, dev)
     B, H, W = E.shape
+    if W > MAX_WIDTH:
+        raise ValueError(f"find_seam.cu takes rows of at most {MAX_WIDTH} "
+                         f"columns, got {W}")
     ptrs, scalars = _pointer_args(width, lo, dev)
     parents = torch.empty((B, H, parent_pitch(W)), dtype=torch.int8,
                           device=dev)
@@ -88,41 +151,49 @@ def _find_seams_cuda(kernel: Kernel, E: torch.Tensor, width, lo,
 
 
 def _find_seams_tiled(E: torch.Tensor, width, lo, tie: str, *,
-                      tile: int = TILE_W, K: int = TILE_K) -> torch.Tensor:
+                      tile: int = TILE_W, K: int = TILE_K,
+                      chunk: int = TILE_C, warps: int = TILE_WARPS,
+                      max_warps: int = 0) -> torch.Tensor:
     """(B, H, W) -> (B, H) int32 seams through the tiled kernel at any
-    width, `tile` owned columns a CTA and K rows a launch (`width`/`lo` as
-    `_find_seams_cuda`); on a CPU tensor its plain algorithm
-    (`ops/dp.py::find_seam_tiled`).  The carve sends only W > MAX_WIDTH
-    here; the tile and K are for tests and measurements."""
+    width (`width`/`lo` as `_find_seams_cuda`), with the geometry of
+    `check_tile_geometry`; on a CPU tensor its plain algorithm
+    (`ops/dp.py::find_seam_tiled`).  `max_warps` caps the warps launched
+    (0: as many as are resident), so that tests can force several tiles a
+    warp; the plain algorithm then groups the tiles as the kernel's warps
+    do.  The route picks the default geometry; the rest is for tests and
+    measurements."""
+    check_tile_geometry(tile, K, chunk, warps)
+    if max_warps < 0:
+        raise ValueError(f"max_warps must be >= 0, got {max_warps}")
+    B, H, W = E.shape
     if not E.is_cuda:
-        return find_seam_tiled(E, width, lo, tie, tile=tile,
-                               K=K).to(torch.int32)
+        group = -(-B * -(-W // tile) // max_warps) if max_warps else 1
+        return find_seam_tiled(E, width, lo, tie, tile=tile, K=K,
+                               group=group).to(torch.int32)
     dev = E.device
     check_plane("energy", E, torch.float32, dev)
-    B, H, W = E.shape
-    if tile < 4 or tile % 4 or K < 1 or tile + 2 * ((K + 3) // 4 * 4) \
-            > MAX_WIDTH:
-        raise ValueError(f"tiled find_seam: tile={tile} (a multiple of 4) "
-                         f"and K={K} must keep an extended row of tile + "
-                         f"2K within {MAX_WIDTH} columns")
     ptrs, scalars = _pointer_args(width, lo, dev)
     parents = torch.empty((B, H, parent_pitch(W)), dtype=torch.int8,
                           device=dev)
-    front = torch.empty((2, B, W), dtype=torch.float32, device=dev)
+    # the frontier: each block's last row as (value, block) cells
+    front = torch.empty((max(-(-(H - 1) // K), 1), B, W), dtype=torch.int64,
+                        device=dev)
     seams = torch.empty((B, H), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         launch(TILED_KERNEL, "dc_find_seams_tiled", E.data_ptr(),
-               parents.data_ptr(), seams.data_ptr(), front.data_ptr(), B, H,
-               W, *ptrs, *scalars, int(tie == "rightmost"), tile, K,
-               torch.cuda.current_stream().cuda_stream)
+               parents.data_ptr(), seams.data_ptr(), front.data_ptr(),
+               B, H, W, *ptrs, *scalars,
+               int(tie == "rightmost"), chunk, tile, K, warps, max_warps,
+               torch.cuda.current_stream().cuda_stream,
+               launches=3 if H > 1 else 1)
     return seams
 
 
 def find_seam(E: torch.Tensor, width: int, *, tie: str = "leftmost",
               use_pallas: bool = True) -> torch.Tensor:
     """Masked find-seam over the live columns [0, width): (H, W) energy ->
-    (H,) int32 seam.  A CUDA tensor with `use_pallas` goes to the kernel;
-    any other tensor to the plain version."""
+    (H,) int32 seam.  A CUDA tensor with `use_pallas` goes to the kernel
+    that `seam_route` picks; any other tensor to the plain version."""
     check_tie(tie)
     if E.ndim != 2:
         raise ValueError(f"energy must be (H, W), got {tuple(E.shape)}")
@@ -157,8 +228,9 @@ def find_seams(E: torch.Tensor, width, lo=0, *, tie: str = "leftmost",
     [lo_b, lo_b + width_b): (B, H, W) energy -> (B, H) int32 seams, the
     seam each image gets alone.  `width` and `lo` are ints shared by every
     image (the carve loop's case, which never waits for the device) or (B,)
-    int32 tensors.  A CUDA tensor with `use_pallas` goes to the kernel, one
-    launch for the batch; any other tensor to the plain version."""
+    int32 tensors.  A CUDA tensor with `use_pallas` goes to the kernel that
+    `seam_route` picks, one call for the batch; any other tensor to the
+    plain version."""
     check_tie(tie)
     if E.ndim != 3:
         raise ValueError(f"energy must be (B, H, W), got {tuple(E.shape)}")

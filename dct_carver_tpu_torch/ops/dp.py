@@ -160,7 +160,8 @@ def backtrack_windowed(P: torch.Tensor, last: torch.Tensor, K: int = 64,
 
 
 def find_seam_tiled(E: torch.Tensor, width, lo=0, tie: str = "leftmost", *,
-                    tile: int = 3840, K: int = 128) -> torch.Tensor:
+                    tile: int = 64, K: int = 32,
+                    group: int = 1) -> torch.Tensor:
     """The tiled find-seam kernel's algorithm (`csrc/find_seam_tiled.cu`):
     (..., H, W) energy, masked to the column window [lo, lo + width) (ints,
     or (B,) tensors for a stack), -> (..., H) int32 seams.
@@ -168,38 +169,45 @@ def find_seam_tiled(E: torch.Tensor, width, lo=0, tie: str = "leftmost", *,
     The row is cut into tiles of `tile` owned columns, each computed over
     an extended row with Hh = K rounded up to 4 halo columns a side (+inf
     outside [0, W)), K rows at a time from a frontier that holds the last
-    DP row of the K rows before (ping-pong in the kernel).  Each tile keeps
+    DP row of the K rows before (one slice a block in the kernel).  Each
+    tile keeps
     the parents and the last row of its owned columns only; the owned
     values are exact because a value |dc| columns from the extended row's
-    ends is exact for |dc| rows.  Then `backtrack_windowed`.  It gives
-    `find_seam`'s seams, and is here to hold the kernel's algorithm to
-    them.  The defaults are the kernel's (`kernels/dp_kernel.py`'s TILE_W
-    and TILE_K)."""
+    ends is exact for |dc| rows.  The kernel's warps each take `group`
+    adjacent tiles, block by block; the tiles' order within a block does
+    not change a value, so here `group` only nests the loop.  Then
+    `backtrack_windowed`.  It gives `find_seam`'s seams, and is here to
+    hold the kernel's algorithm to them.  The defaults are the kernel's
+    (`kernels/dp_kernel.py`'s TILE_W and TILE_K)."""
     check_tie(tie)
-    if tile < 4 or tile % 4 or K < 1:
-        raise ValueError(f"tile must be a positive multiple of 4 and K >= 1, "
-                         f"got tile={tile}, K={K}")
+    if tile < 4 or tile % 4 or K < 1 or group < 1:
+        raise ValueError(f"tile must be a positive multiple of 4, K >= 1 "
+                         f"and group >= 1, got tile={tile}, K={K}, "
+                         f"group={group}")
     H, W = E.shape[-2:]
     Hh = (K + 3) // 4 * 4
     masked = mask_energy(E, width, lo)
     inf = torch.tensor(math.inf, dtype=E.dtype, device=E.device)
     P = torch.zeros(masked.shape, dtype=torch.int8, device=E.device)
     front = masked[..., 0, :]
+    starts = range(0, W, tile)
     for r0 in range(0, H - 1, K):
         N = min(K, H - 1 - r0)
         rows = torch.cat([front[..., None, :], masked[..., r0 + 1:r0 + N + 1, :]],
                          dim=-2)
         nxt = torch.empty_like(front)
-        for g0 in range(0, W, tile):
-            cols = torch.arange(g0 - Hh, g0 + tile + Hh, device=E.device)
-            inside = (cols >= 0) & (cols < W)
-            ext = torch.where(inside, rows[..., cols.clamp(0, W - 1)], inf)
-            M = cumulative_energy(ext)
-            par = parent_directions(M, tie)
-            g1 = min(g0 + tile, W)
-            own = slice(Hh, Hh + g1 - g0)
-            P[..., r0 + 1:r0 + N + 1, g0:g1] = par[..., 1:, own]
-            nxt[..., g0:g1] = M[..., -1, own]
+        for w0 in range(0, len(starts), group):
+            for g0 in starts[w0:w0 + group]:
+                cols = torch.arange(g0 - Hh, g0 + tile + Hh, device=E.device)
+                inside = (cols >= 0) & (cols < W)
+                ext = torch.where(inside, rows[..., cols.clamp(0, W - 1)],
+                                  inf)
+                M = cumulative_energy(ext)
+                par = parent_directions(M, tie)
+                g1 = min(g0 + tile, W)
+                own = slice(Hh, Hh + g1 - g0)
+                P[..., r0 + 1:r0 + N + 1, g0:g1] = par[..., 1:, own]
+                nxt[..., g0:g1] = M[..., -1, own]
         front = nxt
     return backtrack_windowed(P, front, tie=tie)
 

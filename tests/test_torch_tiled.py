@@ -1,12 +1,16 @@
 """The tiled find-seam (plain PyTorch, CPU) against the JAX package.
 
-`csrc/find_seam_tiled.cu` cuts rows wider than one thread block over
-column tiles with halos and runs K DP rows a launch from a ping-pong
-frontier.  `ops/dp.py::find_seam_tiled` is that algorithm in plain
-PyTorch; it must give the seams of the JAX scan DP and of the Pallas
-kernels (interpret mode), bit for bit, with small tiles, on ragged last
-tiles, in column windows, along tile edges and borders, and per image of
-a stack.
+`csrc/find_seam_tiled.cu` cuts rows over column tiles with halos, one
+warp a tile, and runs K DP rows a block from a frontier that holds each
+block's last row, all blocks in one launch; a warp may take several
+adjacent tiles.
+`ops/dp.py::find_seam_tiled` is that algorithm in plain PyTorch; it must
+give the seams of the JAX scan DP and of the Pallas kernels (interpret
+mode), bit for bit, with small tiles and tiles of one warp's width, on
+ragged last tiles, with K not dividing H and halos as wide as the tiles,
+in column windows, along tile edges and borders, per image of a stack and
+with the tiles grouped as the kernel's warps take them.  `seam_route`
+and the kernel's geometry check are held here too.
 """
 
 import numpy as np
@@ -20,9 +24,9 @@ from dct_carver_tpu.pallas.batch_dp_kernel import find_seams_vec
 from dct_carver_tpu.pallas.dp_kernel import find_seam_pallas
 from dct_carver_tpu_torch import kernels
 from dct_carver_tpu_torch.kernels import dp_kernel
-from dct_carver_tpu_torch.kernels.dp_kernel import (MAX_WIDTH, TILE_K,
-                                                    TILE_W, _find_seams_tiled,
-                                                    find_seam, find_seams)
+from dct_carver_tpu_torch.kernels.dp_kernel import (
+    MAX_WIDTH, TILE_C, TILE_K, TILE_W, TILE_WARPS, _find_seams_tiled,
+    check_tile_geometry, find_seam, find_seams, seam_route, tile_halo)
 from dct_carver_tpu_torch.ops import dp as tdp
 
 H = 24
@@ -132,8 +136,11 @@ def test_tiled_record_and_default_tile():
     assert dp_kernel.TILED_KERNEL in kernels.KERNELS
     assert dp_kernel.TILED_KERNEL.replaces == \
         "dct_carver_tpu/pallas/dp_kernel.py:124,184"
-    # the default extended row stays at 4 columns a thread (<= 4096)
-    assert TILE_W % 4 == 0 and TILE_W + 2 * TILE_K == 4096
+    # the default extended row fits one warp of TILE_C columns a lane, and
+    # its halo reaches only the neighbouring tiles
+    check_tile_geometry(TILE_W, TILE_K, TILE_C, TILE_WARPS)
+    assert TILE_W + 2 * tile_halo(TILE_K) <= 32 * TILE_C
+    assert TILE_K <= tile_halo(TILE_K) <= TILE_W
 
 
 @pytest.mark.parametrize("tile,K", [(6, 4), (0, 4), (48, 0)])
@@ -141,3 +148,95 @@ def test_tiled_rejects_bad_tiles(tile, K):
     E = torch.zeros((1, 4, 64))
     with pytest.raises(ValueError):
         _find_seams_tiled(E, 64, 0, "leftmost", tile=tile, K=K)
+
+
+# the kernel's geometries (tile, K, chunk): extended rows of one warp's
+# width (C = 4: 128 columns; C = 8: 256) and one narrower (32 + 2 * 32 of
+# 128), on H = 40 rows, so K = 16, 32 and 64 do not divide the 39 DP rows
+# (K = 80: one block taller than the plane); (32, 32, 4) and (96, 80, 8)
+# have a halo as wide as the owned tile
+WARP_GEOMETRIES = [(64, 32, 4), (96, 16, 4), (32, 32, 4), (192, 32, 8),
+                   (128, 64, 8), (96, 80, 8)]
+
+
+# [70, 220) cuts a tile at both ends for every geometry above
+@pytest.mark.parametrize("lo,width", [(0, 256), (70, 150)])
+@pytest.mark.parametrize("tile,K,chunk", WARP_GEOMETRIES)
+@pytest.mark.parametrize("tie", TIES)
+def test_warp_tiles_equal_pallas_and_scan(tie, tile, K, chunk, lo, width):
+    check_tile_geometry(tile, K, chunk)
+    E = _energy("tie-heavy", (40, 256), 21)
+    got = _find_seams_tiled(torch.from_numpy(E)[None], width, lo, tie,
+                            tile=tile, K=K, chunk=chunk)[0].numpy()
+    np.testing.assert_array_equal(got, np.asarray(find_seam_pallas(
+        jnp.asarray(E), width, lo, interpret=True, tie=tie)))
+    np.testing.assert_array_equal(got, _scan(E, width, lo, tie))
+
+
+# max_warps caps the kernel's warps: 1, 3 and 7 warps for the 4 x 4 tiles
+# give runs of 16, 6 and 3 tiles (several images a run); 0 one tile a warp
+@pytest.mark.parametrize("max_warps", [0, 1, 3, 7])
+@pytest.mark.parametrize("tie", TIES)
+def test_warp_tiles_grouped_per_image_windows(tie, max_warps):
+    B, Hb, Wb = 4, 40, 256
+    E = _energy("tie-heavy", (B, Hb, Wb), 22)
+    width = np.array([Wb, 150, 3, 61], np.int32)
+    lo = np.array([0, 70, 253, 64], np.int32)
+    got = _find_seams_tiled(torch.from_numpy(E), torch.from_numpy(width),
+                            torch.from_numpy(lo), tie, tile=64, K=32,
+                            chunk=4, max_warps=max_warps)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(find_seams_vec(
+        jnp.asarray(E), jnp.asarray(width), jnp.asarray(lo), interpret=True,
+        tie=tie)))
+
+
+@pytest.mark.parametrize("group", [1, 2, 5])
+@pytest.mark.parametrize("tie", TIES)
+def test_tile_grouping_is_a_no_op(tie, group):
+    E = _energy("random", (2, 40, 300), 23)
+    want = _tiled(E, 290, 5, tie, 64, 32)
+    np.testing.assert_array_equal(tdp.find_seam_tiled(
+        torch.from_numpy(E), 290, 5, tie, tile=64, K=32,
+        group=group).numpy(), want)
+    np.testing.assert_array_equal(want, np.stack(
+        [_scan(e, 290, 5, tie) for e in E]))
+
+
+@pytest.mark.parametrize("tile,K,chunk", [(8, 12, 4), (28, 32, 8),
+                                          (32, 33, 8)])
+def test_geometry_rejects_a_halo_wider_than_the_tile(tile, K, chunk):
+    # each fits the warp's 32 * chunk columns: only the halo rule refuses
+    assert tile_halo(K) > tile and tile + 2 * tile_halo(K) <= 32 * chunk
+    with pytest.raises(ValueError):
+        check_tile_geometry(tile, K, chunk)
+    with pytest.raises(ValueError):
+        _find_seams_tiled(torch.zeros((1, 4, 64)), 64, 0, "leftmost",
+                          tile=tile, K=K, chunk=chunk)
+
+
+@pytest.mark.parametrize("tile,K,chunk,warps", [(128, 4, 4, 4),
+                                                (64, 32, 16, 4),
+                                                (64, 32, 4, 0),
+                                                (64, 32, 4, 9)])
+def test_geometry_rejects_what_no_warp_runs(tile, K, chunk, warps):
+    # an extended row wider than a warp, a chunk the kernel lacks, and CTAs
+    # of no warp or more than 8
+    with pytest.raises(ValueError):
+        check_tile_geometry(tile, K, chunk, warps)
+
+
+# seam_route: rows wider than one thread block always take the tiled
+# kernel; below, one image of 64 columns or more and stacks of up to 32
+# images do (chip_smoke.py's width sweep), the rest find_seam.cu
+@pytest.mark.parametrize("B,W,want", [
+    (1, 1, "find_seam"), (1, 63, "find_seam"), (1, 64, "tiled"),
+    (1, 1920, "tiled"), (1, 7680, "tiled"), (1, MAX_WIDTH - 1, "tiled"),
+    (1, MAX_WIDTH, "tiled"), (1, MAX_WIDTH + 1, "tiled"),
+    (1, 40000, "tiled"), (8, 1024, "tiled"), (32, 1024, "tiled"),
+    (32, 4096, "tiled"), (33, 1024, "find_seam"), (64, 1024, "find_seam"),
+    (64, 1920, "find_seam"), (256, 1024, "find_seam"),
+    (256, MAX_WIDTH, "find_seam"), (256, MAX_WIDTH + 1, "tiled"),
+    (32, 63, "find_seam"),
+])
+def test_seam_route(B, W, want):
+    assert seam_route(B, W) == want
