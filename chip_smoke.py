@@ -20,21 +20,29 @@ launch counters read around it against the plain path, and holds the
 apply at 65536 rows.  Every find-seam launch count is checked against the
 kernel `seam_route` picks for the shape, and find_seam.cu is held and
 timed through its C entry whatever the route says.  Phase 2 runs the main path
-through the public API: a 64-seam removal from a 1080x1920 RGB image with
-the launch counters read around it, compared element for element with the
-plain path on the card and with the CPU on a small image; then a
-bidirectional 4K resize at n=16.  Phase 3 runs the batch route (BASELINE
+through the public API: a 64-seam removal from a 1080x1920 RGB image, twice
+(the first carve of the shape runs its first seam eagerly and captures the
+seam step's CUDA graphs, the second replays them every seam), with the
+launch counters and the graph replays read around each, compared element
+for element with the plain path on the card, the graphed carve's luma,
+vmap and energy with the eager kernel carve's and the plain path's, and
+the carve on the card with the CPU on a small image; then a bidirectional
+4K resize at n=16.  Phase 3 runs the batch route (BASELINE
 config 4's images): the batched kernels against their plain versions on 8
 1024x1024 planes, a 128-seam `api.carve(parallel="batch")` of 8 RGB images
 with the launch counters read around it, compared with the plain path and
 with the single-image route, and a timed, profiled `carve_batch` of 256
-such images, then the energy and strip kernels timed at that shape.  Phase 4 runs the plugged energies: 4a holds the strip gather,
+such images (graph replays counted, the graphed carve against the eager
+kernel carve and, for 4 seams on 8 of its images, the plain path), then
+the energy and strip kernels timed at that shape.  Phase 4 runs the plugged energies: 4a holds the strip gather,
 strip scatter and band-energy kernels against their plain versions (1080p
 and B=8 1024x1024) and gather -> band energy -> scatter against strip.cu;
 4b carves 64 seams from the 1080p RGB image with each builtin gradient
-energy and a radius-2 custom one, with the launch counters read around it,
-against the plain path; 4c carves 8 1024x1024 images with grad_norm on the
-batch route against the single-image route; 4d drives the CLI in-process
+energy and a radius-2 custom one, with the launch counters and graph
+replays read around it, against the plain path (grad_norm's graphed carve
+also against the eager kernel carve), and times the strip gather and
+scatter inside the graphed carve; 4c carves 8 1024x1024 images with
+grad_norm on the batch route against the single-image route; 4d drives the CLI in-process
 (carve with checkpoints and progress, a resume from the 32-seam checkpoint,
 energy, batch).  Phase 5 runs the spatial route (BASELINE config 5) with
 four column shards on the one card: 5a holds the block DP (the parts form
@@ -91,6 +99,7 @@ NB, HB, WB = 8, 1024, 1024  # phase 3: BASELINE config 4's image size
 SEAMS_B = 128              # config 4's seam count
 # the timed batch, cut from config 4's 1024 images to bound the smoke's time
 NB_TIMED = 256
+PLAIN_SEAMS_B = 4          # phase 3c: seams of the plain comparison
 TIES = ("leftmost", "rightmost")
 ENERGIES = ("grad_xabs", "grad_sumabs", "grad_norm")  # phase 4: the builtins
 PLAIN_SEAMS_E = 16         # phase 4b: seams of the plain comparison carves
@@ -103,6 +112,7 @@ SEAMS_8K = 64
 PLAIN_SEAMS_8K = 4         # the plain spatial path is ~0.3 s a seam at 8K
 SEAMS_5C = 16              # phase 5c: 1080p carves on the spatial route
 TIMED_PAIRS_8K = 3         # phase 5b: spatial and single-device 8K carves
+CAPTURE_SAMPLES = 30      # phase 2: first carves timed for their capture
 CHUNKED_SEAMS_8K = 16      # phase 5b: the chunked 8K carve and the counts
 # under replay
 # phase 1c: rows wider than one thread block (MAX_WIDTH) and planes taller
@@ -278,27 +288,383 @@ def time_library(name: str, fn, reps: int = 50) -> None:
     LIBRARY_DEVICE[name] = device_ms(fn, reps)
 
 
-def device_profile(fn, top: int = 8):
+def device_profile(fn, top: int = 8, host: bool = True,
+                   gaps: str | None = None):
     """Run fn() once warm under torch.profiler: (wall seconds, device
     microseconds summed over kernels, the `top` kernels by device time as
     (name, us, count)).  The rows of torch's own ops ("aten::...") repeat
-    the device time of the kernels they launched, so they are left out."""
+    the device time of the kernels they launched, so they are left out.
+    `host`: trace the host's ops too (their recording slows the host);
+    else the device alone.  `gaps`: log where the device idled in the
+    trace, under this name (`log_gaps`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
+        with torch.profiler.record_function(WINDOW):
+            fn()
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t
     rows = [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages()
-            if e.self_device_time_total > 0 and not e.key.startswith("aten::")]
+            if e.self_device_time_total > 0 and not e.key.startswith("aten::")
+            and e.key != WINDOW]
     rows.sort(key=lambda r: -r[1])
-    return wall, sum(r[1] for r in rows), rows[:top]
+    if gaps is not None:
+        log_gaps(prof, gaps, wall)
+    return wall, sum(r[1] for r in rows), rows[:top], busy_union(prof)
+
+
+# the host's range around a profiled call (`device_profile`); the profiler
+# also gives it a device span over the kernels it launched, which is no
+# device work and is left out of every device sum
+WINDOW = "timed window"
+
+
+def busy_union(prof) -> float:
+    """Microseconds in which the device ran at least one kernel, memset or
+    copy of a profile: the union of their intervals, which kernels that
+    overlap (a graph's branches) do not count twice."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and e.name != WINDOW)
+    total, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def log_gaps(prof, what: str, wall: float, top: int = 5) -> None:
+    """Where the device idled in a profile: the time between the first
+    device interval and the last that no kernel, memset or copy covers,
+    the gaps by the kernels on either side, and the longest gaps."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and e.name != WINDOW)
+    if not spans:
+        return
+    found, end, before = [], spans[0][1], spans[0][2]
+    for a, b, name in spans[1:]:
+        if a > end:
+            found.append((a - end, before[:40], name[:40]))
+        if b > end:
+            end, before = b, name
+    by_pair = Counter()
+    for us, a, b in found:
+        by_pair[(a, b)] += us
+    span_us = end - spans[0][0]
+    idle = sum(g[0] for g in found)
+    window = [e.time_range for e in prof.events()
+              if e.name == WINDOW and e.device_type == DeviceType.CPU]
+    edges = "" if not window else (
+        f": {(spans[0][0] - window[0].start) / 1e3!r} ms from the window's "
+        f"start to the first device interval, "
+        f"{(window[0].end - end) / 1e3!r} ms from the last to its end")
+    log(f"  {what}: device span {span_us / 1e3!r} ms of the {wall * 1e3!r} "
+        f"ms wall, {idle / 1e3!r} ms idle inside it in {len(found)} gaps "
+        f"(outside it: {wall * 1e3 - span_us / 1e3!r} ms{edges})")
+    for (a, b), us in by_pair.most_common(top):
+        log(f"    idle {us / 1e3:9.4f} ms between {a} -> {b}")
+    for us, a, b in sorted(found, reverse=True)[:top]:
+        log(f"    gap {us:9.2f} us: {a} -> {b}")
+
+
+def event_busy(run, device) -> dict:
+    """One unprofiled run of run(), a carve whose seams are graph replays,
+    with CUDA events before and after every replay and around the whole
+    call: the host wall, the device span between the first and the last
+    event, the replays' device time, and the idle time between replays
+    (the device waiting for the host's next replay).  The share of the
+    wall the device was busy is (span - idle between replays) / wall: the
+    eager work before the first replay counts as busy, so it bounds the
+    share from above by that work's own gaps."""
+    import torch
+
+    from dct_carver_tpu_torch.utils import graphs
+
+    marks = []
+    replay = graphs.StepGraphs.replay
+
+    def timed(self, src):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        replay(self, src)
+        b.record()
+        marks.append((a, b))
+
+    first = torch.cuda.Event(enable_timing=True)
+    last = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(device)
+    graphs.StepGraphs.replay = timed
+    try:
+        with torch.cuda.device(device):
+            t = time.perf_counter()
+            first.record()
+            run()
+            last.record()
+            torch.cuda.synchronize(device)
+            wall = time.perf_counter() - t
+    finally:
+        graphs.StepGraphs.replay = replay
+    span = first.elapsed_time(last)
+    in_replays = sum(a.elapsed_time(b) for a, b in marks)
+    between = sum(b.elapsed_time(a2) for (_, b), (a2, _) in
+                  zip(marks, marks[1:]))
+    return {"wall_ms": wall * 1e3, "span_ms": span, "replays": len(marks),
+            "replay_ms": in_replays, "idle_between_replays_ms": between,
+            "before_first_replay_ms": first.elapsed_time(marks[0][0])
+            if marks else span,
+            "busy_pct": 100 * (span - between) / (wall * 1e3)}
+
+
+def log_event_busy(what: str, run, device, card: str,
+                   repeats: int = 3) -> None:
+    for _ in range(repeats):
+        e = event_busy(run, device)
+        log(f"  {what}, unprofiled with CUDA events: wall {e['wall_ms']!r} "
+            f"ms, device span {e['span_ms']!r} ms, {e['replays']} replays "
+            f"{e['replay_ms']!r} ms, idle between replays "
+            f"{e['idle_between_replays_ms']!r} ms, before the first replay "
+            f"{e['before_first_replay_ms']!r} ms; busy {e['busy_pct']!r} % "
+            f"of the wall ({card})")
+
+
+def capture_costs(luma, samples: int, card: str) -> None:
+    """Host time of the capture in the first carve of a shape, `samples`
+    times over, each after clear_step_cache(): its wall and process CPU
+    time (all threads; a wait that spins counts as CPU), split into the
+    wait for the device before it, capture_begin, the step's host work
+    under capture (both directions) and capture_end (which instantiates
+    the graph), with Python's garbage-collection pauses beside them."""
+    import gc
+
+    import torch
+
+    from dct_carver_tpu_torch.ops import carve as ops
+    from dct_carver_tpu_torch.utils import graphs
+
+    parts, inside = {}, [False]
+
+    def timing(obj, name, key):
+        fn = getattr(obj, name)
+
+        def timed(*args, **kwargs):
+            if not inside[0]:
+                return fn(*args, **kwargs)
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                parts[key] = parts.get(key, 0.0) + time.perf_counter() - t
+        return fn, timed
+
+    gc_t = [0.0, None]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_t[1] = time.perf_counter()
+        elif gc_t[1] is not None:
+            gc_t[0] += time.perf_counter() - gc_t[1]
+            gc_t[1] = None
+
+    capture = graphs.StepGraphs.capture
+
+    def cap(self, step, sources):
+        c = time.process_time()
+        t = time.perf_counter()
+        inside[0] = True
+        try:
+            return capture(self, step, sources)
+        finally:
+            inside[0] = False
+            parts["capture"] = time.perf_counter() - t
+            parts["capture_cpu"] = time.process_time() - c
+
+    patched = [(torch.cuda, "synchronize", "sync"),
+               (torch.cuda.CUDAGraph, "capture_begin", "begin"),
+               (ops.SeamSteps, "_step", "step"),
+               (torch.cuda.CUDAGraph, "capture_end", "end")]
+    saved = [timing(*p) for p in patched]
+    rows = []
+    gc.callbacks.append(on_gc)
+    graphs.StepGraphs.capture = cap
+    for (o, n, _), (_, timed) in zip(patched, saved):
+        setattr(o, n, timed)
+    try:
+        for _ in range(samples):
+            ops.clear_step_cache()
+            torch.cuda.synchronize()
+            parts.clear()
+            gc_t[0] = 0.0
+            t = time.perf_counter()
+            ops.carve_n_seams(luma, SEAMS, 8, 0.0, 1.0)
+            torch.cuda.synchronize()
+            rows.append({"carve": time.perf_counter() - t, "gc": gc_t[0],
+                         **parts})
+    finally:
+        graphs.StepGraphs.capture = capture
+        for (o, n, _), (fn, _) in zip(patched, saved):
+            setattr(o, n, fn)
+        gc.callbacks.remove(on_gc)
+    caps = sorted(r["capture"] * 1e3 for r in rows)
+    log(f"  capture of the headline step, {samples} first carves each "
+        f"after clear_step_cache(): capture ms min {caps[0]!r}, median "
+        f"{caps[len(caps) // 2]!r}, max {caps[-1]!r}; "
+        f"{sum(c > 50 for c in caps)} over 50 ms ({card})")
+    for r in sorted(rows, key=lambda r: -r["capture"])[:3] + [
+            sorted(rows, key=lambda r: r["capture"])[len(rows) // 2]]:
+        log("    capture parts: " + ", ".join(
+            f"{k} {v * 1e3:.3f} ms" for k, v in r.items()))
+
+
+def other_card(chk, card: str) -> None:
+    """A carve on the second card while the first is current: the single
+    image route (the first carve's eager seam and capture, then a carve
+    that replays every seam) and carve_batch split over both cards, each
+    against the plain path on its card."""
+    import torch
+
+    from dct_carver_tpu_torch.ops.carve import carve_n_seams, clear_step_cache
+    from dct_carver_tpu_torch.ops.energy import to_luma
+    from dct_carver_tpu_torch.parallel.mesh import carve_batch
+
+    if torch.cuda.device_count() < 2:
+        log("  one card: the carve on a card other than the current one "
+            "needs a second card and is not run")
+        return
+    rng = np.random.default_rng(SEED + 1)
+    dev = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    clear_step_cache()
+    for run in ("first", "warm"):
+        img = torch.from_numpy(rng.integers(0, 256, (H, W, 3),
+                                            dtype=np.uint8)).to(dev)
+        x = to_luma(img)
+        got = carve_n_seams(x, SEAMS, 8, 0.0, 1.0)
+        chk.require(torch.cuda.current_device() == 0,
+                    "the first card stays current")
+        hold_graphed(chk, f"{run} carve on cuda:1 while cuda:0 is current",
+                     got, eager_kernel_carve(x, SEAMS, 8, 0.0, 1.0),
+                     carve_n_seams(x, SEAMS, 8, 0.0, 1.0, use_pallas=False))
+    imgs = rng.integers(0, 256, (4, 256, 512, 3), dtype=np.uint8)
+    got, vm = carve_batch(imgs, 16, devices=["cuda:0", "cuda:1"])
+    want, wvm = carve_batch(imgs, 16, devices=["cuda:0", "cuda:1"],
+                            use_pallas=False)
+    chk.equal("carve", "carve_batch over cuda:0 and cuda:1, images", got,
+              want)
+    chk.equal("carve", "carve_batch over cuda:0 and cuda:1, vmaps", vm, wvm)
+    torch.cuda.synchronize(dev)
+    log(f"  carves on cuda:1 with cuda:0 current checked ({card})")
+
+
+def eager_kernel_carve(luma, n_seams: int, blocksize: int, edges, textures,
+                       energy_fn=None):
+    """The kernel path's carve as it ran before the seam step was graphed:
+    a Python int width and label, each stage through its public wrapper,
+    one launch each.  Returns (luma, vmap, energy) after `n_seams`."""
+    import torch
+
+    from dct_carver_tpu_torch.kernels.apply_kernel import apply_seam
+    from dct_carver_tpu_torch.kernels.dp_kernel import find_seam, find_seams
+    from dct_carver_tpu_torch.kernels.strip_kernel import strip_update
+    from dct_carver_tpu_torch.ops import carve as ops
+
+    W = luma.shape[-1]
+    state = ops.make_state(luma.clone())
+    energy = ops.full_energy_map(state.luma, blocksize, edges, textures,
+                                 energy_fn=energy_fn)
+    strip = ops.strip_fits(W, blocksize, 1, energy_fn)
+    lum, origcol, vmap, width = state.luma, state.origcol, state.vmap, W
+    for k in range(1, n_seams + 1):
+        find = find_seams if energy.ndim == 3 else find_seam
+        seam = find(energy, width)
+        orig = origcol.gather(-1, seam[..., None].to(torch.int64))
+        vmap.scatter_(-1, orig.to(torch.int64), k)
+        lum, origcol, energy = apply_seam(lum, origcol, energy, seam, width)
+        width -= 1
+        if not strip:
+            energy = ops.full_energy_map(lum, blocksize, edges, textures,
+                                         energy_fn=energy_fn)
+        elif energy_fn is not None:
+            ops._update_strip_fn(lum, energy, seam, energy_fn, 1, True)
+        else:
+            strip_update(lum, energy, seam, blocksize, edges, textures)
+    return lum, vmap, energy
+
+
+def hold_graphed(chk: Checks, case: str, graphed, eager, plain=None) -> None:
+    """The graphed carve's (luma, vmap, energy) against the eager kernel
+    carve's and, where given, the plain path's, element for element (the
+    energy on the live columns against the plain path, whose dead columns
+    are not compacted the same way)."""
+    live = graphed.width
+    for part, g, e in zip(("luma", "vmap", "energy"),
+                          (graphed.luma, graphed.vmap, graphed.energy),
+                          eager):
+        chk.equal("carve", f"{case} graphed == eager kernels, {part}", g, e)
+    if plain is not None:
+        chk.equal("carve", f"{case} graphed == plain, vmap", graphed.vmap,
+                  plain.vmap)
+        chk.equal("carve", f"{case} graphed == plain, luma", graphed.luma,
+                  plain.luma)
+        chk.equal("carve", f"{case} graphed == plain, live energy",
+                  graphed.energy[..., :live].contiguous(),
+                  plain.energy[..., :live].contiguous())
+
+
+def kernel_floor(card: str) -> dict:
+    """The floor of a kernel's device time on this card: strip_gather on
+    the smallest band it takes (one row, n = 2: 18 threads), back to back
+    and as nodes of a replayed graph, each measured as the kernels' own
+    device times are (`device_ms`).  Its launch counts are put back."""
+    import torch
+
+    from dct_carver_tpu_torch import kernels
+    from dct_carver_tpu_torch.kernels.strip_kernel import strip_gather
+
+    counts = kernels.launch_counts()
+    luma = torch.zeros((1, 8), dtype=torch.float32, device="cuda")
+    seam = torch.zeros((1,), dtype=torch.int32, device="cuda")
+
+    def tiny():
+        return strip_gather(luma, seam, 2)
+
+    tiny()
+    nodes = 64
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        try:
+            for _ in range(nodes):
+                tiny()
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    floor = {"back_to_back": device_ms(tiny, 200),
+             "in_graph": device_ms(graph.replay, 20) / nodes}
+    for k in kernels.KERNELS:
+        k.launches = counts[k.name]
+    log(f"  kernel floor (strip_gather of one 2 x 9 band): back to back "
+        f"{floor['back_to_back']!r} ms, in a graph {floor['in_graph']!r} ms "
+        f"a node ({card})")
+    return floor
 
 
 def phase_1b(dev, chk: Checks, card: str, rng) -> None:
@@ -581,8 +947,10 @@ def phase_3(dev, chk: Checks, card: str, rng, times: dict) -> list:
         BATCH_KERNEL, _find_seams_one_cta, find_seams, seam_route)
     from dct_carver_tpu_torch.kernels.energy_kernel import dct_energy
     from dct_carver_tpu_torch.kernels.strip_kernel import strip_update
+    from dct_carver_tpu_torch.ops.carve import carve_n_seams, clear_step_cache
     from dct_carver_tpu_torch.ops.energy import to_luma
     from dct_carver_tpu_torch.parallel.mesh import carve_batch
+    from dct_carver_tpu_torch.utils.graphs import CAPTURES
 
     edges, textures = 0.3, 0.7
 
@@ -727,13 +1095,24 @@ def phase_3(dev, chk: Checks, card: str, rng, times: dict) -> list:
     def run():
         return carve_batch(big, SEAMS_B, devices=[dev])
 
+    # the smaller carves' cached steps would count in the peak memory; this
+    # batch's sets pass CACHE_MAX_BYTES, so each carve captures its own
+    clear_step_cache()
     run()
     torch.cuda.synchronize()
     kernels.reset_launches()
-    run()
-    torch.cuda.synchronize()
+    captures = dict(CAPTURES)
+    with count_replays() as replays:
+        run()
+        torch.cuda.synchronize()
     big_launches = kernels.launch_counts()
     log(f"  launches on carve_batch of {NB_TIMED}: {big_launches}")
+    chk.require(replays[0] == SEAMS_B - 1,
+                f"carve_batch B={NB_TIMED}: {replays[0]} graph replays for "
+                f"{SEAMS_B} seams (the first seam eager)")
+    log(f"  carve_batch B={NB_TIMED}: {replays[0]} replays, "
+        f"{CAPTURES['graphs'] - captures['graphs']} graphs captured in "
+        f"{(CAPTURES['seconds'] - captures['seconds']) * 1e3!r} ms ({card})")
     want = {**dp_launches(NB_TIMED, WB, SEAMS_B, plane=False),
             "apply": SEAMS_B, "strip": SEAMS_B}
     for name, n in want.items():
@@ -757,8 +1136,23 @@ def phase_3(dev, chk: Checks, card: str, rng, times: dict) -> list:
         f"{px / min(secs) / 1e6!r} Mpix/s; peak device memory {peak} bytes "
         f"({peak / NB_TIMED / 2**20!r} MiB an image; {card})")
     del out, vmaps
-    # the energy and the strip at the batch shape, rows of their own
+    # the graphed batch carve against the eager kernel carve, and its first
+    # seams against the plain path on the first images (each image is
+    # carved alone: the plain path's memory grows with the batch)
     lumas = to_luma(big, stack=True)
+    graphed = carve_n_seams(lumas, SEAMS_B, 8, 0.0, 1.0)
+    hold_graphed(chk, f"carve_batch B={NB_TIMED} {SEAMS_B} seams", graphed,
+                 eager_kernel_carve(lumas, SEAMS_B, 8, 0.0, 1.0))
+    del graphed
+    few = carve_n_seams(lumas, PLAIN_SEAMS_B, 8, 0.0, 1.0)
+    plain = carve_n_seams(lumas[:NB].contiguous(), PLAIN_SEAMS_B, 8, 0.0,
+                          1.0, use_pallas=False)
+    for part in ("luma", "vmap", "energy"):
+        chk.equal("carve", f"carve_batch B={NB_TIMED} {PLAIN_SEAMS_B} seams,"
+                  f" images 0-{NB - 1} graphed == plain, {part}",
+                  getattr(few, part)[:NB].contiguous(), getattr(plain, part))
+    del few, plain
+    # the energy and the strip at the batch shape, rows of their own
     e_b = dct_energy(lumas, 8, edges, textures)
     seam_b = find_seams(e_b, WB)
     rows, sw = NB_TIMED * HB, 20
@@ -776,10 +1170,10 @@ def phase_3(dev, chk: Checks, card: str, rng, times: dict) -> list:
             f"bound {b_ms!r} ms ({b_by}) ({card})")
     del lumas, e_b, seam_b
 
-    wall, busy_us, top = device_profile(run, top=10)
+    wall, kernel_us, top, busy_us = device_profile(run, top=10)
     log(f"  profiled carve_batch: wall {wall * 1e3!r} ms, device busy "
         f"{busy_us / 1e3!r} ms ({100 * busy_us / 1e6 / wall!r} % of wall; "
-        f"{card})")
+        f"kernel time summed {kernel_us / 1e3!r} ms; {card})")
     for name, us, count in top:
         log(f"    {us / 1e3:10.4f} ms  {count:5d} x  {name[:90]}")
 
@@ -799,6 +1193,10 @@ def phase_4a(dev, chk: Checks, card: str, rng, times: dict) -> None:
     from dct_carver_tpu_torch.ops.carve import _strip_extent
     from dct_carver_tpu_torch.ops.energy_fn import GRAD_NORM
 
+    # the floor, taken beside the strip kernels' own times so that both
+    # find the card in the same state (right after the build it read above
+    # the 1080p gather's own time)
+    FLOOR.update(kernel_floor(card))
     edges, textures = 0.3, 0.7
 
     def on_dev(a):
@@ -907,11 +1305,12 @@ def phase_4(dev, chk: Checks, card: str, rng, dct_rate: float) -> list:
 
     from dct_carver_tpu_torch import api, cli, kernels
     from dct_carver_tpu_torch.models.carver import Carver
-    from dct_carver_tpu_torch.ops.carve import carve_n_seams
+    from dct_carver_tpu_torch.ops.carve import carve_n_seams, clear_step_cache
     from dct_carver_tpu_torch.ops.energy import to_luma
     from dct_carver_tpu_torch.ops.energy_fn import (builtin_energy,
                                                     custom_energy)
     from dct_carver_tpu_torch.utils import checkpoint
+    from dct_carver_tpu_torch.utils.graphs import CAPTURES
     from dct_carver_tpu_torch.utils.image import load_image, save_image
 
     def on_dev(a):
@@ -940,10 +1339,14 @@ def phase_4(dev, chk: Checks, card: str, rng, dct_rate: float) -> list:
         api.carve(img[:64, :256], -4, energy=energy, **kw)  # warm-up
         torch.cuda.synchronize()
         kernels.reset_launches()
-        res = api.carve(img, -SEAMS, energy=energy, **kw)
-        torch.cuda.synchronize()
+        with count_replays() as replays:
+            res = api.carve(img, -SEAMS, energy=energy, **kw)
+            torch.cuda.synchronize()
         launches = kernels.launch_counts()
         require_launches(launches, on_path, f"{label} {SEAMS}-seam carve")
+        chk.require(replays[0] == SEAMS - 1,
+                    f"{label} {SEAMS}-seam carve: {replays[0]} graph replays "
+                    "(the first seam eager)")
         if energy == "grad_norm":
             main_launches.append(launches)
         seams = SEAMS if energy == "grad_norm" else PLAIN_SEAMS_E
@@ -958,6 +1361,12 @@ def phase_4(dev, chk: Checks, card: str, rng, dct_rate: float) -> list:
                  f"{label} {seams}-seam api.carve {field} == plain path")
 
     luma = to_luma(on_dev(img))
+    fn = builtin_energy("grad_norm")
+    hold_graphed(chk, f"grad_norm {H}x{W} {SEAMS} seams",
+                 carve_n_seams(luma, SEAMS, 8, 0.0, 1.0, energy_fn=fn),
+                 eager_kernel_carve(luma, SEAMS, 8, 0.0, 1.0, energy_fn=fn),
+                 carve_n_seams(luma, SEAMS, 8, 0.0, 1.0, energy_fn=fn,
+                               use_pallas=False))
     live = W - PLAIN_SEAMS_E
     for energy in ENERGIES:
         fn = builtin_energy(energy)
@@ -981,8 +1390,11 @@ def phase_4(dev, chk: Checks, card: str, rng, dct_rate: float) -> list:
     log(f"  absdev live energy, strip vs full: max_abs_err={diff!r} "
         "(a window reduction; held by its vmaps)")
 
-    def rate(fn, repeats: int) -> float:
-        best = float("inf")
+    def walls(fn, repeats: int) -> list:
+        """Wall seconds of `repeats` carves of fresh images, the first with
+        an empty step cache (its capture included)."""
+        clear_step_cache()
+        secs = []
         for _ in range(repeats):
             x = to_luma(on_dev(rng.integers(0, 256, (H, W, 3),
                                             dtype=np.uint8)))
@@ -990,22 +1402,51 @@ def phase_4(dev, chk: Checks, card: str, rng, dct_rate: float) -> list:
             t = time.perf_counter()
             carve_n_seams(x, SEAMS, 8, 0.0, 1.0, energy_fn=fn)
             torch.cuda.synchronize()
-            best = min(best, time.perf_counter() - t)
-        return H * W * SEAMS / best / 1e6
+            secs.append(time.perf_counter() - t)
+        return secs
 
     for energy in ENERGIES:
-        log(f"  carve {H}x{W} {energy} {SEAMS} seams: kernel path "
-            f"{rate(builtin_energy(energy), 3)!r} Mpix/s; DCT n=8 headline "
-            f"{dct_rate!r} Mpix/s ({card})")
+        captures = CAPTURES["seconds"]
+        secs = walls(builtin_energy(energy), 4)
+        warm = [H * W * SEAMS / t / 1e6 for t in secs[1:]]
+        log(f"  carve {H}x{W} {energy} {SEAMS} seams: kernel path, first "
+            f"carve {secs[0] * 1e3!r} ms wall (capture "
+            f"{(CAPTURES['seconds'] - captures) * 1e3!r} ms included), warm "
+            f"{warm!r} Mpix/s; DCT n=8 headline {dct_rate!r} Mpix/s "
+            f"({card})")
 
     # where the time of a plugged-energy carve goes, by kernel
-    wall, busy_us, top = device_profile(lambda: carve_n_seams(
-        luma, SEAMS, 8, 0.0, 1.0, energy_fn=builtin_energy("grad_norm")))
-    log(f"  profiled grad_norm carve: wall {wall * 1e3!r} ms, device busy "
-        f"{busy_us / 1e3!r} ms ({100 * busy_us / 1e6 / wall!r} % of wall; "
-        f"{card})")
-    for name, us, count in top:
+    log_event_busy("grad_norm carve (warm)", lambda: carve_n_seams(
+        luma, SEAMS, 8, 0.0, 1.0, energy_fn=builtin_energy("grad_norm")),
+        dev, card)
+    wall, kernel_us, rows, busy_us = device_profile(lambda: carve_n_seams(
+        luma, SEAMS, 8, 0.0, 1.0, energy_fn=builtin_energy("grad_norm")),
+        top=None, gaps="profiled grad_norm carve")
+    log(f"  profiled grad_norm carve (warm: a replay every seam): wall "
+        f"{wall * 1e3!r} ms, device busy {busy_us / 1e3!r} ms "
+        f"({100 * busy_us / 1e6 / wall!r} % of wall; kernel time summed "
+        f"{kernel_us / 1e3!r} ms; {card})")
+    wall_d, _, _, busy_d = device_profile(lambda: carve_n_seams(
+        luma, SEAMS, 8, 0.0, 1.0, energy_fn=builtin_energy("grad_norm")),
+        host=False, gaps="grad_norm carve, device traced alone")
+    log(f"  grad_norm carve with the device traced alone: wall "
+        f"{wall_d * 1e3!r} ms, device busy {busy_d / 1e3!r} ms "
+        f"({100 * busy_d / 1e6 / wall_d!r} % of wall; {card})")
+    for name, us, count in rows[:12]:
         log(f"    {us / 1e3:10.4f} ms  {count:5d} x  {name[:90]}")
+    # the strip gather and scatter as nodes of the replayed graphs
+    for kernel in ("strip_gather", "strip_scatter"):
+        hits = [(us, count) for name, us, count in rows
+                if f"{kernel}_kernel" in name]
+        chk.require(len(hits) == 1 and hits[0][1] == SEAMS,
+                    f"the profiler times {kernel} in the graphed carve, "
+                    f"{SEAMS} calls: {hits}")
+        if hits:
+            IN_GRAPH[kernel] = hits[0][0] / 1e3 / hits[0][1]
+            log(f"  {kernel} in the graphed carve: {IN_GRAPH[kernel]!r} ms "
+                f"a call; back to back {DEVICE[kernel]!r}; kernel floor "
+                f"{FLOOR['back_to_back']!r} back to back, "
+                f"{FLOOR['in_graph']!r} in a graph ({card})")
 
     log(f"phase 4c: api.carve(({NB}, {HB}, {WB}, 3), -{SEAMS_BE}, "
         "parallel='batch', energy='grad_norm')")
@@ -1122,6 +1563,10 @@ BATCH: dict[str, tuple[float, tuple[float, str]]] = {}
 # device ms a call with the 50 MB L2 flushed between calls, where a kernel's
 # inputs are cold in the carve
 FLUSHED: dict[str, float] = {}
+# device ms a call of a kernel inside the graphed carve (phase 4b's
+# profiled grad_norm carve), and the floor of a kernel's device time
+IN_GRAPH: dict[str, float] = {}
+FLOOR: dict[str, float] = {}
 
 
 def phase_5a(dev, chk: Checks, card: str, rng, times: dict) -> None:
@@ -1598,7 +2043,7 @@ def phase_5(dev, chk: Checks, card: str, rng) -> list:
                 f"exchanges a seam {m['total']} == collectives_per_seam "
                 f"{m['designed']}")
     profiled = []
-    wall, busy_us, top = device_profile(
+    wall, _, top, busy_us = device_profile(
         lambda: profiled.append(spatial_carve_n_seams(luma8, SEAMS_8K,
                                                       devices=mesh)), top=16)
     cap = profiled[-1].capture_seconds
@@ -1743,8 +2188,9 @@ def main() -> int:
     from dct_carver_tpu_torch.kernels.energy_kernel import dct_energy
     from dct_carver_tpu_torch.kernels.strip_kernel import strip_update
     from dct_carver_tpu_torch.models.carver import Carver
-    from dct_carver_tpu_torch.ops.carve import carve_n_seams
+    from dct_carver_tpu_torch.ops.carve import carve_n_seams, clear_step_cache
     from dct_carver_tpu_torch.ops.energy import to_luma
+    from dct_carver_tpu_torch.utils.graphs import CAPTURES
 
     # ---------------------------------------------------------- phase 0 --
     card = card_line()
@@ -1935,21 +2381,45 @@ def main() -> int:
     wide_launches = phase_1c(dev, chk, card, rng, times)
 
     # ---------------------------------------------------------- phase 2 --
-    log(f"phase 2: api.carve({H}x{W}x3, -{SEAMS}, blocksize=8) on the card")
+    log(f"phase 2: api.carve({H}x{W}x3, -{SEAMS}, blocksize=8) on the card:"
+        " the first seam of a shape's first carve eager, then one CUDA graph "
+        "replay a seam")
     img = rng.integers(0, 256, (H, W, 3), dtype=np.uint8)
     kw = dict(blocksize=8, output_seams=True, output_energy=True,
               device="cuda")
     api.carve(img[:64, :256], -4, **kw)  # warm-up (allocator, streams)
     torch.cuda.synchronize()
-    kernels.reset_launches()
-    res = api.carve(img, -SEAMS, **kw)
-    torch.cuda.synchronize()
-    launches = kernels.launch_counts()
-    log(f"  launches on the main path: {launches}")
-    chk.require(launches["energy"] >= 1, "energy kernel launched")
     want = {**dp_launches(1, W, SEAMS), "apply": SEAMS, "strip": SEAMS}
-    for name, n in want.items():
-        chk.require(launches[name] == n, f"{name} kernel launched {n} times")
+    walls = []
+    for run in ("first", "warm"):
+        kernels.reset_launches()
+        captures = dict(CAPTURES)
+        with count_replays() as replays:
+            t = time.perf_counter()
+            res = api.carve(img, -SEAMS, **kw)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        got = kernels.launch_counts()
+        if run == "first":
+            launches = got
+            log(f"  launches on the main path: {launches}")
+            log(f"  the step's graphs hold the tiled find-seam's cooperative "
+                f"launch (cudaLaunchCooperativeKernel under stream capture; "
+                f"torch {torch.__version__}, CUDA {torch.version.cuda}; "
+                f"{card})")
+            chk.require(launches["energy"] >= 1, "energy kernel launched")
+        for name, n in want.items():
+            chk.require(got[name] == n,
+                        f"{run} carve: {name} kernel launched {n} times")
+        need = SEAMS - 1 if run == "first" else SEAMS
+        chk.require(replays[0] == need,
+                    f"{run} headline api.carve: {replays[0]} graph replays "
+                    f"for {SEAMS} seams (want {need})")
+        log(f"  {run} headline api.carve: {walls[-1] * 1e3!r} ms wall, host "
+            f"copies included; {replays[0]} replays; "
+            f"{CAPTURES['graphs'] - captures['graphs']} graphs captured in "
+            f"{(CAPTURES['seconds'] - captures['seconds']) * 1e3!r} ms "
+            f"({card})")
 
     plain = api.carve(img, -SEAMS, use_pallas=False, **kw)
     for field in ("image", "visibility_map", "energy_image"):
@@ -1972,8 +2442,18 @@ def main() -> int:
                     for f in ("image", "visibility_map", "energy_image")),
                 "48x96 carve on the card == the same carve on the CPU")
 
-    def mpix_s(use_pallas: bool, repeats: int) -> float:
-        best = float("inf")
+    # the graphed carve against the eager kernel carve and the plain path
+    x = to_luma(on_card(img))
+    hold_graphed(chk, f"headline {H}x{W} n=8 {SEAMS} seams",
+                 carve_n_seams(x, SEAMS, 8, 0.0, 1.0),
+                 eager_kernel_carve(x, SEAMS, 8, 0.0, 1.0),
+                 carve_n_seams(x, SEAMS, 8, 0.0, 1.0, use_pallas=False))
+
+    def walls_s(use_pallas: bool, repeats: int) -> list:
+        """Wall seconds of `repeats` carves of fresh images of one shape,
+        the first with an empty step cache (its capture included)."""
+        clear_step_cache()
+        secs = []
         for _ in range(repeats):
             x = to_luma(on_card(rng.integers(0, 256, (H, W, 3),
                                              dtype=np.uint8)))
@@ -1981,21 +2461,41 @@ def main() -> int:
             t = time.perf_counter()
             carve_n_seams(x, SEAMS, 8, 0.0, 1.0, use_pallas=use_pallas)
             torch.cuda.synchronize()
-            best = min(best, time.perf_counter() - t)
-        return H * W * SEAMS / best / 1e6
+            secs.append(time.perf_counter() - t)
+        return secs
 
-    k_rate = mpix_s(True, 3)
-    p_rate = mpix_s(False, 1)
-    log(f"  headline carve {H}x{W} n=8 {SEAMS} seams: kernel path "
-        f"{k_rate!r} Mpix/s, plain path {p_rate!r} Mpix/s ({card})")
+    px = H * W * SEAMS
+    captures = dict(CAPTURES)
+    k_secs = walls_s(True, 4)
+    capture_ms = (CAPTURES["seconds"] - captures["seconds"]) * 1e3
+    warm = [px / t / 1e6 for t in k_secs[1:]]
+    k_rate = max(warm)
+    p_rate = px / walls_s(False, 1)[0] / 1e6
+    log(f"  headline carve {H}x{W} n=8 {SEAMS} seams: kernel path, first "
+        f"carve {k_secs[0] * 1e3!r} ms wall (capture {capture_ms!r} ms "
+        f"included), warm carves {[t * 1e3 for t in k_secs[1:]]!r} ms: "
+        f"{warm!r} Mpix/s, spread {100 * (max(warm) / min(warm) - 1)!r} %; "
+        f"plain path {p_rate!r} Mpix/s ({card})")
+
+    capture_costs(to_luma(on_card(img)), CAPTURE_SAMPLES, card)
 
     # where the time of the headline carve goes, by kernel, under the profiler
     x = to_luma(on_card(img))
-    wall, busy_us, top = device_profile(
-        lambda: carve_n_seams(x, SEAMS, 8, 0.0, 1.0))
-    log(f"  profiled headline carve: wall {wall * 1e3!r} ms, device busy "
-        f"{busy_us / 1e3!r} ms ({100 * busy_us / 1e6 / wall!r} % of wall; "
-        f"{card})")
+    log_event_busy("headline carve (warm)",
+                   lambda: carve_n_seams(x, SEAMS, 8, 0.0, 1.0), dev, card)
+    wall, kernel_us, top, busy_us = device_profile(
+        lambda: carve_n_seams(x, SEAMS, 8, 0.0, 1.0), top=12,
+        gaps="profiled headline carve")
+    log(f"  profiled headline carve (warm: a replay every seam): wall "
+        f"{wall * 1e3!r} ms, device busy {busy_us / 1e3!r} ms "
+        f"({100 * busy_us / 1e6 / wall!r} % of wall; kernel time summed "
+        f"{kernel_us / 1e3!r} ms; {card})")
+    wall_d, _, _, busy_d = device_profile(
+        lambda: carve_n_seams(x, SEAMS, 8, 0.0, 1.0), host=False,
+        gaps="headline carve, device traced alone")
+    log(f"  headline carve with the device traced alone: wall "
+        f"{wall_d * 1e3!r} ms, device busy {busy_d / 1e3!r} ms "
+        f"({100 * busy_d / 1e6 / wall_d!r} % of wall; {card})")
     for name, us, count in top:
         log(f"    {us / 1e3:10.4f} ms  {count:5d} x  {name[:90]}")
 
@@ -2023,6 +2523,8 @@ def main() -> int:
         f"included; {card})")
 
     del img4, ka, pa, big
+    log("phase 2c: a carve on a card other than the current one")
+    other_card(chk, card)
     batch_launches = phase_3(dev, chk, card, rng, times)
     phase_4a(dev, chk, card, rng, times)
     energy_launches = phase_4(dev, chk, card, rng, k_rate)
@@ -2054,6 +2556,10 @@ def main() -> int:
             "library_device_ms": LIBRARY_DEVICE.get(k.name)})
         if k.name in FLUSHED:
             rows[-1]["device_ms_l2_flushed"] = FLUSHED[k.name]
+        if k.name in IN_GRAPH:  # inside the graphed carve, and the floor
+            rows[-1].update(device_ms_in_graph=IN_GRAPH[k.name],
+                            floor_device_ms=FLOOR["back_to_back"],
+                            floor_device_ms_in_graph=FLOOR["in_graph"])
         if k.name in BATCH:  # the same kernel at phase 3c's batch shape
             b_ms, (bb_ms, _) = BATCH[k.name]
             rows[-1].update(batch_device_ms=b_ms, batch_bound_ms=bb_ms)
@@ -2069,5 +2575,269 @@ def main() -> int:
     return 0
 
 
+# --strip-layouts: two 2-D layouts of the strip gather and scatter (#11-12)
+# timed against the flat ones that csrc/strip_bands.cu ships.  "rows": the
+# grid's y a band row (i, dy), z the image, x the band's columns, as many
+# threads as the band has columns rounded up to a warp; "warps": one warp
+# a band row, 8 band rows a block.  The scatter's rows are the strip rows.
+STRIP_LAYOUTS_CU = r"""
+#include <cuda_runtime.h>
+
+__device__ __forceinline__ int start_of(int seam, int half, int W,
+                                        int strip_w) {
+  return min(max(seam - half, 0), max(W - strip_w, 0));
+}
+
+__global__ void gather_rows(const float* __restrict__ luma,
+                            const int* __restrict__ seam,
+                            float* __restrict__ bands, int H, int W, int n,
+                            int co, int half, int strip_w) {
+  const int cb = strip_w + n - 1;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= cb) return;
+  const int i = blockIdx.y / n, dy = blockIdx.y - i * n;
+  const size_t b = blockIdx.z;
+  const int start = start_of(seam[b * H + i], half, W, strip_w);
+  const int row = min(max(i + co + dy, 0), H - 1);
+  const int col = min(max(start + co + t, 0), W - 1);
+  bands[(b * H * n + blockIdx.y) * cb + t] =
+      __ldg(luma + b * H * W + static_cast<size_t>(row) * W + col);
+}
+
+__global__ void gather_warps(const float* __restrict__ luma,
+                             const int* __restrict__ seam,
+                             float* __restrict__ bands, int H, int W, int n,
+                             int co, int half, int strip_w) {
+  const int cb = strip_w + n - 1;
+  const int r = blockIdx.y * blockDim.y + threadIdx.y;
+  if (r >= H * n) return;
+  const int i = r / n, dy = r - i * n;
+  const size_t b = blockIdx.z;
+  const int start = start_of(seam[b * H + i], half, W, strip_w);
+  const int row = min(max(i + co + dy, 0), H - 1);
+  const float* src = luma + b * H * W + static_cast<size_t>(row) * W;
+  float* dst = bands + (b * H * n + r) * cb;
+  for (int t = threadIdx.x; t < cb; t += 32)
+    dst[t] = __ldg(src + min(max(start + co + t, 0), W - 1));
+}
+
+__global__ void scatter_rows(float* __restrict__ energy,
+                             const float* __restrict__ strip,
+                             const int* __restrict__ seam, int H, int W,
+                             int half, int strip_w) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= strip_w) return;
+  const int i = blockIdx.y;
+  const size_t b = blockIdx.z;
+  const int col = start_of(seam[b * H + i], half, W, strip_w) + c;
+  energy[b * H * W + static_cast<size_t>(i) * W + col] =
+      strip[(b * H + i) * strip_w + c];
+}
+
+__global__ void scatter_warps(float* __restrict__ energy,
+                              const float* __restrict__ strip,
+                              const int* __restrict__ seam, int H, int W,
+                              int half, int strip_w) {
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  if (i >= H) return;
+  const size_t b = blockIdx.z;
+  const int start = start_of(seam[b * H + i], half, W, strip_w);
+  float* dst = energy + b * H * W + static_cast<size_t>(i) * W + start;
+  const float* src = strip + (b * H + i) * strip_w;
+  for (int c = threadIdx.x; c < strip_w; c += 32) dst[c] = src[c];
+}
+
+static int threads_for(int cols) {
+  const int t = (cols + 31) / 32 * 32;
+  return t < 256 ? t : 256;
+}
+
+extern "C" int sl_gather(int layout, const float* luma, const int* seam,
+                         float* bands, int B, int H, int W, int n, int co,
+                         int half, int strip_w, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  const int cb = strip_w + n - 1;
+  if (layout == 0) {
+    const int t = threads_for(cb);
+    gather_rows<<<dim3((cb + t - 1) / t, H * n, B), t, 0, s>>>(
+        luma, seam, bands, H, W, n, co, half, strip_w);
+  } else {
+    gather_warps<<<dim3(1, (H * n + 7) / 8, B), dim3(32, 8), 0, s>>>(
+        luma, seam, bands, H, W, n, co, half, strip_w);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int sl_scatter(int layout, float* energy, const float* strip,
+                          const int* seam, int B, int H, int W, int half,
+                          int strip_w, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (layout == 0) {
+    const int t = threads_for(strip_w);
+    scatter_rows<<<dim3((strip_w + t - 1) / t, H, B), t, 0, s>>>(
+        energy, strip, seam, H, W, half, strip_w);
+  } else {
+    scatter_warps<<<dim3(1, (H + 7) / 8, B), dim3(32, 8), 0, s>>>(
+        energy, strip, seam, H, W, half, strip_w);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+STRIP_LAYOUT_SHAPES = ((1, H, W), (NB, HB, WB), (NB_TIMED, HB, WB))
+STRIP_LAYOUT_NS = (2, 4, 8, 16)
+
+
+def strip_layouts() -> int:
+    """Build STRIP_LAYOUTS_CU with nvcc under build/, hold each layout's
+    gather and scatter bitwise against the shipped kernels at
+    STRIP_LAYOUT_SHAPES x STRIP_LAYOUT_NS, and log the device time per
+    call of each (`device_ms`, back to back)."""
+    import ctypes
+
+    import torch
+
+    from dct_carver_tpu_torch.kernels.build import NVCC_FLAGS
+    from dct_carver_tpu_torch.kernels.strip_kernel import (strip_gather,
+                                                           strip_scatter)
+    from dct_carver_tpu_torch.ops.carve import _strip_extent
+    from dct_carver_tpu_torch.ops.dct import window_offset
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    card = card_line()
+    out_dir = ROOT / "build" / "strip_layouts"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src = out_dir / "strip_layouts.cu"
+    src.write_text(STRIP_LAYOUTS_CU)
+    lib_path = out_dir / "strip_layouts.so"
+    subprocess.run(["nvcc", *NVCC_FLAGS, "-shared", "-o", str(lib_path),
+                    str(src)], check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(lib_path))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.sl_gather.argtypes = (I, P, P, P, *(I,) * 7, P)
+    lib.sl_scatter.argtypes = (I, P, P, P, *(I,) * 5, P)
+    rng = np.random.default_rng(SEED)
+    failed = []
+    for B, h, w in STRIP_LAYOUT_SHAPES:
+        shape = (h, w) if B == 1 else (B, h, w)
+        luma = torch.from_numpy(rng.random(shape, dtype=np.float32)).cuda()
+        seam = torch.from_numpy(rng.integers(0, w, shape[:-1],
+                                             dtype=np.int32)).cuda()
+        energy = torch.from_numpy(rng.random(shape, dtype=np.float32)).cuda()
+        stream = torch.cuda.current_stream().cuda_stream
+        for n in STRIP_LAYOUT_NS:
+            half, strip_w = _strip_extent(n, 1)
+            co = window_offset(n, "carve")
+            ref = strip_gather(luma, seam, n)
+            strip = torch.from_numpy(rng.random(
+                (*shape[:-1], strip_w), dtype=np.float32)).cuda()
+            e_ref = energy.clone()
+            strip_scatter(e_ref, strip, seam, n)
+            times = {"flat": (
+                device_ms(lambda: strip_gather(luma, seam, n), 50),
+                device_ms(lambda: strip_scatter(energy, strip, seam, n),
+                          50))}
+            for layout, name in enumerate(("rows", "warps")):
+                bands = torch.empty_like(ref)
+                e = energy.clone()
+
+                def gather():
+                    return lib.sl_gather(layout, luma.data_ptr(),
+                                         seam.data_ptr(), bands.data_ptr(),
+                                         B, h, w, n, co, half, strip_w,
+                                         stream)
+
+                def scatter():
+                    return lib.sl_scatter(layout, e.data_ptr(),
+                                          strip.data_ptr(), seam.data_ptr(),
+                                          B, h, w, half, strip_w, stream)
+
+                rcs = (gather(), scatter())
+                same = (rcs == (0, 0) and torch.equal(bands, ref)
+                        and torch.equal(e, e_ref))
+                if not same:
+                    failed.append(f"B={B} n={n} {name}: rc {rcs}")
+                times[name] = (device_ms(gather, 50), device_ms(scatter, 50))
+            for name, (g, sc) in times.items():
+                log(f"strip layout B={B} {h}x{w} n={n} {name:5s}: gather "
+                    f"{g * 1e3:.3f} us, scatter {sc * 1e3:.3f} us device "
+                    f"time a call back to back ({card})")
+    if failed:
+        print("strip layouts DIFFER:\n  " + "\n  ".join(failed),
+              file=sys.stderr)
+        return 1
+    log(json.dumps({"ok": True, "strip_layouts": "bitwise"}))
+    return 0
+
+
+# --first-carve: the carves of a one-shot process (a CLI call, a script that
+# carves one image), each the first of its shape: the headline and a 4K
+# image, then the same shape again
+FIRST_SHAPES = ((H, W), (H4, W4))
+
+
+def first_carve(root: str) -> int:
+    """Time, on the host, the carves of one process with the
+    dct_carver_tpu_torch found under `root` (this checkout, or another
+    commit's unpacked in a directory .gitignore lists): for each of
+    FIRST_SHAPES a first 64-seam `api.carve` of an RGB image (the seam
+    step's one-time costs: for a checkout that graphs the step, its eager
+    first seam and the capture) and a second one of a new image of the
+    shape.  The kernels are built (or loaded) and the CUDA context made
+    before the first carve, and timed apart.  Prints one JSON line."""
+    import importlib
+
+    root_path = Path(root).resolve()
+    sys.path.insert(0, str(root_path))
+    t = time.perf_counter()
+    import torch
+    pkg = importlib.import_module("dct_carver_tpu_torch")
+    if Path(pkg.__file__).resolve().parents[1] != root_path:
+        print(f"chip_smoke: dct_carver_tpu_torch comes from {pkg.__file__}, "
+              f"not from {root_path}", file=sys.stderr)
+        return 2
+    from dct_carver_tpu_torch import api
+    from dct_carver_tpu_torch.kernels import build
+
+    out = {"root": str(root_path), "import_s": time.perf_counter() - t}
+    t = time.perf_counter()
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    out["context_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    build.load()
+    out["kernels_s"] = time.perf_counter() - t
+    rng = np.random.default_rng(SEED)
+    for h, w in FIRST_SHAPES:
+        for run in ("first", "second"):
+            img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = api.carve(img, -SEAMS, blocksize=8, device="cuda")
+            out[f"{h}x{w} {run} ms"] = (time.perf_counter() - t) * 1e3
+            try:
+                from dct_carver_tpu_torch.utils.graphs import CAPTURES
+            except ImportError:  # a checkout before the graphed step
+                continue
+            out[f"{h}x{w} {run} capture ms"] = CAPTURES["seconds"] * 1e3
+            CAPTURES["seconds"] = 0.0
+            if res.image.shape != (h, w - SEAMS, 3):
+                print(f"chip_smoke: {h}x{w} carve gave {res.image.shape}",
+                      file=sys.stderr)
+                return 1
+    out["card"] = card_line()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--first-carve"] and len(sys.argv) == 3:
+        sys.exit(first_carve(sys.argv[2]))
+    if sys.argv[1:2] == ["--strip-layouts"] and len(sys.argv) == 2:
+        sys.exit(strip_layouts())
+    if len(sys.argv) > 1:
+        print("usage: chip_smoke.py [--first-carve ROOT | --strip-layouts]",
+              file=sys.stderr)
+        sys.exit(2)
     sys.exit(main())

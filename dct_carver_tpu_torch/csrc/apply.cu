@@ -21,7 +21,10 @@
 // image is the grid's z dimension; rows walk the grid's y dimension by
 // stride (y is capped at 65535, so any height runs); offsets are size_t,
 // since B * H * W passes INT_MAX near B = 1024 1-Mpix images.  Every image
-// shares the logical width: each loses one seam a step.
+// shares the logical width: each loses one seam a step.  The width comes
+// by value, or from device memory (one int an image, as sharded_apply.cu
+// reads new_width), so a carve's seam step can keep it on the device and
+// run as a CUDA graph whose replays all read the current width.
 
 #include <algorithm>
 
@@ -36,9 +39,10 @@ __global__ void apply_kernel(const float* __restrict__ luma,
                              float* __restrict__ luma_out,
                              int* __restrict__ origcol_out,
                              float* __restrict__ energy_out, int H, int W,
-                             int width) {
+                             int width0, const int* __restrict__ widths) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= W) return;
+  const int width = widths ? widths[blockIdx.z] : width0;
   for (int y = blockIdx.y; y < H; y += gridDim.y) {
     const size_t row = static_cast<size_t>(blockIdx.z) * H + y;
     const size_t base = row * W;
@@ -58,17 +62,18 @@ __global__ void apply_kernel(const float* __restrict__ luma,
 }  // namespace dct_carver
 
 // All planes (B, H, W) row-major: luma/energy f32, origcol int32; seam
-// (B, H) int32; width is the logical width before the removal; B <= 65535
-// (grid z).  Returns the cudaError_t of the launch.
+// (B, H) int32; the logical width before the removal is widths[b] (an
+// int32 array on the device), or width for every image where widths is
+// null; B <= 65535 (grid z).  Returns the cudaError_t of the launch.
 extern "C" int dc_apply(const float* luma, const int* origcol,
                         const float* energy, const int* seam, float* luma_out,
                         int* origcol_out, float* energy_out, int B, int H,
-                        int W, int width, void* stream) {
+                        int W, int width, const int* widths, void* stream) {
   const dim3 block(256);
   // rows by grid stride: y is capped at 65535
   const dim3 grid((W + block.x - 1) / block.x, std::min(H, 65535), B);
   dct_carver::apply_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       luma, origcol, energy, seam, luma_out, origcol_out, energy_out, H, W,
-      width);
+      width, widths);
   return static_cast<int>(cudaGetLastError());
 }

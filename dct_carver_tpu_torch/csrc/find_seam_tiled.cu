@@ -45,7 +45,11 @@
 // One launch runs every block of every tile.  The grid is cooperative
 // (cudaLaunchCooperativeKernel) and at most as large as the occupancy API
 // says is resident, so every warp whose cells a warp waits for is running:
-// a grid that cannot be resident is a launch error, not a hang.  Where
+// a grid that cannot be resident is a launch error, not a hang.  Under a
+// CUDA graph's stream capture (the carve's seam step, ops/carve.py) the
+// launch becomes a cooperative kernel node and the frontier's memset a
+// memset node; CUDA 12.8 accepts both (chip_smoke.py phase 2 replays such
+// graphs and holds their seams against the plain DP).  Where
 // there are more tiles (B x ceil(W / Wt)) than resident warps, each warp
 // owns a run of adjacent tiles and does block k of all of them before
 // block k + 1.
@@ -82,6 +86,7 @@ namespace dct_carver {
 
 constexpr int kFinishThreads = 1024;
 constexpr int kMaxTileWarps = 8;  // warp-tiles a CTA at most
+constexpr int kMaxDevices = 64;   // cards whose occupancy is kept
 
 // A warp-tile's staging ring: kStages rows of 32 lanes, each lane's C
 // columns kPitch floats apart (dp_rows.cuh's bank-conflict-free pitch):
@@ -350,18 +355,26 @@ int launch_forward(const float* E, unsigned long long* front,
   const auto kernel = tile_rows_kernel<C, VEC, RIGHTMOST>;
   const int threads = 32 * warps;
   const size_t smem = warps * WarpRing<C>::kBytes;
-  if (const int e = allow_smem(kernel, smem)) return e;
-  int dev = 0, sms = 0, per_sm = 0;
+  // every warp whose cells another waits for must be resident.  The count
+  // (and the shared-memory limit it needs) is asked of the runtime once a
+  // (device, warps) and kept, so a call makes no host queries.
+  static long long resident_by[kMaxDevices][kMaxTileWarps + 1] = {};
+  int dev = 0;
   if (const int e = static_cast<int>(cudaGetDevice(&dev))) return e;
-  if (const int e = static_cast<int>(cudaDeviceGetAttribute(
-          &sms, cudaDevAttrMultiProcessorCount, dev)))
-    return e;
-  if (const int e = static_cast<int>(
-          cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        threads, smem)))
-    return e;
-  // every warp whose cells another waits for must be resident
-  long long resident = static_cast<long long>(per_sm) * sms * warps;
+  long long resident = dev < kMaxDevices ? resident_by[dev][warps] : 0;
+  if (resident == 0) {
+    if (const int e = allow_smem(kernel, smem)) return e;
+    int sms = 0, per_sm = 0;
+    if (const int e = static_cast<int>(cudaDeviceGetAttribute(
+            &sms, cudaDevAttrMultiProcessorCount, dev)))
+      return e;
+    if (const int e = static_cast<int>(
+            cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          threads, smem)))
+      return e;
+    resident = static_cast<long long>(per_sm) * sms * warps;
+    if (dev < kMaxDevices) resident_by[dev][warps] = resident;
+  }
   if (max_warps > 0) resident = std::min<long long>(resident, max_warps);
   if (resident < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const long long G = static_cast<long long>(t.B) * t.tiles;

@@ -20,18 +20,31 @@
 // i + co .. i + co + n - 1 and columns start_i + co .. start_i + co +
 // strip_w + n - 2, each clamped to the plane (the full map's border rule).
 //
-// What bounds them on an H100: launch latency.  At 1080p a strip of n=2 is
-// 1080 x 2 x 9 floats to gather and 1080 x 8 to scatter, far less than a
-// launch costs; a batch of 256 1-Mpix images moves ~4.7e6 floats a seam
-// each way, a few microseconds of bandwidth.  band_energy costs 2*n^3
-// separately rounded multiplies and as many adds per output, like strip.cu.
+// What bounds them on an H100: the launch.  At 1080p a strip of n=2 is
+// 1080 x 2 x 9 floats to gather and 1080 x 8 to scatter: their bytes take
+// tens of nanoseconds, under the ~0.9 us an empty kernel takes on the card,
+// and timed back to back they take 40-50 times their device time, in the
+// host's wrapper and launch.  So a carve on the card runs them as nodes of
+// the seam step's CUDA graph (ops/carve.py::SeamSteps, parallel/
+// spatial.py): their geometry is static (the seam is read on the device,
+// W is the buffer's width), and a replay launches them with no host work.
+// A batch of 256 1-Mpix images moves ~4.7e6 floats a seam each way, a few
+// microseconds of bandwidth.  band_energy costs 2*n^3 separately rounded
+// multiplies and as many adds per output, like strip.cu.
 //
-// Simple design: one thread per output element.  The gather and the scatter
-// are pure copies, so they are bitwise by construction; every scatter
-// thread writes its own energy cell, so the in-place update is race free.
-// The image is the grid's z dimension with size_t plane offsets (B * H * W
-// passes INT_MAX near B = 1024 1-Mpix images); band rows are flattened into
-// one size_t index.
+// Design: one thread per output element, the flat index running along
+// the band (or strip) row, so a warp's 32 lanes read neighbouring luma
+// columns and write 128 contiguous bytes whatever the band's width.  Three
+// 2-D layouts were measured against it (one row of threads a band row,
+// blocks of (column, dy, row) threads, and rows whose strip starts are
+// staged in shared memory): none was faster at the main path's n = 2, and
+// the row layouts were up to twice as slow at 256 images, where a 9-float
+// band row leaves most of a warp idle and writes short segments.  The
+// gather and the scatter are pure copies, so they are bitwise by
+// construction; every scatter thread writes its own energy cell, so the
+// in-place update is race free.  The image is the grid's z dimension with
+// size_t plane offsets (B * H * W passes INT_MAX near B = 1024 1-Mpix
+// images); band rows are flattened into one size_t index.
 //
 // Shard offset (the spatial route, as strip.cu): the B images may be the
 // column shards of one image.  The gather then reads each shard's luma with

@@ -46,29 +46,42 @@ def _apply_cuda(luma, origcol, energy, seam, width, out):
                              f"{tuple(src.shape)}")
     if B > 65535:
         raise ValueError(f"apply kernel: {B} images exceed the grid's 65535")
+    if isinstance(width, torch.Tensor):
+        check_plane("width", width, torch.int32, dev)
+        if width.shape != (B,):
+            raise ValueError(f"width: expected ({B},), got "
+                             f"{tuple(width.shape)}")
+        width, widths = 0, width.data_ptr()
+    else:
+        widths = None
     with torch.cuda.device(dev):
         launch(KERNEL, "dc_apply", luma.data_ptr(), origcol.data_ptr(),
                energy.data_ptr(), seam.data_ptr(), out[0].data_ptr(),
-               out[1].data_ptr(), out[2].data_ptr(), B, H, W, width,
+               out[1].data_ptr(), out[2].data_ptr(), B, H, W, width, widths,
                torch.cuda.current_stream().cuda_stream)
     return out
 
 
 def apply_seam(luma: torch.Tensor, origcol: torch.Tensor,
-               energy: torch.Tensor, seam: torch.Tensor, width: int, *,
+               energy: torch.Tensor, seam: torch.Tensor, width, *,
                out=None, use_pallas: bool = True):
     """Compact (luma, origcol, energy) around `seam` and edge-fill luma from
     `width - 1` on.  `width` is the logical width BEFORE the removal.  The
     planes are (H, W) with a (H,) seam, or (B, H, W) with (B, H) seams and
-    one shared width.
+    one shared width.  `width` is an int, or a (B,) int32 tensor on the
+    planes' device ((1,) for a plane) that the kernel reads there, so a
+    seam step can keep it on the device; its value is not checked, since
+    that would wait for the device.
 
     With CUDA tensors and `use_pallas`, the kernel writes into `out` (a
     (luma, origcol, energy) set of separate buffers, allocated when None);
     the plain version returns new tensors and ignores `out`.
     """
-    if not 2 <= width <= luma.shape[-1]:
-        raise ValueError(f"width {width} outside [2, {luma.shape[-1]}]")
+    if not isinstance(width, torch.Tensor):
+        if not 2 <= width <= luma.shape[-1]:
+            raise ValueError(f"width {width} outside [2, {luma.shape[-1]}]")
+        width = int(width)
     if luma.is_cuda and use_pallas:
-        return _apply_cuda(luma, origcol, energy, seam, int(width), out)
+        return _apply_cuda(luma, origcol, energy, seam, width, out)
     return (_edge_fill(remove_seam(luma, seam), width - 1),
             remove_seam(origcol, seam), remove_seam(energy, seam))

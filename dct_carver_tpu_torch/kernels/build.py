@@ -48,8 +48,8 @@ SIGNATURES = {
     "dc_find_seams_tiled": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I,
                             _I, _I, _I, _I, _I, _P),
     # luma, origcol, energy, seam, luma', origcol', energy', B, H, W, width,
-    # stream
-    "dc_apply": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # widths[B], stream
+    "dc_apply": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     # luma, energy, seam, taps (host), B, H, W, Wx, Wg, lo, lo_step, xoff,
     # seam_step, n, co, half, strip_w, edges, textures, stream
     "dc_strip": (_P, _P, _P, _P, *(_I,) * 13, _F, _F, _P),

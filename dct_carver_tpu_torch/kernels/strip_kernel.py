@@ -9,7 +9,10 @@
   a plugged energy's strip update around its own `bands_fn`; plain versions
   `ops/carve.py::_gather_strip_bands` and `_scatter_strips`.  Counterparts
   of `gather_slabs` (`_gather_slabs_call`) and `scatter_strips`
-  (`_scatter_strips_call`).
+  (`_scatter_strips_call`).  Both are far shorter than their launch; in a
+  carve on the card they run as nodes of the seam step's CUDA graph
+  (`ops/carve.py::SeamSteps`, `parallel/spatial.py`), launched by the
+  replay with no host work.
 - `band_energy`: `csrc/strip_bands.cu`, the DCT energy of gathered bands;
   plain version `ops/dct.py::energy_from_bands`.  Counterpart of
   `strip_energy_pallas` (`_strip_energy_call`).

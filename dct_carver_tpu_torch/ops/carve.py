@@ -1,10 +1,10 @@
 """The multi-seam carve loop — fixed-width buffers, logical width.
 
 Counterpart of `dct_carver_tpu/ops/carve.py`.  Buffers keep the original
-width W; `width` (a Python int) tracks the logical width, and columns
->= width form a dead region that is (a) edge-filled in the luma plane, so
-window clamping matches the reference's border behaviour
-(`src/render.c:122-132`), and (b) masked to +inf by the DP.
+width W; the logical width tracks the live columns, and columns >= width
+form a dead region that is (a) edge-filled in the luma plane, so window
+clamping matches the reference's border behaviour (`src/render.c:122-132`),
+and (b) masked to +inf by the DP.
 
 Seam bookkeeping matches liblqr's visibility maps (`src/render.c:204-240`):
 `vmap[y, x_original] = k` if the pixel was removed by the k-th seam, else 0.
@@ -12,16 +12,20 @@ Seam bookkeeping matches liblqr's visibility maps (`src/render.c:204-240`):
 The loop carves one (H, W) plane or a (B, H, W) stack of images of one size
 (the batch route, `parallel/mesh.py`): every buffer then carries the leading
 B, each step is one launch for the whole batch, and every image loses one
-seam a step, so `width` stays one Python int.  A plane runs the same code
-as a stack of one.
+seam a step, so the images share one width.  A plane runs the same code as
+a stack of one.
 
 Each seam runs four steps, each one kernel on CUDA tensors (`use_pallas`)
 and its plain PyTorch version otherwise: find the seam
-(`kernels/dp_kernel.py`: `find_seam` for a plane, `find_seams` for a
-stack), record it in the vmap (plain gather + scatter),
+(`kernels/dp_kernel.py`), record it in the vmap (plain gather + scatter),
 compact the buffers around it (`kernels/apply_kernel.py`), and recompute
-the energy in a strip around it (`kernels/strip_kernel.py`).  The seam loop
-is a Python loop that never waits for the device.
+the energy in a strip around it (`kernels/strip_kernel.py`).  JAX traces
+the whole carve into one jitted program; here the step runs over static
+buffers (`SeamSteps`: two sets that swap every seam, the width and the
+seam's label kept on the device), so on a card every seam after the first
+is one CUDA graph replay, and a small cache keyed as the jit is
+(`step_key`) keeps the buffers and graphs for the next carve of a shape.
+The loop never waits for the device.
 
 Strip update: a pixel's energy can only change if its window overlaps a
 changed column, and the seam drifts <= delta_x columns a row, so row i
@@ -40,6 +44,8 @@ the bands, and a scatter of the strips into the compacted energy
 
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
 from typing import NamedTuple
 
 import torch
@@ -48,8 +54,9 @@ from .dct import energy_from_bands, window_offset
 from .dp import check_tie, find_seam as find_seam_plain, mask_energy
 
 __all__ = ["CarveState", "ShardOffset", "make_state", "carve_n_seams",
-           "carve_seams", "strip_fits", "full_energy_map",
-           "reconstruct_removed", "reconstruct_enlarged"]
+           "carve_seams", "carve_chunks", "SeamSteps", "StepParams",
+           "step_key", "graphed", "clear_step_cache", "strip_fits",
+           "full_energy_map", "reconstruct_removed", "reconstruct_enlarged"]
 
 
 class CarveState(NamedTuple):
@@ -93,10 +100,16 @@ def _shard_origins(shard: ShardOffset, S: int, Wl: int, device):
     return shard.lo + Wl * torch.arange(S, device=device)
 
 
-def _edge_fill(luma: torch.Tensor, width: int) -> torch.Tensor:
-    """Replicate column width-1 into the dead region (border clamp)."""
+def _edge_fill(luma: torch.Tensor, width) -> torch.Tensor:
+    """Replicate column width-1 into the dead region (border clamp).
+    `width`: an int, or a tensor of one width an image ((B,) for a (B, H,
+    W) stack, (1,) for a plane)."""
     col = torch.arange(luma.shape[-1], device=luma.device)
-    return torch.where(col < width, luma, luma[..., width - 1 : width])
+    if not isinstance(width, torch.Tensor):
+        return torch.where(col < width, luma, luma[..., width - 1 : width])
+    w = width.to(torch.int64).reshape(*luma.shape[:-2], 1, 1)
+    edge = luma.gather(-1, (w - 1).expand(*luma.shape[:-1], 1))
+    return torch.where(col < w, luma, edge)
 
 
 def _strip_extent(blocksize: int, delta_x: int = 1) -> tuple[int, int]:
@@ -223,44 +236,6 @@ def full_energy_map(luma: torch.Tensor, blocksize: int, edges, textures,
                       use_pallas=use_pallas)
 
 
-def _one_seam(state: CarveState, k: int, blocksize: int, edges, textures,
-              strip_update: bool, use_pallas: bool = True, delta_x: int = 1,
-              rigidity: float = 0.0, tie: str = "leftmost",
-              out=None, energy_fn=None) -> CarveState:
-    """Remove the k-th seam (from every image of a stack).  Updates
-    `state.vmap` in place; with kernels the compacted buffers are written
-    into `out` (a (luma, origcol, energy) set the size of the state's) when
-    given."""
-    from ..kernels.apply_kernel import apply_seam
-    from ..kernels.dp_kernel import find_seam, find_seams
-    from ..kernels.strip_kernel import strip_update as update_strip
-
-    if delta_x == 1 and rigidity == 0.0:
-        find = find_seams if state.energy.ndim == 3 else find_seam
-        seam = find(state.energy, state.width, tie=tie, use_pallas=use_pallas)
-    else:
-        seam = find_seam_plain(mask_energy(state.energy, state.width),
-                               delta_x, rigidity, tie).to(torch.int32)
-
-    # record the k-th seam at original coordinates (src/render.c:204-240)
-    orig = state.origcol.gather(-1, seam[..., None].to(torch.int64))
-    state.vmap.scatter_(-1, orig.to(torch.int64), k)
-
-    luma, origcol, energy = apply_seam(state.luma, state.origcol,
-                                       state.energy, seam, state.width,
-                                       out=out, use_pallas=use_pallas)
-    new_width = state.width - 1
-    if not strip_update:
-        energy = full_energy_map(luma, blocksize, edges, textures,
-                                 use_pallas=use_pallas, energy_fn=energy_fn)
-    elif energy_fn is not None:
-        _update_strip_fn(luma, energy, seam, energy_fn, delta_x, use_pallas)
-    else:
-        update_strip(luma, energy, seam, blocksize, edges, textures,
-                     delta_x=delta_x, use_pallas=use_pallas)
-    return CarveState(luma, origcol, state.vmap, new_width, energy)
-
-
 def strip_fits(W: int, blocksize: int, delta_x: int = 1,
                energy_fn=None) -> bool:
     """Whether the per-row strip fits a buffer `W` wide; narrower buffers
@@ -270,21 +245,282 @@ def strip_fits(W: int, blocksize: int, delta_x: int = 1,
     return W >= _strip_extent(n_eff, delta_x)[1]
 
 
+class StepParams(NamedTuple):
+    """What a seam step is made of besides its buffers' shape: the
+    counterpart of the JAX carve's `static_argnames`, plus what the
+    kernels take by value (edges, textures, the energy's taps by
+    blocksize).  Part of the step cache's key."""
+    blocksize: int
+    edges: float
+    textures: float
+    strip_update: bool
+    use_pallas: bool
+    delta_x: int
+    rigidity: float
+    tie: str
+    energy_fn: object  # an EnergyFunction, or None for the DCT energy
+
+
+def graphed(device: torch.device, p: StepParams) -> bool:
+    """Whether a step on `device` with `p` runs as CUDA graph replays: on a
+    card with the kernels and the kernels' DP (delta_x = 1, rigidity =
+    0); every other step runs eagerly and is never captured."""
+    return (device.type == "cuda" and p.use_pallas and p.delta_x == 1
+            and p.rigidity == 0.0)
+
+
+class SeamSteps:
+    """A carve's seam step over static buffers, the counterpart of the JAX
+    package's jitted N-seam carve: two (luma, origcol, energy) sets that
+    swap every seam, the vmap, and on the device the logical width (one
+    int32 an image: (B,) for a stack, (1,) for a plane) and the next seam's
+    label.  The step reads one set and writes the other, records the seam
+    in the vmap with the device label (on a card, on a second stream, so
+    that the graph runs the record beside the apply and the strip), then
+    decrements the width and increments the label on the device.  It
+    allocates nothing that outlives it and never waits for the device, so
+    a CUDA graph can capture it.
+
+    On a card with the kernels (`use_pallas`, delta_x = 1, rigidity = 0)
+    the first seam of the object's first carve runs eagerly, which builds
+    the kernels and sets their shared-memory limits; then two graphs of
+    the step are captured, one for each direction between the sets, and
+    every later seam is one replay (`utils/graphs.py`), which credits the
+    kernels' launch counts with what its capture counted.  CPU tensors,
+    `use_pallas=False` and the plain scan DP (other delta_x / rigidity) run
+    the same step eagerly and never capture.  A capture or replay that
+    fails raises; nothing falls back to eager steps.
+
+    The first set and the vmap are `state`'s buffers, which the step owns
+    from then on; a carve whose state lies elsewhere is copied in."""
+
+    def __init__(self, state: CarveState, p: StepParams):
+        from ..kernels import KERNELS
+        from ..utils.graphs import StepGraphs
+
+        self.p = p
+        planes = (state.luma, state.origcol, state.energy)
+        self.sets = [planes, tuple(torch.empty_like(x) for x in planes)]
+        self.vmap = state.vmap
+        self.cur = 0
+        dev = state.luma.device
+        lead = state.luma.shape[0] if state.luma.ndim == 3 else 1
+        # [label, width of each image]: one add a step moves them all
+        self.ctr = torch.zeros(1 + lead, dtype=torch.int32, device=dev)
+        self.label, self.width = self.ctr[:1], self.ctr[1:]
+        self.step_delta = torch.tensor([1] + [-1] * lead, dtype=torch.int32,
+                                       device=dev)
+        name = p.energy_fn.name if p.energy_fn is not None else "dct"
+        self.graphs = StepGraphs(
+            dev, f"seam step (energy {name!r})",
+            [(k, "launches") for k in KERNELS]) if graphed(dev, p) else None
+        # the vmap record's stream: in the graph, a branch beside the apply
+        # and the strip, which neither read nor write what it touches
+        self.side = torch.cuda.Stream(dev) if self.graphs is not None \
+            else None
+        self.warm = False
+
+    def _find(self, energy: torch.Tensor) -> torch.Tensor:
+        """The seam of each image over its live columns [0, width)."""
+        from ..kernels.dp_kernel import BATCH_KERNEL, KERNEL, _find_seams_cuda
+
+        p = self.p
+        if self.graphs is not None:
+            if energy.ndim == 3:
+                return _find_seams_cuda(BATCH_KERNEL, energy, self.width, 0,
+                                        p.tie)
+            return _find_seams_cuda(KERNEL, energy[None], self.width, 0,
+                                    p.tie)[0]
+        width = self.width if energy.ndim == 3 else self.width[0]
+        return find_seam_plain(mask_energy(energy, width), p.delta_x,
+                               p.rigidity, p.tie).to(torch.int32)
+
+    def _step(self, src: int) -> None:
+        from ..kernels.apply_kernel import apply_seam
+        from ..kernels.strip_kernel import strip_update as update_strip
+
+        p = self.p
+        luma, origcol, energy = self.sets[src]
+        out = self.sets[1 - src]
+        seam = self._find(energy)
+        if self.side is None:
+            self._record(origcol, seam)
+        else:  # the streams of the step's card, whichever card is current
+            main = torch.cuda.current_stream(self.side.device)
+            self.side.wait_stream(main)
+            with torch.cuda.stream(self.side):
+                self._record(origcol, seam)
+        for o, x in zip(out, apply_seam(luma, origcol, energy, seam,
+                                        self.width, out=out,
+                                        use_pallas=p.use_pallas)):
+            if x is not o:  # the plain version returns new tensors
+                o.copy_(x)
+        luma, _, energy = out
+        if not p.strip_update:
+            energy.copy_(full_energy_map(luma, p.blocksize, p.edges,
+                                         p.textures, use_pallas=p.use_pallas,
+                                         energy_fn=p.energy_fn))
+        elif p.energy_fn is not None:
+            _update_strip_fn(luma, energy, seam, p.energy_fn, p.delta_x,
+                             p.use_pallas)
+        else:
+            update_strip(luma, energy, seam, p.blocksize, p.edges,
+                         p.textures, delta_x=p.delta_x,
+                         use_pallas=p.use_pallas)
+        if self.side is not None:
+            main.wait_stream(self.side)
+        self.ctr.add_(self.step_delta)
+
+    def _record(self, origcol: torch.Tensor, seam: torch.Tensor) -> None:
+        """Label the seam's pixels in the vmap at their original columns
+        (src/render.c:204-240)."""
+        orig = origcol.gather(-1, seam[..., None].to(torch.int64))
+        self.vmap.scatter_(-1, orig.to(torch.int64),
+                           self.label.expand(orig.shape))
+
+    def carve(self, state: CarveState, first: int,
+              count: int) -> CarveState:
+        """Seams first+1 .. first+count from `state`, copied into the
+        current set unless it is that set.  The result holds this object's
+        buffers.  Never waits for the device."""
+        W = state.luma.shape[-1]
+        # the windows of every step, checked once on host values
+        if count and not 2 <= state.width - count + 1 <= state.width <= W:
+            raise ValueError(f"cannot remove {count} seams from width "
+                             f"{state.width} (buffer {W})")
+        for dst, x in zip((*self.sets[self.cur], self.vmap),
+                          (state.luma, state.origcol, state.energy,
+                           state.vmap)):
+            if dst.data_ptr() != x.data_ptr():
+                dst.copy_(x)
+        self.label.fill_(first + 1)
+        self.width.fill_(state.width)
+        for _ in range(count):
+            if self.graphs is not None and self.warm:
+                if not self.graphs.captured:
+                    self.graphs.capture(self._step, (self.cur, 1 - self.cur))
+                self.graphs.replay(self.cur)
+            else:
+                self._step(self.cur)
+                self.warm = True
+            self.cur ^= 1
+        luma, origcol, energy = self.sets[self.cur]
+        return CarveState(luma, origcol, self.vmap, state.width - count,
+                          energy)
+
+
+# The step cache, the counterpart of jax.jit's compile cache: the last
+# CACHE_KEYS graphed steps by key, each with its buffer sets and captured
+# graphs, so the next carve of a shape on the card replays from its first
+# seam.  A carve takes its step out of the cache and puts it back when it
+# ends, so two threads never share one step's buffers.  Steps that capture
+# no graph are never kept: they gain nothing from it.  A step whose two
+# sets and vmap pass CACHE_MAX_BYTES (the batch route at 256 1-Mpix images:
+# ~3.2 GB a set) is made for its carve alone and captured again the next
+# time, a few ms against its ~500 ms.  Both limits are a first guess, not
+# fitted to traffic; what the cache holds stays allocated until
+# clear_step_cache().
+CACHE_KEYS = 2
+CACHE_MAX_BYTES = 1 << 30
+_CACHE: OrderedDict = OrderedDict()
+_CACHE_LOCK = threading.Lock()
+
+
+def step_key(luma: torch.Tensor, p: StepParams) -> tuple:
+    """The cache key of a carve of `luma`-shaped buffers with `p`."""
+    return (p, tuple(luma.shape), luma.dtype, luma.device)
+
+
+def clear_step_cache() -> None:
+    """Drop every cached step, its buffers and its graphs."""
+    with _CACHE_LOCK:
+        _CACHE.clear()
+
+
+def _take_steps(luma: torch.Tensor, p: StepParams) -> SeamSteps | None:
+    """Take the cached step for `luma`-shaped buffers and `p` out of the
+    cache, made (with empty buffers) on a miss; None where the step would
+    not be graphed or its sets and vmap would pass CACHE_MAX_BYTES."""
+    if not graphed(luma.device, p):
+        return None
+    with _CACHE_LOCK:
+        steps = _CACHE.pop(step_key(luma, p), None)
+    if steps is None:
+        n = luma.numel()
+        # two sets of luma, int32 origcol and f32 energy; an int32 vmap
+        if 2 * n * (luma.element_size() + 8) + 4 * n > CACHE_MAX_BYTES:
+            return None
+        plane = torch.empty(luma.shape, dtype=torch.int32,
+                            device=luma.device)
+        steps = SeamSteps(CarveState(
+            torch.empty_like(luma), plane, torch.empty_like(plane),
+            luma.shape[-1], torch.empty(luma.shape, dtype=torch.float32,
+                                        device=luma.device)), p)
+    return steps
+
+
+def _keep_steps(key: tuple, steps: SeamSteps) -> None:
+    with _CACHE_LOCK:
+        _CACHE[key] = steps
+        while len(_CACHE) > CACHE_KEYS:
+            _CACHE.popitem(last=False)
+
+
+def _run(steps: SeamSteps, cached: bool, state: CarveState, first: int,
+         counts):
+    """Yield the state after each chunk of `counts` seams.  A cached
+    step's buffers are copied out, so that what is yielded aliases none,
+    and the step goes back into the cache after the last chunk."""
+    key = step_key(state.luma, steps.p)
+    for count in counts:
+        state = steps.carve(state, first, count)
+        first += count
+        if cached:
+            state = CarveState(state.luma.clone(), state.origcol.clone(),
+                               state.vmap.clone(), state.width,
+                               state.energy.clone())
+        yield state
+    if cached:
+        _keep_steps(key, steps)
+
+
+def _params(blocksize, edges, textures, strip_update, use_pallas, delta_x,
+            rigidity, tie, energy_fn) -> StepParams:
+    check_tie(tie)
+    return StepParams(int(blocksize), float(edges), float(textures),
+                      bool(strip_update), bool(use_pallas), int(delta_x),
+                      float(rigidity), tie, energy_fn)
+
+
+def carve_chunks(state: CarveState, first: int, counts, blocksize: int,
+                 edges, textures, strip_update: bool = True,
+                 use_pallas: bool = True, delta_x: int = 1,
+                 rigidity: float = 0.0, tie: str = "leftmost",
+                 energy_fn=None):
+    """Remove seams from `state`, whose buffers the carve owns, from seam
+    first+1 on, in chunks of `counts` seams, and yield the state after each
+    chunk.  Every chunk runs through one step of the state's shape and
+    knobs (`SeamSteps`; a cached one replays the graphs it captured before,
+    and a carve's chunks share one capture).  What it yields aliases no
+    cached buffer.  Never waits for the device."""
+    p = _params(blocksize, edges, textures, strip_update, use_pallas,
+                delta_x, rigidity, tie, energy_fn)
+    steps = _take_steps(state.luma, p)
+    return _run(steps or SeamSteps(state, p), steps is not None, state,
+                first, counts)
+
+
 def carve_seams(state: CarveState, first: int, count: int, blocksize: int,
                 edges, textures, strip_update: bool = True,
                 use_pallas: bool = True, delta_x: int = 1,
                 rigidity: float = 0.0, tie: str = "leftmost",
                 energy_fn=None) -> CarveState:
-    """Remove seams first+1 .. first+count from `state`, whose buffers the
-    carve owns (the kernels write into a spare set, and the sets swap every
-    seam).  Never waits for the device."""
-    spare = None
-    for k in range(first + 1, first + count + 1):
-        new = _one_seam(state, k, blocksize, edges, textures, strip_update,
-                        use_pallas, delta_x, rigidity, tie, out=spare,
-                        energy_fn=energy_fn)
-        spare = (state.luma, state.origcol, state.energy)
-        state = new
+    """Remove seams first+1 .. first+count from `state` (`carve_chunks`
+    with one chunk)."""
+    for state in carve_chunks(state, first, (count,), blocksize, edges,
+                              textures, strip_update, use_pallas, delta_x,
+                              rigidity, tie, energy_fn):
+        pass
     return state
 
 
@@ -300,12 +536,12 @@ def carve_n_seams(luma: torch.Tensor, n_seams: int, blocksize: int, edges,
     `vmap` (`reconstruct_removed` / `reconstruct_enlarged`).  The first
     energy map is computed in full; later seams use strip updates when
     enabled.  `use_pallas`: hand-written kernels for CUDA tensors (the plain
-    versions run for CPU tensors, or on the card when False).
-    `delta_x`/`rigidity` other than (1, 0) take the plain DP.  `energy_fn`:
-    a plugged `EnergyFunction` replacing the DCT energy (`blocksize`,
-    `edges` and `textures` are then unused).
+    versions run for CPU tensors, or on the card when False); on a card
+    with the kernels every seam after the first is a CUDA graph replay
+    (`SeamSteps`).  `delta_x`/`rigidity` other than (1, 0) take the plain
+    DP.  `energy_fn`: a plugged `EnergyFunction` replacing the DCT energy
+    (`blocksize`, `edges` and `textures` are then unused).
     """
-    check_tie(tie)
     if luma.ndim not in (2, 3):
         raise ValueError(f"luma must be (H, W) or (B, H, W), got "
                          f"{tuple(luma.shape)}")
@@ -314,17 +550,29 @@ def carve_n_seams(luma: torch.Tensor, n_seams: int, blocksize: int, edges,
         raise ValueError(f"delta_x must be >= 1, got {delta_x}")
     if not 0 <= n_seams < W:
         raise ValueError(f"cannot remove {n_seams} seams from width {W}")
-    state = make_state(luma.clone())
-    state = state._replace(energy=full_energy_map(
-        state.luma, blocksize, edges, textures, use_pallas=use_pallas,
-        energy_fn=energy_fn))
     # strips wider than the buffer would index out of bounds: full
     # recompute for tiny images
     strip_update = strip_update and strip_fits(W, blocksize, delta_x,
                                                energy_fn)
-    return carve_seams(state, 0, n_seams, blocksize, edges, textures,
-                       strip_update, use_pallas, delta_x, rigidity, tie,
-                       energy_fn)
+    p = _params(blocksize, edges, textures, strip_update, use_pallas,
+                delta_x, rigidity, tie, energy_fn)
+    steps = _take_steps(luma, p)
+    if steps is None:
+        state = make_state(luma.clone())
+    else:  # the first state straight into the step's current set
+        lum, origcol, energy = steps.sets[steps.cur]
+        lum.copy_(luma)
+        origcol.copy_(torch.arange(W, dtype=torch.int32, device=luma.device)
+                      .expand(luma.shape))
+        steps.vmap.zero_()
+        state = CarveState(lum, origcol, steps.vmap, W, energy)
+    state = state._replace(energy=full_energy_map(
+        state.luma, blocksize, edges, textures, use_pallas=use_pallas,
+        energy_fn=energy_fn))
+    for state in _run(steps or SeamSteps(state, p), steps is not None,
+                      state, 0, (n_seams,)):
+        pass
+    return state
 
 
 def reconstruct_removed(image: torch.Tensor, vmap: torch.Tensor,

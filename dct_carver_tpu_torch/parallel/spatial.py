@@ -53,9 +53,7 @@ and `measure_collectives_per_seam` counts the exchanges of a real seam step.
 
 from __future__ import annotations
 
-import contextlib
 import math
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -69,6 +67,7 @@ from ..ops.carve import (ShardOffset, _update_strip_fn, full_energy_map,
                          strip_fits)
 from ..ops.dp import check_tie
 from ..ops.energy_fn import resolve_energy
+from ..utils.graphs import StepGraphs
 from .mesh import make_mesh
 from .shards import ShardMesh
 
@@ -451,10 +450,15 @@ class _SeamSteps:
         dev = devices.pop() if len(devices) == 1 else None
         self.graph_device = dev if p.use_pallas and dev is not None \
             and dev.type == "cuda" else None
-        # src set -> (graph, [(kernel, launches)], exchanges) of one step
-        self.graphs = None
+        name = p.energy_fn.name if p.energy_fn is not None else "dct"
+        self.graphs = StepGraphs(
+            self.graph_device, f"spatial seam step (energy {name!r})",
+            [*((k, "launches") for k in KERNELS), (mesh, "exchanges")])
         self.warm = False
-        self.capture_seconds = 0.0
+
+    @property
+    def capture_seconds(self) -> float:
+        return self.graphs.capture_seconds
 
     def set_width(self, width: int) -> None:
         """The logical width that the next step starts from."""
@@ -469,62 +473,10 @@ class _SeamSteps:
             w.sub_(1)
             nw.sub_(1)
 
-    def _capture(self) -> None:
-        t = time.perf_counter()
-        dev = self.graph_device
-        torch.cuda.synchronize(dev)
-        pool = torch.cuda.graph_pool_handle()
-        graphs = {}
-        for src in (self.cur, 1 - self.cur):
-            launches = [k.launches for k in KERNELS]
-            exchanges = self.mesh.exchanges
-            graph = torch.cuda.CUDAGraph()
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            try:
-                with torch.cuda.device(dev), torch.cuda.stream(side):
-                    graph.capture_begin(pool=pool)
-                    try:
-                        self._step(src)
-                    except BaseException:
-                        with contextlib.suppress(RuntimeError):
-                            graph.capture_end()
-                        raise
-                    graph.capture_end()
-            except Exception as e:
-                name = (self.p.energy_fn.name if self.p.energy_fn is not None
-                        else "dct")
-                raise RuntimeError(
-                    f"spatial seam step (energy {name!r}): its CUDA graph "
-                    f"capture failed: {e}.  Every op of the step, a plugged "
-                    "energy's bands_fn included, must run on the card "
-                    "without waiting for it, as JAX needs the step to trace "
-                    "under jit") from e
-            finally:
-                deltas = [(k, k.launches - n)
-                          for k, n in zip(KERNELS, launches)
-                          if k.launches != n]
-                exchanged = self.mesh.exchanges - exchanges
-                for k, n in zip(KERNELS, launches):
-                    k.launches = n
-                self.mesh.exchanges = exchanges
-            torch.cuda.current_stream(dev).wait_stream(side)
-            graphs[src] = (graph, deltas, exchanged)
-        self.graphs = graphs
-        self.capture_seconds += time.perf_counter() - t
-
     def _replay(self, src: int) -> None:
-        if self.graphs is None:
-            self._capture()
-        graph, launches, exchanges = self.graphs[src]
-        try:
-            graph.replay()
-        except RuntimeError as e:
-            raise RuntimeError(f"spatial seam step: CUDA graph replay "
-                               f"failed: {e}") from e
-        for k, n in launches:
-            k.launches += n
-        self.mesh.exchanges += exchanges
+        if not self.graphs.captured:
+            self.graphs.capture(self._step, (self.cur, 1 - self.cur))
+        self.graphs.replay(src)
 
     def carve(self, st: SpatialCarveState, base: int,
               count: int) -> SpatialCarveState:

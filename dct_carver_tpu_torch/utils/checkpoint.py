@@ -100,7 +100,7 @@ def carve_resumable(luma, n_seams: int, config: CarverConfig, *,
     carve runs (default: `luma`'s device, else the first CUDA card).  A
     resumed carve takes the checkpoint's config.
     """
-    from ..ops.carve import (carve_seams, full_energy_map, make_state,
+    from ..ops.carve import (carve_chunks, full_energy_map, make_state,
                              strip_fits)
 
     if device is None:
@@ -133,12 +133,13 @@ def carve_resumable(luma, n_seams: int, config: CarverConfig, *,
         from .i18n import _ as _t
 
         progress.init(_t("Resizing width..."))
-    while done < n_seams:
-        count = min(chunk, n_seams - done)
-        state = carve_seams(state, done, count, config.blocksize,
-                            config.edges, config.textures, strip,
-                            config.use_pallas, config.delta_x,
-                            config.rigidity, config.tie, energy_fn)
+    counts = [min(chunk, n_seams - d) for d in range(done, n_seams, chunk)]
+    # one seam step, and on a card one capture, for every chunk
+    chunks = carve_chunks(state, done, counts, config.blocksize,
+                          config.edges, config.textures, strip,
+                          config.use_pallas, config.delta_x,
+                          config.rigidity, config.tie, energy_fn)
+    for count, state in zip(counts, chunks):
         if state.luma.is_cuda:
             torch.cuda.synchronize(state.luma.device)
         done += count

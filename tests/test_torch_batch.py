@@ -364,7 +364,8 @@ def test_batched_state_from_jax_continues_in_port(make_image):
         assert back[name].dtype == v.dtype and back[name].shape == v.shape
         np.testing.assert_array_equal(back[name], v)
     for i in range(k, n):
-        state = tcarve._one_seam(state, i + 1, 8, 0.0, 1.0, strip_update=True)
+        state = tcarve.carve_seams(state, i, 1, 8, 0.0, 1.0,
+                                   strip_update=True)
     assert state.width == 32 - n
     np.testing.assert_array_equal(state.vmap.numpy(), np.asarray(end.vmap))
     np.testing.assert_array_equal(state.luma.numpy(), np.asarray(end.luma))

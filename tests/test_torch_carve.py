@@ -171,7 +171,7 @@ def test_one_seam_from_a_jax_mid_carve_state():
         assert back[k].dtype == v.dtype
         np.testing.assert_array_equal(back[k], v)
 
-    got = tcarve._one_seam(state, m + 1, 8, 0.3, 0.7, strip_update=True)
+    got = tcarve.carve_seams(state, m, 1, 8, 0.3, 0.7, strip_update=True)
     live = 64 - m - 1
     assert got.width == int(nxt.width) == live
     np.testing.assert_array_equal(got.vmap.numpy(), np.asarray(nxt.vmap))
