@@ -27,7 +27,18 @@ launch counters and the graph replays read around each, compared element
 for element with the plain path on the card, the graphed carve's luma,
 vmap and energy with the eager kernel carve's and the plain path's, and
 the carve on the card with the CPU on a small image; then a bidirectional
-4K resize at n=16.  Phase 3 runs the batch route (BASELINE
+4K resize at n=16.  Phase 2d, run last, drives the interactive
+retargeter and the browser UI on phase 2's image: a 384-seam `InteractiveRetargeter`, first
+and warm, with the launch counters and the graph replays read around it,
+its vmap and slides against phase 2's carves and against `api.carve` on
+the card (removal and insertion), its vmap unchanged by later carves of
+its step key, a vertical and a grad_norm retargeter (their strip gather
+and scatter counted) against `api.carve`, the server on 127.0.0.1 in a
+thread with every endpoint against the in-process result, a
+`debug_mode(disable_jit=True)` carve (no replay, the kernels launching)
+against the graphed one, a NaN check raising on the card, and
+`profile_carve`'s trace; it times the precompute, `at_width` and the
+`/resize.png` round trip.  Phase 3 runs the batch route (BASELINE
 config 4's images): the batched kernels against their plain versions on 8
 1024x1024 planes, a 128-seam `api.carve(parallel="batch")` of 8 RGB images
 with the launch counters read around it, compared with the plain path and
@@ -113,6 +124,11 @@ PLAIN_SEAMS_8K = 4         # the plain spatial path is ~0.3 s a seam at 8K
 SEAMS_5C = 16              # phase 5c: 1080p carves on the spatial route
 TIMED_PAIRS_8K = 3         # phase 5b: spatial and single-device 8K carves
 CAPTURE_SAMPLES = 30      # phase 2: first carves timed for their capture
+RT_SEAMS = 384             # phase 2d: the retargeter's range, 20 % of W
+RT_SIDE = 64               # phase 2d: the vertical and grad_norm ranges
+RT_REPS = 20               # phase 2d: timed slides a width
+UI_REPS = 5                # phase 2d: timed /resize.png round trips (a
+# random-noise PNG takes Pillow ~0.35 s to encode)
 CHUNKED_SEAMS_8K = 16      # phase 5b: the chunked 8K carve and the counts
 # under replay
 # phase 1c: rows wider than one thread block (MAX_WIDTH) and planes taller
@@ -1178,6 +1194,267 @@ def phase_3(dev, chk: Checks, card: str, rng, times: dict) -> list:
         log(f"    {us / 1e3:10.4f} ms  {count:5d} x  {name[:90]}")
 
     return [launches, big_launches]
+
+
+def phase_2d(dev, chk: Checks, card: str, rng, img, res, plain) -> list:
+    """The interactive retargeter and the browser UI on the card, on phase
+    2's image, its kernel carve `res` and its plain carve `plain`; returns
+    the launch counts of the main-path runs (the 384-seam precompute, the
+    vertical one and the grad_norm one)."""
+    import io
+    import json as _json
+    import os
+    import statistics
+    import tempfile
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import torch
+    from PIL import Image
+
+    from dct_carver_tpu_torch import api, kernels
+    from dct_carver_tpu_torch.models.carver import Carver
+    from dct_carver_tpu_torch.models.retarget import InteractiveRetargeter
+    from dct_carver_tpu_torch.ops.carve import carve_n_seams, clear_step_cache
+    from dct_carver_tpu_torch.ops.energy import to_luma
+    from dct_carver_tpu_torch.ui import server
+    from dct_carver_tpu_torch.utils.debug import debug_mode
+    from dct_carver_tpu_torch.utils.image import seam_overlay
+    from dct_carver_tpu_torch.utils.profiling import profile_carve
+
+    def same(a, b, what):
+        chk.require(a.shape == b.shape and a.dtype == b.dtype
+                    and np.array_equal(a, b), what)
+
+    def precompute(what, n, want, replays_want, **kw):
+        """A retargeter over `img` with `n` seams, its launches and graph
+        replays counted from 0 and checked; (retargeter, launches, s)."""
+        kernels.reset_launches()
+        with count_replays() as replays:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rt = InteractiveRetargeter(img, n, device="cuda", **kw)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t
+        got = kernels.launch_counts()
+        sub = {k: got[k] for k in want}
+        chk.require(sub == want, f"{what}: launches {sub}")
+        chk.require(replays[0] == replays_want,
+                    f"{what}: {replays[0]} graph replays (want "
+                    f"{replays_want})")
+        return rt, got, sec
+
+    def dct_launches(width, n):
+        return {**dp_launches(1, width, n), "energy": 1, "apply": n,
+                "strip": n, "strip_gather": 0, "strip_scatter": 0,
+                "band_energy": 0}
+
+    log(f"phase 2d: InteractiveRetargeter({H}x{W}x3, {RT_SEAMS}) on the "
+        "card, its slides against api.carve, and the browser UI")
+    t_phase = time.perf_counter()
+    clear_step_cache()
+    rt, launches, first_s = precompute(
+        f"{RT_SEAMS}-seam precompute (first)", RT_SEAMS,
+        dct_launches(W, RT_SEAMS), RT_SEAMS - 1)
+    rt, _, warm_s = precompute(
+        f"{RT_SEAMS}-seam precompute (warm)", RT_SEAMS,
+        dct_launches(W, RT_SEAMS), RT_SEAMS)
+    runs = [launches]
+    vm = rt.visibility_map
+    same(np.where(vm <= SEAMS, vm, 0), plain.visibility_map,
+         f"retargeter vmap masked to <= {SEAMS} == phase 2's plain vmap")
+    same(rt.at_width(W - SEAMS), plain.image,
+         f"at_width(W - {SEAMS}) == phase 2's plain image")
+    same(rt.at_width(W - SEAMS), res.image,
+         f"at_width(W - {SEAMS}) == phase 2's kernel image")
+    same(rt.at_width(W), img, "at_width(W) == the image")
+    for s in (-1, -RT_SEAMS // 2, -RT_SEAMS, 1, SEAMS, RT_SEAMS):
+        same(rt.at_width(W + s), api.carve(img, s, device="cuda").image,
+             f"at_width(W {s:+d}) == api.carve({s:+d}) on the card")
+
+    # the retargeter keeps its vmap for its whole life: a later carve of
+    # the same step key (one more image) must not write into it
+    before = rt.visibility_map
+    other = rng.integers(0, 256, (H, W, 3), dtype=np.uint8)
+    api.carve(other, -RT_SEAMS, device="cuda")
+    carve_n_seams(to_luma(torch.from_numpy(other).to(dev)), RT_SEAMS, 8, 0.0,
+                  1.0)
+    torch.cuda.synchronize()
+    same(rt.visibility_map, before,
+         "retargeter vmap unchanged by two later carves of its step key")
+
+    for what, kw, width, ss, want in (
+            ("vertical", dict(vertical=True), H, (-RT_SIDE, RT_SIDE // 2),
+             dct_launches(H, RT_SIDE)),
+            ("grad_norm", dict(energy="grad_norm"), W,
+             (-RT_SIDE, 3 * RT_SIDE // 4),
+             {**dp_launches(1, W, RT_SIDE), "apply": RT_SIDE,
+              "strip_gather": RT_SIDE, "strip_scatter": RT_SIDE,
+              "energy": 0, "strip": 0, "band_energy": 0})):
+        clear_step_cache()
+        other_rt, launches, sec = precompute(
+            f"{what} {RT_SIDE}-seam precompute", RT_SIDE, want, RT_SIDE - 1,
+            **kw)
+        runs.append(launches)
+        carve_kw = ({"vertically": True} if kw.get("vertical")
+                    else {"energy": "grad_norm"})
+        for s in ss:
+            same(other_rt.at_width(width + s),
+                 api.carve(img, s, device="cuda", **carve_kw).image,
+                 f"{what} retargeter at_width({width} {s:+d}) == "
+                 "api.carve on the card")
+        log(f"  {what} {RT_SIDE}-seam precompute: {sec * 1e3!r} ms, the "
+            f"capture included ({card})")
+
+    # timing: the precompute, the slides and the UI's round trip
+    def median_ms(fn, reps):
+        fn()
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            walls.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(walls), min(walls), max(walls)
+
+    slide = {s: median_ms(lambda s=s: rt.at_width(W + s), RT_REPS)
+             for s in (-RT_SEAMS // 2, RT_SEAMS // 2)}
+    log(f"  {RT_SEAMS}-seam precompute of {H}x{W}x3 n=8: first "
+        f"{first_s * 1e3!r} ms (capture included), warm {warm_s * 1e3!r} ms "
+        f"({card})")
+    for s, (med, lo, hi) in slide.items():
+        log(f"  at_width(W {s:+d}), host result included: median {med!r} ms "
+            f"of {RT_REPS} (min {lo!r}, max {hi!r}) ({card})")
+
+    # the UI over a socket, every endpoint against the in-process result
+    def png(data):
+        return np.asarray(Image.open(io.BytesIO(data)))
+
+    def request(base, path, body=None):
+        data = None if body is None else _json.dumps(body).encode()
+        req = urllib.request.Request(
+            base + path, data=data, method="GET" if body is None else "POST")
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    old_state_dir = os.environ.get("DCT_CARVER_STATE_DIR")
+    with tempfile.TemporaryDirectory(prefix="dct_carver_smoke_") as tmp:
+        os.environ["DCT_CARVER_STATE_DIR"] = os.path.join(tmp, "state")
+        app = server.CarverApp(img, device="cuda")
+        srv = server.make_server(app, "127.0.0.1", 0)
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        base = "http://%s:%d" % srv.server_address
+        try:
+            status, body = request(base, "/api/meta")
+            chk.require(status == 200 and _json.loads(body) == app.meta(),
+                        "UI /api/meta == CarverApp.meta()")
+            status, body = request(base, "/image.png")
+            same(png(body), img, "UI /image.png == the image")
+            status, body = request(base, "/preview.png?blocksize=8&"
+                                         "slider=1.0")
+            same(png(body), Carver(img, blocksize=8, device="cuda")
+                 .energy_preview(), "UI /preview.png == Carver.energy_"
+                                    "preview on the card")
+            status, _ = request(base, "/resize.png?delta=-3")
+            chk.require(status == 409, "UI /resize.png before a precompute:"
+                                       f" {status} (want 409)")
+            status, body = request(base, "/api/precompute", {
+                "max_seams": RT_SEAMS, "blocksize": 8, "slider": 1.0,
+                "vertical": False})
+            chk.require(status == 200 and _json.loads(body)["max_seams"]
+                        == RT_SEAMS, "UI /api/precompute")
+            for delta, s in ((-RT_SEAMS // 2, -RT_SEAMS // 2), (0, 0),
+                             (RT_SEAMS, RT_SEAMS), (-10**6, -RT_SEAMS),
+                             (10**6, RT_SEAMS)):
+                status, body = request(base, f"/resize.png?delta={delta}")
+                same(png(body), rt.at_width(W + s),
+                     f"UI /resize.png?delta={delta} == at_width(W {s:+d})")
+            status, body = request(base, "/api/carve", {
+                "seams_number": -SEAMS, "blocksize": 8, "slider": 1.0,
+                "output_energy": True, "output_seams": True})
+            urls = _json.loads(body)["urls"] if status == 200 else {}
+            chk.require(set(urls) == {"result", "energy", "seams"},
+                        f"UI /api/carve: {status} {sorted(urls)}")
+            for name, want in (("result", res.image),
+                               ("energy", res.energy_image),
+                               ("seams", seam_overlay(img,
+                                                      res.visibility_map))):
+                status, body = request(base, f"/out/{name}.png")
+                same(png(body), want, f"UI /out/{name}.png == phase 2's "
+                                      "kernel carve")
+            status, _ = request(base, "/nope")
+            chk.require(status == 404, f"UI /nope: {status} (want 404)")
+            trips = {d: median_ms(lambda d=d: request(
+                base, f"/resize.png?delta={d}"), UI_REPS)
+                for d in (-RT_SEAMS // 2, RT_SEAMS // 2)}
+            enc = median_ms(lambda: server._png_bytes(rt.at_width(
+                W - RT_SEAMS // 2)), UI_REPS)
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            thread.join(timeout=60)
+            if old_state_dir is None:
+                os.environ.pop("DCT_CARVER_STATE_DIR", None)
+            else:
+                os.environ["DCT_CARVER_STATE_DIR"] = old_state_dir
+    chk.require(not thread.is_alive(), "UI server thread stopped")
+    for d, (med, lo, hi) in trips.items():
+        log(f"  UI /resize.png?delta={d:+d} round trip: median {med!r} ms of "
+            f"{UI_REPS} (min {lo!r}, max {hi!r}) ({card})")
+    log(f"  of which at_width(W - {RT_SEAMS // 2}) + PNG encode on the host:"
+        f" median {enc[0]!r} ms ({card})")
+
+    # debug modes: every seam step eager (no replay), the kernels still
+    # launching; NaN checks on the card
+    x = to_luma(torch.from_numpy(img).to(dev))
+    graphed = carve_n_seams(x, SEAMS, 8, 0.0, 1.0)
+    kernels.reset_launches()
+    with count_replays() as replays, debug_mode(nan_checks=False,
+                                                disable_jit=True):
+        eager = carve_n_seams(x, SEAMS, 8, 0.0, 1.0)
+        torch.cuda.synchronize()
+    got = kernels.launch_counts()
+    chk.require(replays[0] == 0 and got["apply"] == SEAMS
+                and got["strip"] == SEAMS,
+                f"debug_mode(disable_jit=True) carve: {replays[0]} replays, "
+                f"apply {got['apply']}, strip {got['strip']} launches")
+    hold_graphed(chk, f"debug_mode(disable_jit=True) {SEAMS} seams", graphed,
+                 (eager.luma, eager.vmap, eager.energy))
+    with debug_mode():
+        checked = carve_n_seams(x, 8, 8, 0.0, 1.0)
+        z = torch.zeros(4, device=dev)
+        try:
+            z / z
+            raised = False
+        except FloatingPointError:
+            raised = True
+    chk.require(raised, "debug_mode(): x / x on the card raises")
+    chk.equal("carve", "debug_mode() 8 seams (checked every seam) vmap",
+              checked.vmap, carve_n_seams(x, 8, 8, 0.0, 1.0).vmap)
+
+    for _ in range(4):  # a trace that comes back empty is taken again
+        with tempfile.TemporaryDirectory(prefix="dct_carver_trace_") as tmp:
+            traced = profile_carve(x.cpu().numpy(), 16, 8, log_dir=tmp)
+            files = os.listdir(tmp)
+            kernels_traced = 0
+            if len(files) == 1:
+                with open(os.path.join(tmp, files[0])) as f:
+                    kernels_traced = sum(e.get("cat") == "kernel" for e in
+                                         _json.load(f)["traceEvents"])
+        if kernels_traced:
+            break
+    chk.require(len(files) == 1 and kernels_traced > 0,
+                f"profile_carve wrote {files} with {kernels_traced} kernel "
+                "events")
+    chk.equal("carve", "profile_carve 16 seams vmap", traced.vmap,
+              carve_n_seams(x, 16, 8, 0.0, 1.0).vmap)
+    log(f"  phase 2d took {time.perf_counter() - t_phase!r} s")
+    return runs
 
 
 def phase_4a(dev, chk: Checks, card: str, rng, times: dict) -> None:
@@ -2530,6 +2807,9 @@ def main() -> int:
     energy_launches = phase_4(dev, chk, card, rng, k_rate)
     phase_5a(dev, chk, card, rng, times)
     spatial_launches = phase_5(dev, chk, card, rng)
+    # last: after one of its runs torch.profiler recorded no device time in
+    # most later sessions (PERF.md §7), so nothing is profiled after it
+    retarget_launches = phase_2d(dev, chk, card, rng, img, res, plain)
 
     if chk.failures:
         print("chip_smoke FAILED:\n  " + "\n  ".join(chk.failures),
@@ -2537,11 +2817,11 @@ def main() -> int:
         return 1
     # each kernel's launches on the main paths, each run counted from 0:
     # the wide carve of phase 1c, the single-image carve of phase 2, the
-    # batch carves of phases 3b and 3c, the plugged-energy carves of phase 4b
+    # retargeter's precomputes of phase 2d, the batch carves of phases 3b and 3c, the plugged-energy carves of phase 4b
     # (grad_norm) and 4c (batch), and the spatial carves of phase 5b (8K
     # over 4 shards, small shards) and 5c (grad_norm)
-    runs = (wide_launches, launches, *batch_launches, *energy_launches,
-            *spatial_launches)
+    runs = (wide_launches, launches, *retarget_launches, *batch_launches,
+            *energy_launches, *spatial_launches)
     rows = []
     for k in kernels.KERNELS:
         bound_ms, bound_by = bound(*BOUNDS[k.name])

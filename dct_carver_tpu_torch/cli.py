@@ -9,9 +9,7 @@ package's compilation cache).  It is the counterpart of the JAX CLI running
 wherever `JAX_PLATFORMS` points: with no card visible the CLI raises unless
 `--device cpu` asks for the CPU.  `--spatial` / `--parallel spatial`
 column-shard the image over every visible card (`parallel/spatial.py`), or
-over one CPU shard with `--device cpu`.  The `interactive` and `ui`
-commands stay in the parser and raise `NotImplementedError` naming the
-modules they wait for.
+over one CPU shard with `--device cpu`.
 
 Usage examples:
     python -m dct_carver_tpu_torch.cli carve in.png out.png --seams -64
@@ -21,6 +19,9 @@ Usage examples:
     python -m dct_carver_tpu_torch.cli batch in_dir/ out_dir/ --seams 32
     python -m dct_carver_tpu_torch.cli carve pano.png out.png --seams -64 \\
         --parallel spatial
+    python -m dct_carver_tpu_torch.cli interactive in.png out_{w}.png \\
+        --max-seams 64
+    python -m dct_carver_tpu_torch.cli ui in.png --port 8707
 """
 
 from __future__ import annotations
@@ -141,10 +142,8 @@ def main(argv=None) -> int:
                    help="execution route (overrides --spatial)")
     _add_knobs(c)
 
-    it = sub.add_parser(
-        "interactive",
-        help="precompute-once / slide-many retargeting (not ported yet: "
-             "models/retarget.py)")
+    it = sub.add_parser("interactive",
+                        help="precompute-once / slide-many retargeting")
     it.add_argument("input")
     it.add_argument("output_pattern",
                     help="output path with a {w} placeholder, e.g. out_{w}.png")
@@ -169,23 +168,18 @@ def main(argv=None) -> int:
                    help="seams to REMOVE from each image (positive count)")
     _add_knobs(b)
 
-    u = sub.add_parser(
-        "ui",
-        help="interactive browser UI (not ported yet: models/retarget.py "
-             "and ui/)")
+    u = sub.add_parser("ui", help="interactive browser UI")
     u.add_argument("input")
     u.add_argument("--host", default="127.0.0.1")
     u.add_argument("--port", type=int, default=8707)
+    u.add_argument("--device", default="cuda",
+                   help="torch device to run on (default: the first CUDA "
+                        "card; 'cpu' runs on the CPU)")
 
     args = ap.parse_args(argv)
 
     # the CLI (unlike library imports) honors the process locale (LANG)
     set_language_from_env()
-
-    if args.cmd in ("interactive", "ui"):
-        raise NotImplementedError(
-            f"the {args.cmd!r} command is not ported yet: "
-            "models/retarget.py and ui/")
 
     from .utils.image import load_image, save_image, seam_overlay
 
@@ -193,6 +187,36 @@ def main(argv=None) -> int:
         return _run_batch(args)
 
     img = load_image(args.input)
+
+    if args.cmd == "ui":
+        from .ui import serve
+
+        serve(img, host=args.host, port=args.port, device=args.device)
+        return 0
+
+    if args.cmd == "interactive":
+        from .models.retarget import InteractiveRetargeter
+
+        rt = InteractiveRetargeter(
+            img, args.max_seams, blocksize=args.blocksize, edges=args.edges,
+            textures=args.textures, luma=args.luma, delta_x=args.delta_x,
+            rigidity=args.rigidity, vertical=args.vertically,
+            strip_update=not args.no_strip_update, tie=args.tie,
+            energy=args.energy, device=args.device,
+        )
+        dim = img.shape[0] if args.vertically else img.shape[1]
+        widths = args.widths or [
+            dim + d for d in sorted({
+                -args.max_seams, -args.max_seams // 2, 0,
+                args.max_seams // 2, args.max_seams,
+            })
+        ]
+        for w in widths:
+            out = rt.at_width(w)
+            path = args.output_pattern.format(w=w)
+            save_image(path, out)
+            print(f"{path}: {out.shape[1]}x{out.shape[0]}", file=sys.stderr)
+        return 0
 
     if args.cmd == "energy":
         from .models.carver import Carver

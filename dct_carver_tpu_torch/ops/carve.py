@@ -50,12 +50,14 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.debug import check_finite, checks_nans, eager_steps
 from .dct import energy_from_bands, window_offset
 from .dp import check_tie, find_seam as find_seam_plain, mask_energy
 
 __all__ = ["CarveState", "ShardOffset", "make_state", "carve_n_seams",
            "carve_seams", "carve_chunks", "SeamSteps", "StepParams",
-           "step_key", "graphed", "clear_step_cache", "strip_fits",
+           "step_key", "kernel_dp", "graphed", "clear_step_cache",
+           "strip_fits",
            "full_energy_map", "reconstruct_removed", "reconstruct_enlarged"]
 
 
@@ -261,12 +263,19 @@ class StepParams(NamedTuple):
     energy_fn: object  # an EnergyFunction, or None for the DCT energy
 
 
-def graphed(device: torch.device, p: StepParams) -> bool:
-    """Whether a step on `device` with `p` runs as CUDA graph replays: on a
-    card with the kernels and the kernels' DP (delta_x = 1, rigidity =
-    0); every other step runs eagerly and is never captured."""
+def kernel_dp(device: torch.device, p: StepParams) -> bool:
+    """Whether a step on `device` with `p` finds its seam with the
+    find-seam kernels: on a card with the kernels and the kernels' DP
+    (delta_x = 1, rigidity = 0)."""
     return (device.type == "cuda" and p.use_pallas and p.delta_x == 1
             and p.rigidity == 0.0)
+
+
+def graphed(device: torch.device, p: StepParams) -> bool:
+    """Whether a step on `device` with `p` runs as CUDA graph replays: a
+    `kernel_dp` step outside `utils/debug.py::debug_mode`; every other step
+    runs eagerly and is never captured."""
+    return kernel_dp(device, p) and not eager_steps()
 
 
 class SeamSteps:
@@ -288,7 +297,9 @@ class SeamSteps:
     every later seam is one replay (`utils/graphs.py`), which credits the
     kernels' launch counts with what its capture counted.  CPU tensors,
     `use_pallas=False` and the plain scan DP (other delta_x / rigidity) run
-    the same step eagerly and never capture.  A capture or replay that
+    the same step eagerly and never capture, and so does every step inside
+    `utils/debug.py::debug_mode`, the kernels included; with its NaN checks
+    the state is checked after every seam.  A capture or replay that
     fails raises; nothing falls back to eager steps.
 
     The first set and the vmap are `state`'s buffers, which the step owns
@@ -311,6 +322,7 @@ class SeamSteps:
         self.step_delta = torch.tensor([1] + [-1] * lead, dtype=torch.int32,
                                        device=dev)
         name = p.energy_fn.name if p.energy_fn is not None else "dct"
+        self.kernel_dp = kernel_dp(dev, p)
         self.graphs = StepGraphs(
             dev, f"seam step (energy {name!r})",
             [(k, "launches") for k in KERNELS]) if graphed(dev, p) else None
@@ -325,7 +337,7 @@ class SeamSteps:
         from ..kernels.dp_kernel import BATCH_KERNEL, KERNEL, _find_seams_cuda
 
         p = self.p
-        if self.graphs is not None:
+        if self.kernel_dp:
             if energy.ndim == 3:
                 return _find_seams_cuda(BATCH_KERNEL, energy, self.width, 0,
                                         p.tie)
@@ -395,7 +407,8 @@ class SeamSteps:
                 dst.copy_(x)
         self.label.fill_(first + 1)
         self.width.fill_(state.width)
-        for _ in range(count):
+        nan_checks = checks_nans()
+        for k in range(count):
             if self.graphs is not None and self.warm:
                 if not self.graphs.captured:
                     self.graphs.capture(self._step, (self.cur, 1 - self.cur))
@@ -404,6 +417,11 @@ class SeamSteps:
                 self._step(self.cur)
                 self.warm = True
             self.cur ^= 1
+            if nan_checks:  # the kernels' writes, which no torch op sees
+                luma, origcol, energy = self.sets[self.cur]
+                check_finite(CarveState(luma, origcol, self.vmap,
+                                        state.width - k - 1, energy),
+                             f"after seam {first + k + 1}")
         luma, origcol, energy = self.sets[self.cur]
         return CarveState(luma, origcol, self.vmap, state.width - count,
                           energy)

@@ -67,6 +67,7 @@ from ..ops.carve import (ShardOffset, _update_strip_fn, full_energy_map,
                          strip_fits)
 from ..ops.dp import check_tie
 from ..ops.energy_fn import resolve_energy
+from ..utils.debug import check_finite, checks_nans, eager_steps
 from ..utils.graphs import StepGraphs
 from .mesh import make_mesh
 from .shards import ShardMesh
@@ -424,9 +425,10 @@ class _SeamSteps:
     on a side stream, one for each direction between the sets: the host
     issues one graph a seam instead of ~420 launches.  A replay credits the
     kernels' launch counts and the mesh's exchange count with what its
-    capture counted.  CPU meshes, `use_pallas=False` and meshes over several
-    cards run every step eagerly.  A capture or replay that fails raises;
-    nothing falls back to eager steps."""
+    capture counted.  CPU meshes, `use_pallas=False`, meshes over several
+    cards and every step inside `utils/debug.py::debug_mode` run eagerly;
+    with its NaN checks the state is checked after every seam.  A capture
+    or replay that fails raises; nothing falls back to eager steps."""
 
     def __init__(self, mesh: ShardMesh, st: SpatialCarveState, p: _Params):
         self.mesh, self.p = mesh, p
@@ -449,7 +451,7 @@ class _SeamSteps:
         devices = {x.device for x in st.luma}
         dev = devices.pop() if len(devices) == 1 else None
         self.graph_device = dev if p.use_pallas and dev is not None \
-            and dev.type == "cuda" else None
+            and dev.type == "cuda" and not eager_steps() else None
         name = p.energy_fn.name if p.energy_fn is not None else "dct"
         self.graphs = StepGraphs(
             self.graph_device, f"spatial seam step (energy {name!r})",
@@ -486,6 +488,7 @@ class _SeamSteps:
         self.set_width(st.width)
         recs = [torch.empty((count, H), dtype=torch.int32, device=o.device)
                 for o in self.orig]
+        nan_checks = checks_nans()
         for k in range(count):
             if self.graph_device is not None and self.warm:
                 self._replay(self.cur)
@@ -495,6 +498,12 @@ class _SeamSteps:
             self.cur ^= 1
             for r, o in zip(recs, self.orig):
                 r[k].copy_(o)
+            if nan_checks:  # the kernels' writes, which no torch op sees
+                planes = self.sets[self.cur]
+                check_finite(SpatialCarveState(
+                    self.mesh.join(planes.luma), None, None, None,
+                    self.mesh.join(planes.energy), st.width - k - 1),
+                    f"after seam {base + k + 1}")
         _record(self.mesh, st.vmap, recs, base)
         planes = self.sets[self.cur]
         return SpatialCarveState(planes.luma, planes.image, planes.origcol,

@@ -199,6 +199,13 @@ def test_port_never_imports_jax():
         "from dct_carver_tpu_torch.kernels import build\n"
         "from dct_carver_tpu_torch.utils import state\n"
         "from dct_carver_tpu_torch.parallel import shards, spatial\n"
+        "from dct_carver_tpu_torch.models import retarget\n"
+        "from dct_carver_tpu_torch.ui import server\n"
+        "from dct_carver_tpu_torch.utils import debug, profiling\n"
+        "rt = retarget.InteractiveRetargeter(np.zeros((16, 24, 3), np.uint8),"
+        " 3, device='cpu')\n"
+        "assert rt.at_width(22).shape == (16, 22, 3)\n"
+        "server.CarverApp(np.zeros((8, 8), np.uint8), device='cpu').meta()\n"
         "img = np.zeros((16, 24, 3), np.uint8)\n"
         "api.carve(img, -2, device='cpu')\n"
         "res = spatial.spatial_carve_n_seams(np.ones((16, 24), np.float32),"
@@ -234,7 +241,7 @@ def test_config_validation():
     assert CarverConfig(energy="dct").radius == 4
 
 
-def test_unported_routes_raise():
+def test_unported_routes_raise(tmp_path, monkeypatch):
     img = np.zeros((2, 16, 16, 3), np.uint8)
     # a stack on the single-image route reaches the Carver, which takes
     # one image (the batch route is tests/test_torch_batch.py)
@@ -245,14 +252,21 @@ def test_unported_routes_raise():
     # the spatial route is ported (tests/test_torch_spatial.py)
     res = tapi.carve(img[0], -2, parallel="spatial", devices=["cpu"] * 2)
     assert res.image.shape == (16, 14, 3)
-    # the interactive and ui commands wait for models/retarget.py and ui/
+    # the interactive and ui commands are ported: on the card by default,
+    # so with no card visible they raise unless --device cpu asks for the
+    # CPU (tests/test_torch_cli.py runs them there)
     from dct_carver_tpu_torch.cli import main as cli_main
+    from dct_carver_tpu_torch.utils.image import save_ppm
 
-    missing = r"not ported yet: models/retarget\.py and ui/"
-    with pytest.raises(NotImplementedError, match=missing):
-        cli_main(["ui", "in.png"])
-    with pytest.raises(NotImplementedError, match=missing):
-        cli_main(["interactive", "in.png", "o_{w}.png", "--max-seams", "2"])
+    inp = str(tmp_path / "in.ppm")
+    save_ppm(inp, img[0])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli_main(["ui", inp, "--port", "0"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli_main(["interactive", inp, str(tmp_path / "o_{w}.ppm"),
+                  "--max-seams", "2"])
+    assert not list(tmp_path.glob("o_*"))
     with pytest.raises(ValueError):
         tapi.carve(img[0], -16, device="cpu")
 

@@ -249,27 +249,46 @@ def test_summary_line_and_overlay(env, make_image, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["interactive", "{inp}", "o_{{w}}.ppm", "--max-seams", "3"], "item 7"),
-    (["ui", "{inp}"], "item 7"),
-    # the labels keep the test ids; the spatial route is ported: these
-    # carve
+    (["interactive", "{inp}", "{pattern}", "--max-seams", "3"], "item 7"),
+    (["ui", "{inp}", "--port", "0"], "item 7"),
+    # the labels keep the test ids; every command is ported: these run
     (["carve", "{inp}", "{out}", "--seams", "-2", "--spatial"], "item 9"),
     (["carve", "{inp}", "{out}", "--seams", "-2", "--parallel", "spatial"],
      "item 9"),
 ])
-def test_unported_commands_raise(argv, item, env, make_image):
+def test_unported_commands_raise(argv, item, env, make_image, monkeypatch):
+    """The commands that once raised run: `interactive` writes the files
+    that the JAX CLI writes, `ui` hands the image and the device to
+    `serve`, and the spatial carves equal `api.carve`."""
     inp, out = env / "in.ppm", env / "o.ppm"
     img = make_image(8, 12, c=3)
     save_ppm(str(inp), img)
-    argv = [a.format(inp=inp, out=out) for a in argv]
-    if item == "item 9":
-        assert tmain(argv) == 0
-        np.testing.assert_array_equal(
-            load_ppm(str(out)), tapi.carve(img, -2, device="cpu").image)
+    argv = [a.format(inp=inp, out=out, pattern=env / "{tag}_{{w}}.ppm")
+            for a in argv]
+    if argv[0] == "interactive":
+        for tag, main in (("t", tmain), ("j", jmain)):
+            assert main([a.format(tag=tag, w="{w}") for a in argv]) == 0
+        for w in (9, 10, 12, 13, 15):  # 12 + {-3, -2, 0, 1, 3}
+            got = load_ppm(str(env / f"t_{w}.ppm"))
+            assert got.shape == (8, w, 3)
+            np.testing.assert_array_equal(got,
+                                          load_ppm(str(env / f"j_{w}.ppm")))
+        assert len([f for f in os.listdir(env) if f.endswith(".ppm")]) == 11
         return
-    with pytest.raises(NotImplementedError,
-                       match=r"not ported yet: models/retarget\.py and ui/"):
-        _tmain(argv)  # `ui` takes no --device
+    if argv[0] == "ui":
+        from dct_carver_tpu_torch import ui
+
+        calls = []
+        monkeypatch.setattr(ui, "serve", lambda image, **kw: calls.append(
+            (image, kw)))
+        assert tmain(argv) == 0
+        (image, kw), = calls
+        np.testing.assert_array_equal(image, img)
+        assert kw == {"host": "127.0.0.1", "port": 0, "device": "cpu"}
+        return
+    assert tmain(argv) == 0
+    np.testing.assert_array_equal(
+        load_ppm(str(out)), tapi.carve(img, -2, device="cpu").image)
 
 
 def test_i18n_opt_in_at_import():

@@ -195,7 +195,7 @@ def sim_card(monkeypatch):
     from dct_carver_tpu_torch.ops.dp import find_seam as plain, mask_energy
 
     asked, waits = [], []
-    monkeypatch.setattr(tcarve, "graphed", lambda device, p: (
+    monkeypatch.setattr(tcarve, "kernel_dp", lambda device, p: (
         p.use_pallas and p.delta_x == 1 and p.rigidity == 0.0))
     monkeypatch.setattr(tgraphs, "StepGraphs", _EagerGraphs)
     monkeypatch.setattr(dp_kernel, "_find_seams_cuda", lambda k, e, w, lo,
