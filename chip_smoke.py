@@ -71,7 +71,15 @@ timed in turns, the capture time and a profile, and drives a small-shard
 carve through `api.carve` (the message form); 5c runs `api.carve` and the
 CLI on the spatial route against the single-image route, enlargement, a
 resumed sharded checkpoint and `energy="grad_norm"`, each counting its
-graph replays.
+graph replays.  Phase 6 runs the spatial route over several processes
+(`parallel/multihost.py`): this script, started again as
+`--multiproc-worker`, once a process (NCCL, one card each, over two to four
+cards; two processes sharing one card over gloo), carves the 8K luma on 4
+global shards with the launch counters read around each process's carve
+and its columns held against the single-device carve, counts exchanges a
+seam, checkpoints each process's shards and resumes them, on the
+processes and on one controller, probes the job, prices one collective
+against the eager one-controller carve, and runs `dryrun_multichip(4)`.
 
 Every kernel's line gives its time, its plain version's, the least time
 the card could take for the same work (`bound_ms`: bytes over 3.35 TB/s
@@ -129,6 +137,14 @@ RT_SIDE = 64               # phase 2d: the vertical and grad_norm ranges
 RT_REPS = 20               # phase 2d: timed slides a width
 UI_REPS = 5                # phase 2d: timed /resize.png round trips (a
 # random-noise PNG takes Pillow ~0.35 s to encode)
+MP_SEAMS = 16              # phase 6: the multi-process 8K carve's seams,
+MP_CHUNK = 5               # its checkpointed chunks,
+MP_TIMED = 8               # and the seams of its marginal timing (8 vs 16)
+MP_SHARDS = 4              # global shards of the multi-process mesh
+MP_SECONDS = 300           # a worker's limit
+MP_FLOOR_REPS = 200        # exchanges of one tiny slice, timed alone
+MP_EAGER_PAIRS = 3         # the eager one-controller timings, each the
+MP_EAGER_SEAMS = 16        # marginal of this many seams and twice as many
 CHUNKED_SEAMS_8K = 16      # phase 5b: the chunked 8K carve and the counts
 # under replay
 # phase 1c: rows wider than one thread block (MAX_WIDTH) and planes taller
@@ -160,6 +176,12 @@ F32_OPS_PER_S = 67e12
 # and add on their own; the DP's adds and minimums have nothing to fuse
 # with), so each takes one issue slot: half the multiply-add rate
 F32_UNFUSED_OPS_PER_S = F32_OPS_PER_S / 2
+
+
+# device_ms calls whose four traces all came back empty, and where the
+# last reading came from: "profiler", or "cuda_events" after such a call
+PROFILER_EMPTY = [0]
+DEVICE_SOURCE_LAST = ["profiler"]
 
 
 def log(msg: str) -> None:
@@ -268,7 +290,12 @@ def device_ms(fn, reps: int, only: str | None = None) -> float:
     """Mean device milliseconds per call of fn() over `reps` calls after
     one warm-up call, under torch.profiler: the device time of the kernels
     the calls launched (with `only`, of those whose name holds it), the
-    host's time between launches left out."""
+    host's time between launches left out.  When four traces in a row
+    record no device time (PERF.md §7: the profiler sometimes stops
+    recording for the rest of a process), the calls are timed between
+    CUDA events instead, the host's gaps included, and with `only` nothing
+    is: None, logged as not measured.  DEVICE_SOURCE_LAST says which the
+    reading is; the kernels' line carries it beside each device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -284,10 +311,25 @@ def device_ms(fn, reps: int, only: str | None = None) -> float:
                  and not e.key.startswith("aten::")
                  and (only is None or only in e.key))
         if us > 0:
-            break
-    else:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return us / reps / 1e3
+            DEVICE_SOURCE_LAST[0] = "profiler"
+            return us / reps / 1e3
+    PROFILER_EMPTY[0] += 1
+    DEVICE_SOURCE_LAST[0] = "cuda_events"
+    if only is not None:
+        log(f"  torch.profiler recorded no device time in 4 traces: "
+            f"{only!r} alone not measured")
+        return None
+    ms = cuda_ms(fn, reps)
+    log(f"  torch.profiler recorded no device time in 4 traces: "
+        f"{ms!r} ms a call between CUDA events instead")
+    return ms
+
+
+def device_reading(fn, reps: int) -> tuple[float, str]:
+    """device_ms(fn, reps) and where it came from ("profiler" or
+    "cuda_events")."""
+    ms = device_ms(fn, reps)
+    return ms, DEVICE_SOURCE_LAST[0]
 
 
 def time_kernel(times: dict, name: str, kernel, plain, reps: int,
@@ -295,13 +337,14 @@ def time_kernel(times: dict, name: str, kernel, plain, reps: int,
     """times[name] = (kernel ms, plain ms) between CUDA events, and the
     kernel's device ms per call into DEVICE."""
     times[name] = (cuda_ms(kernel, reps), cuda_ms(plain, plain_reps))
-    DEVICE[name] = device_ms(kernel, reps)
+    DEVICE[name], DEVICE_SOURCE[name] = device_reading(kernel, reps)
 
 
 def time_library(name: str, fn, reps: int = 50) -> None:
     """The library call's ms between CUDA events and its device ms."""
     LIBRARY[name] = cuda_ms(fn, reps)
-    LIBRARY_DEVICE[name] = device_ms(fn, reps)
+    LIBRARY_DEVICE[name], LIBRARY_DEVICE_SOURCE[name] = device_reading(
+        fn, reps)
 
 
 def device_profile(fn, top: int = 8, host: bool = True,
@@ -673,8 +716,10 @@ def kernel_floor(card: str) -> dict:
         finally:
             graph.capture_end()
     torch.cuda.current_stream().wait_stream(side)
-    floor = {"back_to_back": device_ms(tiny, 200),
-             "in_graph": device_ms(graph.replay, 20) / nodes}
+    b2b, b2b_src = device_reading(tiny, 200)
+    graphed, graphed_src = device_reading(graph.replay, 20)
+    floor = {"back_to_back": b2b, "in_graph": graphed / nodes,
+             "source": sorted({b2b_src, graphed_src})}
     for k in kernels.KERNELS:
         k.launches = counts[k.name]
     log(f"  kernel floor (strip_gather of one 2 x 9 band): back to back "
@@ -1173,17 +1218,17 @@ def phase_3(dev, chk: Checks, card: str, rng, times: dict) -> list:
     seam_b = find_seams(e_b, WB)
     rows, sw = NB_TIMED * HB, 20
     BATCH.update({
-        "energy": (device_ms(lambda: dct_energy(lumas, 8, edges, textures),
-                             3),
+        "energy": (device_reading(
+            lambda: dct_energy(lumas, 8, edges, textures), 3),
                    bound(8 * rows * WB, dct_ops(8, rows, WB, WB))),
-        "strip": (device_ms(lambda: strip_update(lumas, e_b, seam_b, 8, edges,
-                                                 textures), 10),
+        "strip": (device_reading(lambda: strip_update(
+            lumas, e_b, seam_b, 8, edges, textures), 10),
                   bound(4 * (rows * (sw + 7) + rows * sw + rows),
                         dct_ops(8, rows, sw, sw + 7))),
     })
-    for name, (d_ms, (b_ms, b_by)) in BATCH.items():
-        log(f"  {name} at B={NB_TIMED} x {HB}x{WB} n=8: device {d_ms!r} ms, "
-            f"bound {b_ms!r} ms ({b_by}) ({card})")
+    for name, ((d_ms, src), (b_ms, b_by)) in BATCH.items():
+        log(f"  {name} at B={NB_TIMED} x {HB}x{WB} n=8: device {d_ms!r} ms "
+            f"({src}), bound {b_ms!r} ms ({b_by}) ({card})")
     del lumas, e_b, seam_b
 
     wall, kernel_us, top, busy_us = device_profile(run, top=10)
@@ -1834,16 +1879,20 @@ BOUNDS: dict[str, tuple[float, float]] = {}
 DEVICE: dict[str, float] = {}
 LIBRARY: dict[str, float] = {}
 LIBRARY_DEVICE: dict[str, float] = {}
-# the energy and the strip at phase 3c's batch shape: (device ms,
-# (bound ms, bound_by))
-BATCH: dict[str, tuple[float, tuple[float, str]]] = {}
+# where each of those device times came from (device_ms)
+DEVICE_SOURCE: dict[str, str] = {}
+LIBRARY_DEVICE_SOURCE: dict[str, str] = {}
+# the energy and the strip at phase 3c's batch shape: ((device ms, its
+# source), (bound ms, bound_by))
+BATCH: dict[str, tuple[tuple[float, str], tuple[float, str]]] = {}
 # device ms a call with the 50 MB L2 flushed between calls, where a kernel's
 # inputs are cold in the carve
 FLUSHED: dict[str, float] = {}
 # device ms a call of a kernel inside the graphed carve (phase 4b's
-# profiled grad_norm carve), and the floor of a kernel's device time
+# profiled grad_norm carve), and the floor of a kernel's device time (with
+# "source": where its two readings came from)
 IN_GRAPH: dict[str, float] = {}
-FLOOR: dict[str, float] = {}
+FLOOR: dict = {}
 
 
 def phase_5a(dev, chk: Checks, card: str, rng, times: dict) -> None:
@@ -2443,6 +2492,266 @@ def phase_5(dev, chk: Checks, card: str, rng) -> list:
     return [launches, small, plugged]
 
 
+def mp_luma() -> np.ndarray:
+    """Phase 6's 4320 x 7680 luma, the same in every process."""
+    return np.random.default_rng(SEED + 6).random((H8, W8), dtype=np.float32)
+
+
+def mp_layout(count: int) -> tuple[str, int, int]:
+    """Phase 6's (backend, processes, shards a process) for `count` cards:
+    NCCL with one card a process over several cards; on one card two
+    processes over gloo (NCCL refuses two ranks on one card), each staging
+    its exchanges through host memory."""
+    if count >= 2:
+        nproc = min(count, MP_SHARDS)
+        return "nccl", nproc, max(1, MP_SHARDS // nproc)
+    return "gloo", 2, MP_SHARDS // 2
+
+
+def multiproc_worker(rank: int, nproc: int, port: int, backend: str,
+                     workdir: str) -> int:
+    """One process of phase 6: joins the job, carves its shards of the 8K
+    luma with the launch counters and graph replays read around the carve,
+    counts its exchanges a seam, times the carve, checkpoints in chunks
+    and resumes, probes the job, and writes what it saw to
+    result-{rank}.json under `workdir`."""
+    import os
+
+    import torch
+
+    from dct_carver_tpu_torch import kernels
+    from dct_carver_tpu_torch.parallel import multihost
+    from dct_carver_tpu_torch.parallel.shards import shard_mesh
+    from dct_carver_tpu_torch.parallel.spatial import (
+        spatial_carve_n_seams, spatial_carve_seams, spatial_make_state)
+
+    multihost.initialize(f"localhost:{port}", nproc, rank, backend=backend)
+    card = torch.device("cuda", torch.cuda.current_device())
+    devices = [card] * mp_layout(torch.cuda.device_count())[2]
+    luma = torch.from_numpy(mp_luma()).to(card)
+    multihost.barrier("startup")
+    log(f"rank {rank}: {backend}, shards on {card}")
+    out = {"rank": rank, "card": str(card)}
+
+    def carve(n, **kw):
+        res = spatial_carve_n_seams(luma, n, devices=devices, processes=True,
+                                    **kw)
+        torch.cuda.synchronize()
+        return res
+
+    carve(2)  # warm-up: the kernels' first launches, the allocator
+    kernels.reset_launches()
+    with count_replays() as replays:
+        res = carve(MP_SEAMS)
+    out["launches"] = kernels.launch_counts()
+    out["replays"] = replays[0]
+    out["columns"] = list(res.columns)
+    out["width"] = res.width
+    vmap = res.vmap.cpu().numpy()
+    np.save(os.path.join(workdir, f"vmap-{rank}.npy"), vmap)
+
+    st, mesh = spatial_make_state(luma, devices=devices, processes=True)
+    mesh.exchanges = 0
+    spatial_carve_seams(st, mesh, 0, MP_SEAMS)
+    out["exchanges"] = mesh.exchanges
+    del st, mesh
+
+    secs = []
+    for n in (MP_TIMED, 2 * MP_TIMED):
+        multihost.barrier("timed")
+        t = time.perf_counter()
+        carve(n)
+        secs.append(time.perf_counter() - t)
+    out["seconds"] = secs
+    # the fabric's floor: a shift and a sum of a one-float shard, alone
+    floor = shard_mesh(devices, len(devices) * nproc, processes=True)
+    tiny = [torch.zeros((len(devices), 1), device=card)]
+    for name, op in (("shift", floor.from_left), ("psum", floor.psum)):
+        op(tiny)
+        multihost.barrier("floor")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(MP_FLOOR_REPS):
+            op(tiny)
+        torch.cuda.synchronize()
+        out[f"{name}_us"] = (time.perf_counter() - t) / MP_FLOOR_REPS * 1e6
+
+    ck = os.path.join(workdir, "ck")
+    chunked = carve(MP_SEAMS, chunk=MP_CHUNK, checkpoint_dir=ck)
+    out["chunked_equal"] = bool(np.array_equal(chunked.vmap.cpu().numpy(),
+                                               vmap))
+    step = (MP_SEAMS - 1) // MP_CHUNK * MP_CHUNK  # the last chunk saves
+    # nothing
+    with open(os.path.join(ck, f"state-{step:08d}",
+                           f"process-{rank:05d}.json")) as f:
+        out["manifest"] = json.load(f)
+    resumed = carve(MP_SEAMS, resume_from=ck)
+    out["resumed_equal"] = bool(np.array_equal(resumed.vmap.cpu().numpy(),
+                                               vmap))
+    out["health"] = multihost.process_health(timeout=30.0)
+    multihost.barrier("done")
+    with open(os.path.join(workdir, f"result-{rank}.json"), "w") as f:
+        json.dump(out, f)
+    log(f"rank {rank}: done")
+    return 0
+
+
+def phase_6(dev, chk: Checks, card: str) -> list:
+    """The spatial route over several processes (`parallel/multihost.py`,
+    a `ProcessMesh`): the 8K luma of phase 5b on 4 global shards, the
+    processes spawned from this script; then the checkpoint they wrote,
+    resumed on one controller, the eager single-controller carve that
+    prices their exchanges, and `dryrun_multichip`.  Returns each
+    process's launch counts of its carve."""
+    import os
+    import socket
+    import tempfile
+
+    import torch
+
+    from dct_carver_tpu_torch.ops.carve import carve_n_seams
+    from dct_carver_tpu_torch.parallel.dryrun import dryrun_multichip
+    from dct_carver_tpu_torch.parallel.spatial import (
+        collectives_per_seam, spatial_carve_n_seams)
+    from dct_carver_tpu_torch.utils.debug import debug_mode
+
+    count = torch.cuda.device_count()
+    backend, nproc, per_rank = mp_layout(count)
+    log(f"phase 6: backend {backend}, {nproc} processes x {per_rank} shards "
+        f"({count} card{'s' if count > 1 else ''}): spatial_carve_n_seams("
+        f"{H8}x{W8}, {MP_SEAMS}), use_pallas=True, every step eager")
+    torch.cuda.empty_cache()
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    nb = -(-H8 // K8)
+    design = collectives_per_seam(H8, K8, fused_apply=True)
+    luma = torch.from_numpy(mp_luma()).to(dev)
+    single = carve_n_seams(luma, MP_SEAMS, 8, 0.0, 1.0)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="dct_carver_mp_") as tmp:
+        t = time.perf_counter()
+        logs = [open(os.path.join(tmp, f"log-{r}.txt"), "w")
+                for r in range(nproc)]
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"),
+             "--multiproc-worker", str(r), str(nproc), str(port), backend,
+             tmp], cwd=ROOT, stdout=f, stderr=subprocess.STDOUT)
+            for r, f in enumerate(logs)]
+        try:
+            # a failed worker leaves its peers waiting in a collective:
+            # stop them all at the first failure or at the limit
+            while (any(p.poll() is None for p in procs)
+                   and not any(p.poll() for p in procs)
+                   and time.perf_counter() - t < MP_SECONDS):
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+            for f in logs:
+                f.close()
+        for r, p in enumerate(procs):
+            with open(os.path.join(tmp, f"log-{r}.txt")) as f:
+                for line in f.read().splitlines():
+                    log(f"  [rank {r}] {line}")
+            chk.require(p.returncode == 0,
+                        f"multi-process worker {r} exited {p.returncode}")
+        log(f"  {nproc} workers took {time.perf_counter() - t!r} s")
+        results = []
+        for r in range(nproc):
+            path = os.path.join(tmp, f"result-{r}.json")
+            if not os.path.exists(path):
+                chk.require(False, f"rank {r} wrote its result")
+                return []
+            with open(path) as f:
+                results.append(json.load(f))
+        want = {"block_dp_parts": nb * MP_SEAMS, "seg_walk": nb * MP_SEAMS,
+                "sharded_apply": MP_SEAMS, "strip": MP_SEAMS, "energy": 1,
+                "block_dp": 0, "find_seam": 0, "find_seams": 0,
+                "find_seam_tiled": 0, "apply": 0}
+        Wl = W8 // (nproc * per_rank)
+        for res in results:
+            r = res["rank"]
+            lo, hi = res["columns"]
+            chk.require((lo, hi) == (r * per_rank * Wl,
+                                     (r + 1) * per_rank * Wl),
+                        f"rank {r} holds columns [{lo}, {hi})")
+            chk.equal("carve", f"rank {r}: multi-process vmap columns == "
+                      "single-device", torch.from_numpy(np.load(
+                          os.path.join(tmp, f"vmap-{r}.npy"))).to(dev),
+                      single.vmap[:, lo:hi])
+            chk.require(res["width"] == W8 - MP_SEAMS,
+                        f"rank {r} width {res['width']}")
+            got = {k: res["launches"][k] for k in want}
+            chk.require(got == want, f"rank {r} launches {got}")
+            chk.require(res["replays"] == 0,
+                        f"rank {r}: {res['replays']} graph replays (eager)")
+            chk.require(res["exchanges"] == MP_SEAMS * design,
+                        f"rank {r}: {res['exchanges']} exchanges == "
+                        f"{MP_SEAMS} x collectives_per_seam {design}")
+            chk.require(res["chunked_equal"] and res["resumed_equal"],
+                        f"rank {r}: carve in chunks of {MP_CHUNK} and its "
+                        "resume == unchunked")
+            chk.require(res["manifest"] == {"process": r, "shards": [
+                f"shard-{s:05d}.npz" for s in range(r * per_rank,
+                                                    (r + 1) * per_rank)]},
+                        f"rank {r} manifest {res['manifest']}")
+            chk.require(res["health"]["healthy"]
+                        and res["health"]["processes"] == nproc,
+                        f"rank {r} probe {res['health']}")
+        one = spatial_carve_n_seams(luma, MP_SEAMS, devices=[dev] * MP_SHARDS,
+                                    resume_from=os.path.join(tmp, "ck"))
+        chk.equal("carve", f"their checkpoint resumed on one controller, "
+                  f"{MP_SHARDS} shards == single-device", one.vmap,
+                  single.vmap)
+
+    # the price of the fabric: the same carve, eager, on one controller
+    devices = [dev] * MP_SHARDS
+    eager, ms_e = [], []
+    with debug_mode(nan_checks=False, disable_jit=True):
+        spatial_carve_n_seams(luma, 2, devices=devices)
+        for _ in range(MP_EAGER_PAIRS):
+            for n in (MP_EAGER_SEAMS, 2 * MP_EAGER_SEAMS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                spatial_carve_n_seams(luma, n, devices=devices)
+                torch.cuda.synchronize()
+                eager.append(time.perf_counter() - t)
+            ms_e.append((eager[-1] - eager[-2]) / MP_EAGER_SEAMS * 1e3)
+    ms_1 = sorted(ms_e)[len(ms_e) // 2]
+    ms_p = [(res["seconds"][1] - res["seconds"][0]) / MP_TIMED * 1e3
+            for res in results]
+    ms_n = max(ms_p)
+    # the metrics of record: the ms a seam, and one exchange timed alone;
+    # the difference to the eager carve is an indirect reading, as noisy
+    # as the eager marginals' spread
+    log(f"  multi-process carve ({backend}, {nproc} x {per_rank} shards): "
+        f"{ms_p!r} ms a seam by rank (marginal of {MP_TIMED} and "
+        f"{2 * MP_TIMED} seams; walls {[r['seconds'] for r in results]!r} s)"
+        f" ({card})")
+    log(f"  one exchange of a one-float shard alone, by rank: shift "
+        f"{[r['shift_us'] for r in results]!r} us, psum "
+        f"{[r['psum_us'] for r in results]!r} us ({backend}; {card})")
+    log(f"  indirect: one controller, eager, {MP_SHARDS} shards: {ms_e!r} "
+        f"ms a seam (marginals of {MP_EAGER_SEAMS} and "
+        f"{2 * MP_EAGER_SEAMS} seams; spread {max(ms_e) - min(ms_e)!r}), "
+        f"median {ms_1!r} (walls {eager!r} s); ({ms_n!r} - {ms_1!r}) / "
+        f"{design} collectives = {(ms_n - ms_1) / design * 1e3!r} us a "
+        f"collective ({card})")
+    del luma, single
+
+    on = f"{count} cards" if count >= MP_SHARDS else f"{dev} x {MP_SHARDS}"
+    log(f"phase 6: dryrun_multichip({MP_SHARDS}) on {on}")
+    t = time.perf_counter()
+    dryrun_multichip(MP_SHARDS, devices=None if count >= MP_SHARDS
+                     else [dev] * MP_SHARDS)
+    chk.require(True, f"dryrun_multichip({MP_SHARDS}) in "
+                f"{time.perf_counter() - t!r} s")
+    return [res["launches"] for res in results]
+
+
 def main() -> int:
     import torch
 
@@ -2807,6 +3116,7 @@ def main() -> int:
     energy_launches = phase_4(dev, chk, card, rng, k_rate)
     phase_5a(dev, chk, card, rng, times)
     spatial_launches = phase_5(dev, chk, card, rng)
+    multiproc_launches = phase_6(dev, chk, card)
     # last: after one of its runs torch.profiler recorded no device time in
     # most later sessions (PERF.md §7), so nothing is profiled after it
     retarget_launches = phase_2d(dev, chk, card, rng, img, res, plain)
@@ -2819,9 +3129,10 @@ def main() -> int:
     # the wide carve of phase 1c, the single-image carve of phase 2, the
     # retargeter's precomputes of phase 2d, the batch carves of phases 3b and 3c, the plugged-energy carves of phase 4b
     # (grad_norm) and 4c (batch), and the spatial carves of phase 5b (8K
-    # over 4 shards, small shards) and 5c (grad_norm)
+    # over 4 shards, small shards) and 5c (grad_norm), and each process's
+    # carve of phase 6
     runs = (wide_launches, launches, *retarget_launches, *batch_launches,
-            *energy_launches, *spatial_launches)
+            *energy_launches, *spatial_launches, *multiproc_launches)
     rows = []
     for k in kernels.KERNELS:
         bound_ms, bound_by = bound(*BOUNDS[k.name])
@@ -2833,20 +3144,31 @@ def main() -> int:
             "plain_ms": times[k.name][1], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": LIBRARY.get(k.name),
             "device_ms": DEVICE[k.name],
-            "library_device_ms": LIBRARY_DEVICE.get(k.name)})
+            "device_ms_source": DEVICE_SOURCE[k.name],
+            "library_device_ms": LIBRARY_DEVICE.get(k.name),
+            "library_device_ms_source": LIBRARY_DEVICE_SOURCE.get(k.name)})
         if k.name in FLUSHED:
             rows[-1]["device_ms_l2_flushed"] = FLUSHED[k.name]
         if k.name in IN_GRAPH:  # inside the graphed carve, and the floor
             rows[-1].update(device_ms_in_graph=IN_GRAPH[k.name],
                             floor_device_ms=FLOOR["back_to_back"],
-                            floor_device_ms_in_graph=FLOOR["in_graph"])
+                            floor_device_ms_in_graph=FLOOR["in_graph"],
+                            floor_device_ms_source=FLOOR["source"])
         if k.name in BATCH:  # the same kernel at phase 3c's batch shape
-            b_ms, (bb_ms, _) = BATCH[k.name]
-            rows[-1].update(batch_device_ms=b_ms, batch_bound_ms=bb_ms)
+            (b_ms, b_src), (bb_ms, _) = BATCH[k.name]
+            rows[-1].update(batch_device_ms=b_ms, batch_device_ms_source=b_src,
+                            batch_bound_ms=bb_ms)
         log(f"  {k.name:14s} {times[k.name][0]!r} ms (device "
             f"{DEVICE[k.name]!r}), bound {bound_ms!r} ms ({bound_by}), "
             f"library {LIBRARY.get(k.name)!r} ms (device "
             f"{LIBRARY_DEVICE.get(k.name)!r}) ({card})")
+    by_events = [sorted(k for k, v in src.items() if v != "profiler")
+                 for src in (DEVICE_SOURCE, LIBRARY_DEVICE_SOURCE,
+                             {k: v[0][1] for k, v in BATCH.items()})]
+    log(f"  torch.profiler: {PROFILER_EMPTY[0]} device_ms calls recorded "
+        f"no device time and fell back to CUDA events; kernel rows timed so: "
+        f"{by_events[0]}, library rows: {by_events[1]}, batch rows: "
+        f"{by_events[2]}")
     log(json.dumps({"kernels": rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {
@@ -3116,8 +3438,25 @@ if __name__ == "__main__":
         sys.exit(first_carve(sys.argv[2]))
     if sys.argv[1:2] == ["--strip-layouts"] and len(sys.argv) == 2:
         sys.exit(strip_layouts())
+    if sys.argv[1:2] == ["--multiproc-worker"] and len(sys.argv) == 7:
+        # exit without the distributed shutdown, which can hang after a
+        # peer failed; what matters is flushed first
+        import os
+
+        try:
+            rc = multiproc_worker(int(sys.argv[2]), int(sys.argv[3]),
+                                  int(sys.argv[4]), sys.argv[5], sys.argv[6])
+        except BaseException:
+            import traceback
+
+            traceback.print_exc()
+            rc = 1
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(rc)
     if len(sys.argv) > 1:
-        print("usage: chip_smoke.py [--first-carve ROOT | --strip-layouts]",
-              file=sys.stderr)
+        print("usage: chip_smoke.py [--first-carve ROOT | --strip-layouts | "
+              "--multiproc-worker RANK NPROC PORT BACKEND "
+              "DIR]", file=sys.stderr)
         sys.exit(2)
     sys.exit(main())

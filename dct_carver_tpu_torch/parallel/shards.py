@@ -23,6 +23,13 @@ holding the same value.
 - The layer counts the exchanges it makes (`exchanges`), one for each
   collective the JAX program issues, so a seam step's count can be held
   against `parallel/spatial.py::collectives_per_seam`.
+
+`ProcessMesh` is the same interface over the processes of a
+`torch.distributed` job (`parallel/multihost.py`), the counterpart of JAX's
+multi-controller mesh: each process holds one stack, its own shards on its
+one device, and the exchanges between processes are point-to-point sends
+and all-reduces.  `shard_mesh` builds the one its caller asks for: a
+process of a job that carves an image of its own keeps one controller.
 """
 
 from __future__ import annotations
@@ -30,8 +37,11 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
-__all__ = ["Stack", "ShardMesh"]
+from . import multihost
+
+__all__ = ["Stack", "ShardMesh", "ProcessMesh", "shard_mesh", "shard_count"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,16 +56,11 @@ class ShardMesh:
     """`devices` (one entry a shard, repeats allowed) over a buffer `width`
     columns wide, which the shard count must divide."""
 
+    rank = 0  # this process's rank in the job: one controller
+
     def __init__(self, devices, width: int):
         self.devices = [torch.device(d) for d in devices]
-        self.size = len(self.devices)
-        if not self.size:
-            raise ValueError("a mesh needs at least one device")
-        if width % self.size:
-            raise ValueError(f"width {width} is not divisible by the "
-                             f"{self.size} shards")
-        self.width = width
-        self.Wl = width // self.size
+        self._layout(len(self.devices), width)
         stacks = []
         for i, dev in enumerate(self.devices):
             if stacks and stacks[-1].device == dev:
@@ -64,7 +69,19 @@ class ShardMesh:
             else:
                 stacks.append(Stack(dev, i, 1))
         self.stacks = stacks
+
+    def _layout(self, size: int, width: int) -> None:
+        if not size:
+            raise ValueError("a mesh needs at least one device")
+        if width % size:
+            raise ValueError(f"width {width} is not divisible by the "
+                             f"{size} shards")
+        self.size, self.width, self.Wl = size, width, width // size
         self.exchanges = 0
+
+    def barrier(self) -> None:
+        """Wait for every process of the mesh: nothing to wait for on one
+        controller."""
 
     # ------------------------------------------------------------ layout --
     def lo(self, g: int) -> int:
@@ -95,9 +112,15 @@ class ShardMesh:
         """The inverse of `split`, on `device` (default: the first
         stack's)."""
         device = self.stacks[0].device if device is None else device
-        whole = torch.cat([p.to(device) for p in parts])  # (S, H, Wl[, C])
+        whole = self.every_shard(parts, device)         # (S, H, Wl[, C])
         return whole.movedim(0, 1).reshape(whole.shape[1], self.width,
                                            *whole.shape[3:])
+
+    def every_shard(self, parts, device) -> torch.Tensor:
+        """Every shard's value, (S, ...) on `device`, from each stack's
+        (S_g, ...) part: on a process mesh a collective that every process
+        makes, not counted in `exchanges` (the route's own all_gather is)."""
+        return torch.cat([p.to(device) for p in parts])
 
     def replicate(self, x: torch.Tensor) -> list[torch.Tensor]:
         return [x.to(st.device) for st in self.stacks]
@@ -231,6 +254,113 @@ class ShardMesh:
     def all_gather(self, parts):
         """Every shard's value on every stack: replicated (S, ...)."""
         self.exchanges += 1
-        dev0 = self.stacks[0].device
-        whole = torch.cat([p.to(dev0, non_blocking=True) for p in parts])
+        whole = self.every_shard(parts, self.stacks[0].device)
         return [whole.to(st.device, non_blocking=True) for st in self.stacks]
+
+
+class ProcessMesh(ShardMesh):
+    """Shards over the processes of a `torch.distributed` job: this
+    process holds `devices` (its shards, all on one device), and every
+    process holds as many, so process r's stack is shards r*n .. r*n + n-1
+    of the global mesh.  `size` and `width` are global; `stacks` lists the
+    one local stack, with its global `first`.
+
+    A shift sends the boundary shard to the neighbouring process and
+    receives the other neighbour's in one `batch_isend_irecv` (zeros at the
+    mesh's ends); a reduction reduces over the local stack, then runs one
+    `all_reduce`; `all_gather` and `join` give every shard to every
+    process.  Under NCCL the tensors stay on the card.  Under gloo, which
+    takes CPU tensors, every exchanged slice of a CUDA stack is staged
+    through host memory here, explicitly: this is how several processes
+    share one card, which NCCL refuses.  Every process must make the same
+    exchanges in the same order; the route's exchanges depend only on
+    shapes and knobs that every process shares."""
+
+    def __init__(self, devices, width: int):
+        self.devices = [torch.device(d) for d in devices]
+        if not self.devices:
+            raise ValueError("a mesh needs at least one device")
+        self.device = self.devices[0]
+        if any(d != self.device for d in self.devices):
+            raise ValueError(f"a process holds its shards on one device, "
+                             f"got {self.devices}")
+        self.rank, self.world = dist.get_rank(), dist.get_world_size()
+        # the backend's own memory: the card under NCCL, else the host
+        self.wire = (self.device if dist.get_backend() == "nccl"
+                     else torch.device("cpu"))
+        n = len(self.devices)
+        counts = self.every_shard([torch.tensor([n], device=self.device)],
+                                   self.device).tolist()
+        if any(c != n for c in counts):
+            raise ValueError(f"every process must hold as many shards: "
+                             f"{counts}")
+        self._layout(n * self.world, width)
+        self.stacks = [Stack(self.device, self.rank * n, n)]
+
+    def barrier(self) -> None:
+        multihost.barrier("mesh")
+
+    def _to_wire(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(self.wire).contiguous()
+
+    def every_shard(self, parts, device) -> torch.Tensor:
+        (x,) = parts
+        w = self._to_wire(x)
+        out = [torch.empty_like(w) for _ in range(self.world)]
+        dist.all_gather(out, w)
+        return torch.cat(out).to(device)
+
+    def _shift(self, parts, step: int):
+        self.exchanges += 1
+        (x,) = parts
+        edge = x[-1:] if step > 0 else x[:1]  # the shard that leaves
+        to, frm = self.rank + step, self.rank - step
+        ops, inbox = [], None
+        if 0 <= to < self.world:
+            ops.append(dist.P2POp(dist.isend, self._to_wire(edge), to))
+        if 0 <= frm < self.world:
+            inbox = torch.empty(edge.shape, dtype=edge.dtype,
+                                device=self.wire)
+            ops.append(dist.P2POp(dist.irecv, inbox, frm))
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        edge = (torch.zeros_like(edge) if inbox is None
+                else inbox.to(self.device))
+        return [torch.cat([edge, x[:-1]]) if step > 0
+                else torch.cat([x[1:], edge])]
+
+    _OPS = {torch.add: dist.ReduceOp.SUM, torch.minimum: dist.ReduceOp.MIN,
+            torch.maximum: dist.ReduceOp.MAX}
+
+    def _reduce(self, parts, local, combine):
+        self.exchanges += 1
+        (x,) = parts
+        total = self._to_wire(local(x))
+        dist.all_reduce(total, op=self._OPS[combine])
+        return [total.to(self.device)]
+
+
+def shard_mesh(devices, width: int, processes: bool = False) -> ShardMesh:
+    """The mesh of a spatial carve: `devices` on this one controller, or
+    with `processes` a `ProcessMesh`, `devices` being this process's shards
+    of a mesh over every process of the `torch.distributed` job
+    (`parallel/multihost.py::initialize`), as many on every process.  Only
+    the caller knows which it means: a process of a job may carve an image
+    of its own."""
+    _processes(processes)
+    return (ProcessMesh if processes else ShardMesh)(devices, width)
+
+
+def shard_count(devices, processes: bool = False) -> int:
+    """The global shard count of `shard_mesh(devices, ..., processes)`."""
+    return len(devices) * _processes(processes)
+
+
+def _processes(processes: bool) -> int:
+    """The processes a mesh spans: 1 on one controller."""
+    if not processes:
+        return 1
+    if not multihost.is_distributed():
+        raise RuntimeError("processes=True needs a torch.distributed job: "
+                           "call parallel/multihost.py::initialize first")
+    return dist.get_world_size()

@@ -43,8 +43,17 @@ the step decrements.  So on one card with the kernels it is captured once a
 carve in two CUDA graphs, one for each direction between the sets, and
 every seam after the first replays one: the port's counterpart of the JAX
 package's jitted chunk (`_spatial_chunk_jit`, `jax.jit` over `shard_map`
-over `lax.fori_loop`).  CPU meshes, the plain path and meshes over several
-cards run the same step eagerly.
+over `lax.fori_loop`).  CPU meshes, the plain path, the generalized DP
+(`delta_x`/`rigidity` other than (1, 0)) and meshes over several cards run
+the same step eagerly.
+
+Over the processes of a `torch.distributed` job (`parallel/multihost.py`),
+with `processes=True`, the mesh is a `parallel/shards.py::ProcessMesh`:
+each process passes its own shards as `devices`, as many on every process,
+runs the same steps
+eagerly (no CUDA graph captures its collectives), and gets back the
+columns it holds (`SpatialCarveResult.columns`; `gather()` assembles the
+whole map on every process), the counterpart of JAX's addressable shards.
 
 Seams equal the single-device carve's (`ops/carve.py`), element for
 element.  `collectives_per_seam` is the design's exchange count per seam,
@@ -70,7 +79,7 @@ from ..ops.energy_fn import resolve_energy
 from ..utils.debug import check_finite, checks_nans, eager_steps
 from ..utils.graphs import StepGraphs
 from .mesh import make_mesh
-from .shards import ShardMesh
+from .shards import ProcessMesh, ShardMesh, shard_count, shard_mesh
 
 __all__ = ["spatial_carve_n_seams", "spatial_enlarge_n_seams",
            "spatial_make_state", "spatial_carve_seams", "SpatialCarveResult",
@@ -113,13 +122,32 @@ class SpatialCarveState(NamedTuple):
 
 
 class SpatialCarveResult:
-    def __init__(self, vmap, width, image=None, capture_seconds=0.0):
-        self.vmap = vmap     # (H, W) int32 on the mesh's first device
+    """A spatial carve's outputs: on one controller every column, on a
+    process mesh the columns this process holds (`columns`, `image_columns`:
+    [lo, hi) of the whole planes); `gather()` gives the whole planes."""
+
+    def __init__(self, vmap, width, image=None, capture_seconds=0.0,
+                 columns=None, image_columns=None, gather=None):
+        self.vmap = vmap     # (H, hi - lo) int32 on this process's device
         self.width = width   # int
         self.image = image   # compacted (H, W[, C]); columns >= width dead
         # host seconds spent capturing the seam step's CUDA graphs (0.0
         # when every step ran eagerly), inside the carve's wall time
         self.capture_seconds = capture_seconds
+        self.columns = columns or (0, vmap.shape[1])
+        self.image_columns = image_columns or (
+            None if image is None else (0, image.shape[1]))
+        self._gather = gather  # () -> (whole vmap, whole image)
+
+    def gather(self) -> "SpatialCarveResult":
+        """The result with the whole (H, W) planes on every process: a
+        collective that every process of a process mesh calls; the result
+        itself on one controller."""
+        if self._gather is None:
+            return self
+        vmap, image = self._gather()
+        return SpatialCarveResult(vmap, self.width, image,
+                                  self.capture_seconds)
 
 
 class _Params(NamedTuple):
@@ -135,6 +163,13 @@ class _Params(NamedTuple):
     energy_fn: object
     tie: str
     dead_max: int | None
+
+
+def _kernel_dp(p: _Params) -> bool:
+    """Whether the DP and the walk take the kernels (#16-18): with the
+    kernels and the kernels' DP (delta_x = 1, rigidity = 0); else the plain
+    scan and walk, whose steps are never captured."""
+    return p.use_pallas and p.delta_x == 1 and p.rigidity == 0.0
 
 
 # ------------------------------------------------------------- energy -----
@@ -160,7 +195,7 @@ def _sharded_dp(mesh: ShardMesh, E, width, p: _Params, ext_M) -> int:
     H = E[0].shape[1]
     Wl, K, d = mesh.Wl, p.K, p.delta_x
     Hh = 2 * K * d
-    kernels = p.use_pallas and d == 1 and p.rigidity == 0.0
+    kernels = _kernel_dp(p)
     parts = kernels and Hh <= Wl
     prev = [torch.zeros_like(e[:, 0]) for e in E]
     for r0 in range(0, H, K):
@@ -218,7 +253,7 @@ def _sharded_backtrack(mesh: ShardMesh, ext_M, width, Hh: int, p: _Params):
                        for lm, gm, la in zip(lmin, gmin, larg)])
     j = [x.to(torch.int32).reshape(1) for x in j]
     j_last = j
-    kernels = p.use_pallas and d == 1 and p.rigidity == 0.0
+    kernels = _kernel_dp(p)
 
     def walk(r0: int, r1: int, entry):
         """Rows [r0, r1) of the seam from the entry column below them."""
@@ -325,7 +360,8 @@ def _fused_removal(mesh: ShardMesh, st, seam, new_width, p: _Params, out):
                   st.luma, st.origcol, st.energy, seam, edges, incoming,
                   new_width))]
     orig = mesh.psum(orig_p)
-    if D is not None:
+    last = mesh.stacks[-1]
+    if D is not None and last.first + last.count == mesh.size:
         x = out.luma[-1][-1, :, Wl - D:]                # the last shard
         colw = mesh.width - D + torch.arange(D, device=x.device)
         ev = torch.where(colw == new_width[-1] - 1, x, 0.0).sum(-1)
@@ -419,14 +455,16 @@ class _SeamSteps:
     columns, which are copied into a chunk's record after each step.
 
     On a mesh whose stacks all lie on one CUDA card, with the kernels
-    (`use_pallas`), the carve's first seam runs eagerly, which builds the
+    and their DP (`use_pallas`, delta_x = 1, rigidity = 0), the carve's
+    first seam runs eagerly, which builds the
     kernels and sets their shared-memory limits, and every later seam
     replays one of two CUDA graphs of the same step, captured once a carve
     on a side stream, one for each direction between the sets: the host
     issues one graph a seam instead of ~420 launches.  A replay credits the
     kernels' launch counts and the mesh's exchange count with what its
-    capture counted.  CPU meshes, `use_pallas=False`, meshes over several
-    cards and every step inside `utils/debug.py::debug_mode` run eagerly;
+    capture counted.  CPU meshes, `use_pallas=False`, the generalized DP,
+    meshes over several cards, process meshes and every step inside
+    `utils/debug.py::debug_mode` run eagerly;
     with its NaN checks the state is checked after every seam.  A capture
     or replay that fails raises; nothing falls back to eager steps."""
 
@@ -448,10 +486,12 @@ class _SeamSteps:
             [torch.zeros(n, dtype=torch.int32, device=x.device)
              for x in st.luma] for n in (1, 1, H))
         # the card the step is captured on; None: every step runs eagerly
+        # (a process mesh always: its collectives stay outside graphs)
         devices = {x.device for x in st.luma}
         dev = devices.pop() if len(devices) == 1 else None
-        self.graph_device = dev if p.use_pallas and dev is not None \
-            and dev.type == "cuda" and not eager_steps() else None
+        self.graph_device = dev if _kernel_dp(p) and dev is not None \
+            and dev.type == "cuda" and not eager_steps() \
+            and not isinstance(mesh, ProcessMesh) else None
         name = p.energy_fn.name if p.energy_fn is not None else "dct"
         self.graphs = StepGraphs(
             self.graph_device, f"spatial seam step (energy {name!r})",
@@ -547,21 +587,23 @@ def measure_collectives_per_seam(H: int, W: int, devices=None, *,
                                  frontier_block: int = FRONTIER_BLOCK,
                                  strip_update: bool = True,
                                  delta_x: int = 1, rigidity: float = 0.0,
-                                 use_pallas: bool = False, seed: int = 0):
+                                 use_pallas: bool = False, seed: int = 0,
+                                 processes: bool = False):
     """The exchanges of one seam step counted by the exchange layer (the
     counterpart of JAX's count of collectives in the compiled HLO), beside
-    the design's count: {"total": n, "designed": collectives_per_seam}."""
+    the design's count: {"total": n, "designed": collectives_per_seam}.
+    `processes`: as `spatial_carve_n_seams`."""
     devices = make_mesh(devices=devices)
-    if W % len(devices):
+    if W % shard_count(devices, processes):
         raise ValueError(f"width {W} not divisible by mesh size "
-                         f"{len(devices)}")
+                         f"{shard_count(devices, processes)}")
     luma = torch.from_numpy(np.random.default_rng(seed).random(
         (H, W), dtype=np.float32))
     p = _params(W, H, blocksize=blocksize, edges=edges, textures=textures,
                 frontier_block=frontier_block, strip_update=strip_update,
                 delta_x=delta_x, rigidity=rigidity, use_pallas=use_pallas,
                 dead_max=64)
-    st, mesh = _make_state(luma, None, devices, p)
+    st, mesh = _make_state(luma, None, devices, p, processes)
     steps = _SeamSteps(mesh, st, p)
     steps.set_width(W)
     mesh.exchanges = 0
@@ -648,10 +690,55 @@ def _pad_to(x: torch.Tensor, Wp: int) -> torch.Tensor:
     return torch.cat([x, x[:, -1:].expand(-1, pad, *x.shape[2:])], dim=1)
 
 
-def _make_state(luma: torch.Tensor, image, devices, p: _Params):
+def _padded(W: int, devices, processes: bool) -> int:
+    """W rounded up to a multiple of the mesh's global shard count."""
+    n = shard_count(devices, processes)
+    return -(-W // n) * n
+
+
+def _plane(shards: torch.Tensor) -> torch.Tensor:
+    """(S, H, Wo[, C]) consecutive shards -> their (H, S*Wo[, C]) plane."""
+    return shards.movedim(0, 1).reshape(shards.shape[1], -1,
+                                        *shards.shape[3:])
+
+
+def _own_columns(mesh: ShardMesh, parts, Wo: int, total: int):
+    """The columns of a plane held by this process's stacks, whose shard s
+    holds columns [s*Wo, (s+1)*Wo), cut at `total`: (plane (H, hi - lo[,
+    C]), (lo, hi)).  Every column on one controller."""
+    home = mesh.stacks[0].device
+    plane = _plane(torch.cat([x.to(home) for x in parts]))
+    lo = mesh.stacks[0].first * Wo
+    hi = max(lo, min(lo + plane.shape[1], total))
+    return plane[:, :hi - lo], (lo, hi)
+
+
+def _all_columns(mesh: ShardMesh, parts, total: int) -> torch.Tensor:
+    """Every column of such a plane, on every process (a collective on a
+    process mesh)."""
+    return _plane(mesh.every_shard(parts, mesh.stacks[0].device))[:, :total]
+
+
+def _result(mesh: ShardMesh, vmap, image, total_vmap: int, total_image,
+            Wo_image: int, width: int, capture_seconds: float = 0.0):
+    vm, cols = _own_columns(mesh, vmap, mesh.Wl, total_vmap)
+    img = img_cols = gather = None
+    if image is not None:
+        img, img_cols = _own_columns(mesh, image, Wo_image, total_image)
+    if isinstance(mesh, ProcessMesh):
+        def gather():
+            return (_all_columns(mesh, vmap, total_vmap),
+                    None if image is None
+                    else _all_columns(mesh, image, total_image))
+    return SpatialCarveResult(vm, width, img, capture_seconds, cols,
+                              img_cols, gather)
+
+
+def _make_state(luma: torch.Tensor, image, devices, p: _Params,
+                processes: bool):
     H, W = luma.shape
-    Wp = -(-W // len(devices)) * len(devices)
-    mesh = ShardMesh(devices, Wp)
+    Wp = _padded(W, devices, processes)
+    mesh = shard_mesh(devices, Wp, processes)
     home = mesh.stacks[0].device
     luma_s = mesh.split(_pad_to(luma.to(home), Wp))
     origcol = mesh.split(torch.arange(Wp, dtype=torch.int32, device=home)
@@ -675,10 +762,11 @@ def _as_luma(luma) -> torch.Tensor:
 
 def spatial_make_state(luma, *, blocksize: int = 8, edges: float = 0.0,
                        textures: float = 1.0, devices=None, image=None,
-                       energy=None, use_pallas: bool = True):
-    """Shard the inputs over the mesh `devices` (default `make_mesh()`)
-    and compute the first sharded energy.  Returns (SpatialCarveState,
-    ShardMesh).
+                       energy=None, use_pallas: bool = True,
+                       processes: bool = False):
+    """Shard the inputs over the mesh `devices` (default `make_mesh()`;
+    `processes`: as `spatial_carve_n_seams`) and compute the first sharded
+    energy.  Returns (SpatialCarveState, ShardMesh).
 
     Widths not divisible by the mesh size are edge-padded to the next
     multiple: the pad columns replicate the last live column, which is the
@@ -690,7 +778,8 @@ def spatial_make_state(luma, *, blocksize: int = 8, edges: float = 0.0,
     p = _params(luma.shape[1], luma.shape[0], blocksize=blocksize,
                 edges=edges, textures=textures, use_pallas=use_pallas,
                 energy=energy)
-    return _make_state(luma, image, make_mesh(devices=devices), p)
+    return _make_state(luma, image, make_mesh(devices=devices), p,
+                       processes)
 
 
 def spatial_carve_n_seams(luma, n_seams: int, *, blocksize: int = 8,
@@ -702,14 +791,21 @@ def spatial_carve_n_seams(luma, n_seams: int, *, blocksize: int = 8,
                           resume_from: str | None = None, delta_x: int = 1,
                           rigidity: float = 0.0, use_pallas: bool = True,
                           energy=None, progress=None,
-                          tie: str = "leftmost") -> SpatialCarveResult:
+                          tie: str = "leftmost",
+                          processes: bool = False) -> SpatialCarveResult:
     """Carve `n_seams` from one column-sharded image.  `luma` (H, W), any
     W (widths the mesh does not divide are edge-padded internally, see
     `spatial_make_state`).  Returns the visibility map (original
     coordinates) and the final width; seams equal the single-device
     carve's, the generalized `delta_x`/`rigidity` DP included.
 
-    `devices`: the mesh (`make_mesh`; default every visible card).
+    `devices`: the mesh (`make_mesh`; default every visible card) on this
+    one controller, whether or not the process is one of a job.  With
+    `processes`, every process of the `torch.distributed` job
+    (`parallel/multihost.py::initialize`) calls it on the same inputs, and
+    `devices` are this process's shards of a mesh over all of them (a
+    `ProcessMesh`): the result then holds this process's columns
+    (`gather()` for all).
     `energy`: a builtin energy name or an `EnergyFunction`.  `progress`: an
     optional `utils.progress.Progress`: init before the first seam, update
     after every chunk, end on completion.  `image`: an optional (H, W[, C])
@@ -726,7 +822,7 @@ def spatial_carve_n_seams(luma, n_seams: int, *, blocksize: int = 8,
     H, W = luma.shape
     if not 0 <= n_seams < W:
         raise ValueError(f"cannot remove {n_seams} seams from width {W}")
-    Wp = -(-W // len(devices)) * len(devices)
+    Wp = _padded(W, devices, processes)
     p = _params(W, H, blocksize=blocksize, edges=edges, textures=textures,
                 frontier_block=frontier_block, strip_update=strip_update,
                 delta_x=delta_x, rigidity=rigidity, use_pallas=use_pallas,
@@ -750,7 +846,7 @@ def spatial_carve_n_seams(luma, n_seams: int, *, blocksize: int = 8,
     if resume_from is not None:
         from ..utils.checkpoint import load_sharded
 
-        state, mesh, meta = load_sharded(resume_from, devices)
+        state, mesh, meta = load_sharded(resume_from, devices, processes)
         done = int(meta["seams_done"])
         if meta["n_seams_total"] != n_seams:
             raise ValueError(f"checkpoint was for {meta['n_seams_total']} "
@@ -762,7 +858,7 @@ def spatial_carve_n_seams(luma, n_seams: int, *, blocksize: int = 8,
                 "checkpoint carve parameters do not match the resume "
                 f"request: {mismatched} (saved, requested)")
     else:
-        state, mesh = _make_state(luma, image, devices, p)
+        state, mesh = _make_state(luma, image, devices, p, processes)
 
     if progress is not None:
         from ..utils.i18n import _ as _t
@@ -789,12 +885,12 @@ def spatial_carve_n_seams(luma, n_seams: int, *, blocksize: int = 8,
                           **params})
     if progress is not None:
         progress.end()
-    vmap = mesh.join(state.vmap)[:, :W]
-    img = None if state.image is None else mesh.join(state.image)[:, :W]
-    return SpatialCarveResult(vmap, state.width, img, steps.capture_seconds)
+    return _result(mesh, state.vmap, state.image, W, W, mesh.Wl,
+                   state.width, steps.capture_seconds)
 
 
 def spatial_enlarge_n_seams(luma, n_seams: int, image, *, devices=None,
+                            processes: bool = False,
                             **carve_kw) -> SpatialCarveResult:
     """ENLARGE a column-sharded image by `n_seams` (the positive-seam mode
     of the reference, src/render.c:344-364): find n removal seams on a
@@ -806,17 +902,15 @@ def spatial_enlarge_n_seams(luma, n_seams: int, image, *, devices=None,
     equal to `ops/carve.py::reconstruct_enlarged` on the single-device
     vmap."""
     devices = make_mesh(devices=devices)
-    res = spatial_carve_n_seams(luma, n_seams, devices=devices, **carve_kw)
-    H, W = res.vmap.shape
-    nsh = len(devices)
-    Wp = -(-W // nsh) * nsh
-    mesh = ShardMesh(devices, Wp)
+    seams = spatial_carve_n_seams(luma, n_seams, devices=devices,
+                                  processes=processes,
+                                  **carve_kw).gather().vmap
+    W = seams.shape[1]
+    Wp = _padded(W, devices, processes)
+    mesh = shard_mesh(devices, Wp, processes)
     home = mesh.stacks[0].device
     img = mesh.split(_pad_to(torch.as_tensor(image).to(home), Wp))
-    vmap = mesh.split(torch.nn.functional.pad(res.vmap, (0, Wp - W)))
-    Wlo = -(-(W + n_seams) // nsh)
+    vmap = mesh.split(torch.nn.functional.pad(seams, (0, Wp - W)))
+    Wlo = -(-(W + n_seams) // mesh.size)
     out = _sharded_enlarge(mesh, img, vmap, n_seams, W, Wlo)
-    whole = torch.cat([o.to(home) for o in out])        # (nsh, H, Wlo[, C])
-    whole = whole.movedim(0, 1).reshape(H, nsh * Wlo, *whole.shape[3:])
-    return SpatialCarveResult(res.vmap, W + n_seams,
-                              whole[:, :W + n_seams])
+    return _result(mesh, vmap, out, W, W + n_seams, Wlo, W + n_seams)

@@ -13,7 +13,12 @@ counterparts of the JAX package's) keep its commit rules with the port's
 own files: each chunk writes one `.npz` per shard into a `state-%08d` step
 directory, committed by renaming it into place; the step's name is the
 progress counter; `meta.json` is written with a temporary file and
-`os.replace`; older steps are pruned after the commit.  The JAX package
+`os.replace`; older steps are pruned after the commit.  On a process mesh
+(`parallel/shards.py::ProcessMesh`) each process writes only its own
+shards, with a `process-{rank}.json` manifest listing them, and reads only
+the shards its columns need; the format is the same as one controller's,
+so a checkpoint resumes across the two at the same buffer width.  The JAX
+package
 writes these with orbax, whose directories the port cannot read: a sharded
 carve resumes only in the package that wrote it (its state carries over
 in memory through `utils/state.py`).
@@ -166,7 +171,8 @@ def _step_dirs(path: str) -> list[tuple[int, str]]:
 
 def save_sharded(path: str, state, mesh, meta: dict) -> None:
     """Checkpoint a sharded carve state (`parallel/spatial.py::
-    SpatialCarveState` on `mesh`, a `parallel/shards.py::ShardMesh`).
+    SpatialCarveState` on `mesh`, a `parallel/shards.py::ShardMesh` or
+    `ProcessMesh`).
 
     Every chunk saves into its own `state-{seams_done}` directory, written
     under a temporary name and renamed into place, so a save cut short
@@ -174,44 +180,62 @@ def save_sharded(path: str, state, mesh, meta: dict) -> None:
     the side-car meta.json.  Older steps go only after the new one is
     committed.  `meta` must carry `seams_done`; the caller checks the carve
     parameters it holds on resume.  A committed step of the same number (a
-    new run reusing the directory) is replaced."""
+    new run reusing the directory) is replaced.
+
+    On a process mesh every process calls it, with a `path` that every
+    process sees (a shared file system): process 0 makes the temporary
+    directory; each process writes its own shards and its
+    manifest; process 0 commits the step, writes meta.json and prunes, with
+    a barrier after each of the three."""
     path = os.path.abspath(path)
-    os.makedirs(path, exist_ok=True)
     step = int(meta["seams_done"])
     name = f"{_STEP_PREFIX}{step:08d}"
     tmp = os.path.join(path, f".{name}.tmp")
-    shutil.rmtree(tmp, ignore_errors=True)
-    os.makedirs(tmp)
+    if mesh.rank == 0:
+        os.makedirs(path, exist_ok=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+    mesh.barrier()
     fields = ["luma", "origcol", "vmap", "energy"]
     if state.image is not None:
         fields.append("image")
+    files = []
     for g, st in enumerate(mesh.stacks):
         for i in range(st.count):
-            np.savez(os.path.join(tmp, f"shard-{st.first + i:05d}.npz"),
+            files.append(f"shard-{st.first + i:05d}.npz")
+            np.savez(os.path.join(tmp, files[-1]),
                      width=np.asarray(state.width, np.int32),
                      **{f: getattr(state, f)[g][i].cpu().numpy()
                         for f in fields})
-    final = os.path.join(path, name)
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.replace(tmp, final)
-    meta_full = {"version": _SHARDED_VERSION, "shards": mesh.size,
-                 "buffer_width": mesh.width, **meta}
-    tmp_meta = os.path.join(path, ".meta.json.tmp")
-    with open(tmp_meta, "w") as f:
-        json.dump(meta_full, f)
-    os.replace(tmp_meta, os.path.join(path, "meta.json"))
-    for s, old in _step_dirs(path):
-        if s != step:
-            shutil.rmtree(os.path.join(path, old), ignore_errors=True)
+    with open(os.path.join(tmp, f"process-{mesh.rank:05d}.json"), "w") as f:
+        json.dump({"process": mesh.rank, "shards": files}, f)
+    mesh.barrier()
+    if mesh.rank == 0:
+        final = os.path.join(path, name)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+        meta_full = {"version": _SHARDED_VERSION, "shards": mesh.size,
+                     "buffer_width": mesh.width, **meta}
+        tmp_meta = os.path.join(path, ".meta.json.tmp")
+        with open(tmp_meta, "w") as f:
+            json.dump(meta_full, f)
+        os.replace(tmp_meta, os.path.join(path, "meta.json"))
+        for s, old in _step_dirs(path):
+            if s != step:
+                shutil.rmtree(os.path.join(path, old), ignore_errors=True)
+    mesh.barrier()
 
 
-def load_sharded(path: str, devices):
+def load_sharded(path: str, devices, processes: bool = False):
     """Restore the newest committed step of a sharded checkpoint onto the
-    mesh `devices` (any shard count that divides the saved buffer width).
-    Returns (SpatialCarveState, ShardMesh, meta); meta["seams_done"] comes
-    from the committed step's name."""
-    from ..parallel.shards import ShardMesh
+    mesh `devices` (`parallel/shards.py::shard_mesh`: with `processes`,
+    this process's shards of a mesh over every process of the job; any
+    global shard count that divides the saved buffer width).  Each process
+    reads only the saved shards that overlap its columns.  Returns
+    (SpatialCarveState, mesh, meta); meta["seams_done"] comes from the
+    committed step's name."""
+    from ..parallel.shards import shard_mesh
     from ..parallel.spatial import SpatialCarveState
 
     path = os.path.abspath(path)
@@ -224,26 +248,38 @@ def load_sharded(path: str, devices):
         raise FileNotFoundError(f"no committed checkpoint step under {path}")
     step, name = steps[-1]
     meta["seams_done"] = step
-    shards = []
-    for i in range(meta["shards"]):
-        with np.load(os.path.join(path, name, f"shard-{i:05d}.npz")) as z:
-            shards.append({k: z[k] for k in z.files})
-    mesh = ShardMesh(devices, meta["buffer_width"])
-    home = mesh.stacks[0].device
+    mesh = shard_mesh(devices, meta["buffer_width"], processes)
+    saved_wl = meta["buffer_width"] // meta["shards"]
+    read = {}
 
-    def whole(field):
-        # (shards, H, Wl[, C]) -> (H, buffer_width[, C])
-        parts = np.stack([sh[field] for sh in shards])
-        parts = np.moveaxis(parts, 0, 1)
-        return torch.from_numpy(parts.reshape(
-            parts.shape[0], -1, *parts.shape[3:])).to(home)
+    def saved(i):
+        if i not in read:
+            with np.load(os.path.join(path, name, f"shard-{i:05d}.npz")) as z:
+                read[i] = {k: z[k] for k in z.files}
+        return read[i]
 
+    def parts(field):
+        # each stack's (count, H, Wl[, C]) from the saved shards under it
+        out = []
+        for st in mesh.stacks:
+            lo, hi = st.first * mesh.Wl, (st.first + st.count) * mesh.Wl
+            cols = np.concatenate(
+                [saved(i)[field] for i in range(lo // saved_wl,
+                                                -(-hi // saved_wl))], axis=1)
+            cols = cols[:, lo % saved_wl:lo % saved_wl + hi - lo]
+            cols = cols.reshape(cols.shape[0], st.count, mesh.Wl,
+                                *cols.shape[2:])
+            out.append(torch.from_numpy(np.ascontiguousarray(
+                np.moveaxis(cols, 1, 0))).to(st.device))
+        return out
+
+    head = saved(mesh.lo(0) // saved_wl)
     state = SpatialCarveState(
-        luma=mesh.split(whole("luma")),
-        image=mesh.split(whole("image")) if "image" in shards[0] else None,
-        origcol=mesh.split(whole("origcol")),
-        vmap=mesh.split(whole("vmap")),
-        energy=mesh.split(whole("energy")),
-        width=int(shards[0]["width"]),
+        luma=parts("luma"),
+        image=parts("image") if "image" in head else None,
+        origcol=parts("origcol"),
+        vmap=parts("vmap"),
+        energy=parts("energy"),
+        width=int(head["width"]),
     )
     return state, mesh, meta

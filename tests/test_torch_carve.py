@@ -199,6 +199,9 @@ def test_port_never_imports_jax():
         "from dct_carver_tpu_torch.kernels import build\n"
         "from dct_carver_tpu_torch.utils import state\n"
         "from dct_carver_tpu_torch.parallel import shards, spatial\n"
+        "from dct_carver_tpu_torch.parallel import dryrun, multihost\n"
+        "assert multihost.process_health()['healthy']\n"
+        "dryrun.dryrun_multichip(2, devices=['cpu'] * 2)\n"
         "from dct_carver_tpu_torch.models import retarget\n"
         "from dct_carver_tpu_torch.ui import server\n"
         "from dct_carver_tpu_torch.utils import debug, profiling\n"
