@@ -75,11 +75,14 @@ graph replays.  Phase 6 runs the spatial route over several processes
 (`parallel/multihost.py`): this script, started again as
 `--multiproc-worker`, once a process (NCCL, one card each, over two to four
 cards; two processes sharing one card over gloo), carves the 8K luma on 4
-global shards with the launch counters read around each process's carve
-and its columns held against the single-device carve, counts exchanges a
-seam, checkpoints each process's shards and resumes them, on the
-processes and on one controller, probes the job, prices one collective
-against the eager one-controller carve, and runs `dryrun_multichip(4)`.
+global shards with the launch counters and graph replays read around each
+process's carve (over NCCL every seam after the first a replay of the
+process's own graphs, its exchanges inside; over gloo eager), again under
+`debug_mode` (eager), each process's columns held against the
+single-device carve, counts exchanges a seam, times the two carves in
+turns, checkpoints each process's shards and resumes them, on the
+processes and on one controller, probes the job, times one shift and one
+psum alone, and runs `dryrun_multichip(4)`.
 
 Every kernel's line gives its time, its plain version's, the least time
 the card could take for the same work (`bound_ms`: bytes over 3.35 TB/s
@@ -138,13 +141,11 @@ RT_REPS = 20               # phase 2d: timed slides a width
 UI_REPS = 5                # phase 2d: timed /resize.png round trips (a
 # random-noise PNG takes Pillow ~0.35 s to encode)
 MP_SEAMS = 16              # phase 6: the multi-process 8K carve's seams,
-MP_CHUNK = 5               # its checkpointed chunks,
-MP_TIMED = 8               # and the seams of its marginal timing (8 vs 16)
+MP_CHUNK = 6               # its checkpointed chunks (resumed at seam 12),
+MP_TIMED = 16              # and the seams of its marginal timing (16 vs 32)
 MP_SHARDS = 4              # global shards of the multi-process mesh
 MP_SECONDS = 300           # a worker's limit
 MP_FLOOR_REPS = 200        # exchanges of one tiny slice, timed alone
-MP_EAGER_PAIRS = 3         # the eager one-controller timings, each the
-MP_EAGER_SEAMS = 16        # marginal of this many seams and twice as many
 CHUNKED_SEAMS_8K = 16      # phase 5b: the chunked 8K carve and the counts
 # under replay
 # phase 1c: rows wider than one thread block (MAX_WIDTH) and planes taller
@@ -2476,12 +2477,16 @@ def phase_5(dev, chk: Checks, card: str, rng) -> list:
                       "uninterrupted", res.image, whole.image)
             inp, out = (os.path.join(tmp, f) for f in ("in.ppm", "out.ppm"))
             save_image(inp, img)
+            # the CLI's mesh is every visible card: one controller over
+            # several cards runs every step eagerly
+            cards = torch.cuda.device_count()
+            want = SEAMS_5C - 1 if cards == 1 else 0
             with count_replays() as replays:
                 rc = cli.main(["carve", inp, out, "--seams", f"-{SEAMS_5C}",
                                "--parallel", "spatial"])
-            chk.require(rc == 0 and replays[0] == SEAMS_5C - 1,
-                        f"CLI --parallel spatial rc {rc}, {replays[0]} "
-                        "graph replays")
+            chk.require(rc == 0 and replays[0] == want,
+                        f"CLI --parallel spatial over {cards} card(s): rc "
+                        f"{rc}, {replays[0]} graph replays == {want}")
             same(load_image(out), b.image,
                  "CLI --parallel spatial == single-image api.carve")
     finally:
@@ -2508,13 +2513,20 @@ def mp_layout(count: int) -> tuple[str, int, int]:
     return "gloo", 2, MP_SHARDS // 2
 
 
+def mp_graphed(backend: str) -> bool:
+    """Whether phase 6's process mesh replays CUDA graphs: over NCCL, whose
+    exchanges stay on the card; over gloo every step runs eagerly."""
+    return backend == "nccl"
+
+
 def multiproc_worker(rank: int, nproc: int, port: int, backend: str,
                      workdir: str) -> int:
     """One process of phase 6: joins the job, carves its shards of the 8K
     luma with the launch counters and graph replays read around the carve,
-    counts its exchanges a seam, times the carve, checkpoints in chunks
-    and resumes, probes the job, and writes what it saw to
-    result-{rank}.json under `workdir`."""
+    and again with every step eager (`debug_mode`), counts its exchanges a
+    seam, times both carves in turns, checkpoints in chunks and resumes,
+    probes the job, and writes what it saw to result-{rank}.json under
+    `workdir`."""
     import os
 
     import torch
@@ -2524,6 +2536,7 @@ def multiproc_worker(rank: int, nproc: int, port: int, backend: str,
     from dct_carver_tpu_torch.parallel.shards import shard_mesh
     from dct_carver_tpu_torch.parallel.spatial import (
         spatial_carve_n_seams, spatial_carve_seams, spatial_make_state)
+    from dct_carver_tpu_torch.utils.debug import debug_mode
 
     multihost.initialize(f"localhost:{port}", nproc, rank, backend=backend)
     card = torch.device("cuda", torch.cuda.current_device())
@@ -2539,30 +2552,63 @@ def multiproc_worker(rank: int, nproc: int, port: int, backend: str,
         torch.cuda.synchronize()
         return res
 
+    def eager():
+        return debug_mode(nan_checks=False, disable_jit=True)
+
+    def counted(name, n, ctx=contextlib.nullcontext, **kw):
+        """carve(n) with the launch counters and graph replays read around
+        it; saves its vmap as {name}-{rank}.npy."""
+        kernels.reset_launches()
+        with count_replays() as replays, ctx():
+            res = carve(n, **kw)
+        out[name] = {"launches": kernels.launch_counts(),
+                     "replays": replays[0],
+                     "capture_ms": res.capture_seconds * 1e3}
+        np.save(os.path.join(workdir, f"{name}-{rank}.npy"),
+                res.vmap.cpu().numpy())
+        return res
+
     carve(2)  # warm-up: the kernels' first launches, the allocator
-    kernels.reset_launches()
-    with count_replays() as replays:
-        res = carve(MP_SEAMS)
-    out["launches"] = kernels.launch_counts()
-    out["replays"] = replays[0]
+    res = counted("vmap", MP_SEAMS)
     out["columns"] = list(res.columns)
     out["width"] = res.width
-    vmap = res.vmap.cpu().numpy()
-    np.save(os.path.join(workdir, f"vmap-{rank}.npy"), vmap)
+    counted("vmap-eager", MP_SEAMS, eager)
 
     st, mesh = spatial_make_state(luma, devices=devices, processes=True)
     mesh.exchanges = 0
-    spatial_carve_seams(st, mesh, 0, MP_SEAMS)
+    with count_replays() as replays:
+        spatial_carve_seams(st, mesh, 0, MP_SEAMS)
+        torch.cuda.synchronize()
     out["exchanges"] = mesh.exchanges
+    out["exchanges_replays"] = replays[0]
     del st, mesh
 
-    secs = []
-    for n in (MP_TIMED, 2 * MP_TIMED):
-        multihost.barrier("timed")
-        t = time.perf_counter()
-        carve(n)
-        secs.append(time.perf_counter() - t)
-    out["seconds"] = secs
+    # the graphed and the eager carve in turns, each timed at MP_TIMED and
+    # 2 * MP_TIMED seams with its capture beside it (`mp_ms_a_seam`); over
+    # gloo both are eager, so one turn
+    turns = (("graphed", "eager", "eager", "graphed") if mp_graphed(backend)
+             else ("eager",))
+    timed = {mode: [] for mode in set(turns)}
+    for mode in turns:
+        walls = []
+        with eager() if mode == "eager" else contextlib.nullcontext():
+            for n in (MP_TIMED, 2 * MP_TIMED):
+                multihost.barrier("timed")
+                t = time.perf_counter()
+                res = carve(n)
+                walls.append((time.perf_counter() - t, res.capture_seconds))
+        timed[mode].append(walls)
+    out["timed"] = timed
+    if mp_graphed(backend):
+        # where a graphed seam's time goes, every process at once: CUDA
+        # events around every replay, then the kernels by device time
+        multihost.barrier("busy")
+        out["busy"] = event_busy(lambda: carve(2 * MP_TIMED), card)
+        multihost.barrier("profile")
+        wall, dev_us, top, busy_us = device_profile(
+            lambda: carve(2 * MP_TIMED), top=6, host=False)
+        out["profile"] = {"wall_ms": wall * 1e3, "device_us": dev_us,
+                          "busy_us": busy_us, "top": top}
     # the fabric's floor: a shift and a sum of a one-float shard, alone
     floor = shard_mesh(devices, len(devices) * nproc, processes=True)
     tiny = [torch.zeros((len(devices), 1), device=card)]
@@ -2577,17 +2623,13 @@ def multiproc_worker(rank: int, nproc: int, port: int, backend: str,
         out[f"{name}_us"] = (time.perf_counter() - t) / MP_FLOOR_REPS * 1e6
 
     ck = os.path.join(workdir, "ck")
-    chunked = carve(MP_SEAMS, chunk=MP_CHUNK, checkpoint_dir=ck)
-    out["chunked_equal"] = bool(np.array_equal(chunked.vmap.cpu().numpy(),
-                                               vmap))
+    counted("chunked", MP_SEAMS, chunk=MP_CHUNK, checkpoint_dir=ck)
     step = (MP_SEAMS - 1) // MP_CHUNK * MP_CHUNK  # the last chunk saves
     # nothing
     with open(os.path.join(ck, f"state-{step:08d}",
                            f"process-{rank:05d}.json")) as f:
         out["manifest"] = json.load(f)
-    resumed = carve(MP_SEAMS, resume_from=ck)
-    out["resumed_equal"] = bool(np.array_equal(resumed.vmap.cpu().numpy(),
-                                               vmap))
+    counted("resumed", MP_SEAMS, resume_from=ck)
     out["health"] = multihost.process_health(timeout=30.0)
     multihost.barrier("done")
     with open(os.path.join(workdir, f"result-{rank}.json"), "w") as f:
@@ -2596,12 +2638,22 @@ def multiproc_worker(rank: int, nproc: int, port: int, backend: str,
     return 0
 
 
+def mp_ms_a_seam(walls, captures) -> float:
+    """ms a seam from one process's turn, [(wall s, capture s)] of its
+    carves of MP_TIMED and 2 * MP_TIMED seams: the marginal, with each
+    carve's slowest capture over the processes (`captures`) taken out, the
+    capture every process's first replay waits for."""
+    (t1, _), (t2, _) = walls
+    c1, c2 = captures
+    return ((t2 - c2) - (t1 - c1)) / MP_TIMED * 1e3
+
+
 def phase_6(dev, chk: Checks, card: str) -> list:
     """The spatial route over several processes (`parallel/multihost.py`,
     a `ProcessMesh`): the 8K luma of phase 5b on 4 global shards, the
-    processes spawned from this script; then the checkpoint they wrote,
-    resumed on one controller, the eager single-controller carve that
-    prices their exchanges, and `dryrun_multichip`.  Returns each
+    processes spawned from this script, graphed over NCCL and eager over
+    gloo, and under `debug_mode` eager on both; then the checkpoint they
+    wrote, resumed on one controller, and `dryrun_multichip`.  Returns each
     process's launch counts of its carve."""
     import os
     import socket
@@ -2613,13 +2665,16 @@ def phase_6(dev, chk: Checks, card: str) -> list:
     from dct_carver_tpu_torch.parallel.dryrun import dryrun_multichip
     from dct_carver_tpu_torch.parallel.spatial import (
         collectives_per_seam, spatial_carve_n_seams)
-    from dct_carver_tpu_torch.utils.debug import debug_mode
 
     count = torch.cuda.device_count()
     backend, nproc, per_rank = mp_layout(count)
+    graphed = mp_graphed(backend)
     log(f"phase 6: backend {backend}, {nproc} processes x {per_rank} shards "
         f"({count} card{'s' if count > 1 else ''}): spatial_carve_n_seams("
-        f"{H8}x{W8}, {MP_SEAMS}), use_pallas=True, every step eager")
+        f"{H8}x{W8}, {MP_SEAMS}), use_pallas=True, "
+        + ("graph replays over NCCL, and eager under debug_mode" if graphed
+           else "every step eager: the graphed process mesh needs two cards "
+                "(NCCL; gloo stages its exchanges through the host)"))
     torch.cuda.empty_cache()
     with socket.socket() as sk:
         sk.bind(("localhost", 0))
@@ -2671,6 +2726,13 @@ def phase_6(dev, chk: Checks, card: str) -> list:
                 "sharded_apply": MP_SEAMS, "strip": MP_SEAMS, "energy": 1,
                 "block_dp": 0, "find_seam": 0, "find_seams": 0,
                 "find_seam_tiled": 0, "apply": 0}
+        # replays a carve of n seams from its first: every seam but the
+        # first over NCCL, none over gloo
+        def replays(n):
+            return n - 1 if graphed else 0
+
+        step = (MP_SEAMS - 1) // MP_CHUNK * MP_CHUNK  # the resumed seams'
+        # checkpoint
         Wl = W8 // (nproc * per_rank)
         for res in results:
             r = res["rank"]
@@ -2678,22 +2740,31 @@ def phase_6(dev, chk: Checks, card: str) -> list:
             chk.require((lo, hi) == (r * per_rank * Wl,
                                      (r + 1) * per_rank * Wl),
                         f"rank {r} holds columns [{lo}, {hi})")
-            chk.equal("carve", f"rank {r}: multi-process vmap columns == "
-                      "single-device", torch.from_numpy(np.load(
-                          os.path.join(tmp, f"vmap-{r}.npy"))).to(dev),
-                      single.vmap[:, lo:hi])
+            for name, what, n in (
+                    ("vmap", "graphed" if graphed else "eager", MP_SEAMS),
+                    ("vmap-eager", "debug_mode", MP_SEAMS),
+                    ("chunked", f"in chunks of {MP_CHUNK}, checkpointed",
+                     MP_SEAMS),
+                    ("resumed", f"resumed at seam {step}", MP_SEAMS - step)):
+                chk.equal("carve", f"rank {r}: multi-process {what} vmap "
+                          "columns == single-device", torch.from_numpy(
+                              np.load(os.path.join(tmp, f"{name}-{r}.npy")))
+                          .to(dev), single.vmap[:, lo:hi])
+                want_r = 0 if name == "vmap-eager" else replays(n)
+                chk.require(res[name]["replays"] == want_r,
+                            f"rank {r}: {what} carve of {n} seams: "
+                            f"{res[name]['replays']} graph replays == "
+                            f"{want_r}")
             chk.require(res["width"] == W8 - MP_SEAMS,
                         f"rank {r} width {res['width']}")
-            got = {k: res["launches"][k] for k in want}
-            chk.require(got == want, f"rank {r} launches {got}")
-            chk.require(res["replays"] == 0,
-                        f"rank {r}: {res['replays']} graph replays (eager)")
-            chk.require(res["exchanges"] == MP_SEAMS * design,
+            for name in ("vmap", "vmap-eager", "chunked"):
+                got = {k: res[name]["launches"][k] for k in want}
+                chk.require(got == want, f"rank {r} {name} launches {got}")
+            chk.require(res["exchanges"] == MP_SEAMS * design
+                        and res["exchanges_replays"] == replays(MP_SEAMS),
                         f"rank {r}: {res['exchanges']} exchanges == "
-                        f"{MP_SEAMS} x collectives_per_seam {design}")
-            chk.require(res["chunked_equal"] and res["resumed_equal"],
-                        f"rank {r}: carve in chunks of {MP_CHUNK} and its "
-                        "resume == unchunked")
+                        f"{MP_SEAMS} x collectives_per_seam {design}, "
+                        f"{res['exchanges_replays']} of the seams replayed")
             chk.require(res["manifest"] == {"process": r, "shards": [
                 f"shard-{s:05d}.npz" for s in range(r * per_rank,
                                                     (r + 1) * per_rank)]},
@@ -2707,39 +2778,45 @@ def phase_6(dev, chk: Checks, card: str) -> list:
                   f"{MP_SHARDS} shards == single-device", one.vmap,
                   single.vmap)
 
-    # the price of the fabric: the same carve, eager, on one controller
-    devices = [dev] * MP_SHARDS
-    eager, ms_e = [], []
-    with debug_mode(nan_checks=False, disable_jit=True):
-        spatial_carve_n_seams(luma, 2, devices=devices)
-        for _ in range(MP_EAGER_PAIRS):
-            for n in (MP_EAGER_SEAMS, 2 * MP_EAGER_SEAMS):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                spatial_carve_n_seams(luma, n, devices=devices)
-                torch.cuda.synchronize()
-                eager.append(time.perf_counter() - t)
-            ms_e.append((eager[-1] - eager[-2]) / MP_EAGER_SEAMS * 1e3)
-    ms_1 = sorted(ms_e)[len(ms_e) // 2]
-    ms_p = [(res["seconds"][1] - res["seconds"][0]) / MP_TIMED * 1e3
-            for res in results]
-    ms_n = max(ms_p)
-    # the metrics of record: the ms a seam, and one exchange timed alone;
-    # the difference to the eager carve is an indirect reading, as noisy
-    # as the eager marginals' spread
-    log(f"  multi-process carve ({backend}, {nproc} x {per_rank} shards): "
-        f"{ms_p!r} ms a seam by rank (marginal of {MP_TIMED} and "
-        f"{2 * MP_TIMED} seams; walls {[r['seconds'] for r in results]!r} s)"
-        f" ({card})")
+    # the metrics of record: the ms a seam of each carve, graphed and
+    # eager in turns, and one exchange timed alone
+    for mode in [m for m in ("graphed", "eager") if m in results[0]["timed"]]:
+        turns = list(zip(*(res["timed"][mode] for res in results)))
+        slowest = [[max(w[j][1] for w in turn) for j in (0, 1)]
+                   for turn in turns]
+        ms = [[mp_ms_a_seam(w, c) for w, c in zip(res["timed"][mode],
+                                                  slowest)]
+              for res in results]
+        log(f"  multi-process carve, {mode} ({backend}, {nproc} x {per_rank} "
+            f"shards): {ms!r} ms a seam by rank and turn (marginal of "
+            f"{MP_TIMED} and {2 * MP_TIMED} seams, the slowest capture "
+            f"taken out; "
+            f"(wall, capture) s {[res['timed'][mode] for res in results]!r})"
+            f" ({card})")
+    launches = results[0]["vmap"]["launches"]
+    log(f"  a carve of {MP_SEAMS} seams by rank: capture ms "
+        f"{[res['vmap']['capture_ms'] for res in results]!r}, replays "
+        f"{[res['vmap']['replays'] for res in results]!r}, exchanges a seam "
+        f"{[res['exchanges'] / MP_SEAMS for res in results]!r} "
+        f"(collectives_per_seam {design}), launches a seam (replays "
+        f"credited) {sum(launches.values()) / MP_SEAMS!r}: "
+        f"{ {k: v / MP_SEAMS for k, v in launches.items() if v}!r}")
+    for res in results if graphed else ():
+        b, pr = res["busy"], res["profile"]
+        n = 2 * MP_TIMED
+        top = [(k[:48], us / n / 1e3, c) for k, us, c in pr["top"]]
+        log(f"  rank {res['rank']}, a graphed carve of {n} seams: "
+            f"{b['replays']} replays of {b['replay_ms'] / b['replays']!r} "
+            f"device ms each by CUDA events, idle between replays "
+            f"{b['idle_between_replays_ms']!r} ms in all, before the first "
+            f"{b['before_first_replay_ms']!r} ms, wall {b['wall_ms']!r} ms "
+            f"(capture included); profiled: kernels "
+            f"{pr['device_us'] / n / 1e3!r} device ms a seam, busy "
+            f"{pr['busy_us'] / 1e3!r} of {pr['wall_ms']!r} ms; top (name, "
+            f"device ms a seam, count) {top!r} ({card})")
     log(f"  one exchange of a one-float shard alone, by rank: shift "
         f"{[r['shift_us'] for r in results]!r} us, psum "
         f"{[r['psum_us'] for r in results]!r} us ({backend}; {card})")
-    log(f"  indirect: one controller, eager, {MP_SHARDS} shards: {ms_e!r} "
-        f"ms a seam (marginals of {MP_EAGER_SEAMS} and "
-        f"{2 * MP_EAGER_SEAMS} seams; spread {max(ms_e) - min(ms_e)!r}), "
-        f"median {ms_1!r} (walls {eager!r} s); ({ms_n!r} - {ms_1!r}) / "
-        f"{design} collectives = {(ms_n - ms_1) / design * 1e3!r} us a "
-        f"collective ({card})")
     del luma, single
 
     on = f"{count} cards" if count >= MP_SHARDS else f"{dev} x {MP_SHARDS}"
@@ -2749,7 +2826,7 @@ def phase_6(dev, chk: Checks, card: str) -> list:
                      else [dev] * MP_SHARDS)
     chk.require(True, f"dryrun_multichip({MP_SHARDS}) in "
                 f"{time.perf_counter() - t!r} s")
-    return [res["launches"] for res in results]
+    return [res["vmap"]["launches"] for res in results]
 
 
 def main() -> int:

@@ -13,7 +13,9 @@ the caller asks for gloo (CPU processes, or several processes sharing one
 card, which NCCL refuses).  Nothing switches backend after a failure.
 Besides the job's default group, `initialize` makes one gloo group of CPU
 tensors for the liveness probe, so a probe works under NCCL too and never
-interleaves with the carve's collectives.
+interleaves with the carve's collectives; `failed_processes`, the
+processes' agreement on a step that each prepared alone (a CUDA graph
+capture), runs on it too.
 
 With one process everything degrades to no-ops, as in the JAX package.
 """
@@ -27,7 +29,8 @@ import time
 import torch
 import torch.distributed as dist
 
-__all__ = ["initialize", "is_distributed", "barrier", "process_health"]
+__all__ = ["initialize", "is_distributed", "barrier", "process_health",
+           "failed_processes"]
 
 _TORCHRUN_VARS = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
 
@@ -100,6 +103,23 @@ def barrier(name: str = "startup") -> None:
         dist.barrier(device_ids=[torch.cuda.current_device()])
     else:
         dist.barrier()
+
+
+def failed_processes(ok: bool) -> list[int]:
+    """The ranks of the processes that call this with `ok` false: a
+    collective that every process makes, one int32 a process all-gathered
+    on the probe's gloo group, so the NCCL communicator takes no part.
+    With one process, [0] or []."""
+    if not is_distributed():
+        return [] if ok else [0]
+    if _probe_group is None:
+        raise RuntimeError("failed_processes needs multihost.initialize: it "
+                           "runs on the gloo group that initialize makes")
+    out = [torch.zeros(1, dtype=torch.int32)
+           for _ in range(dist.get_world_size())]
+    dist.all_gather(out, torch.tensor([int(ok)], dtype=torch.int32),
+                    group=_probe_group)
+    return [r for r, x in enumerate(out) if not x.item()]
 
 
 def process_health(timeout: float = 30.0) -> dict:

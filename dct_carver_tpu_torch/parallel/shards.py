@@ -269,11 +269,15 @@ class ProcessMesh(ShardMesh):
     receives the other neighbour's in one `batch_isend_irecv` (zeros at the
     mesh's ends); a reduction reduces over the local stack, then runs one
     `all_reduce`; `all_gather` and `join` give every shard to every
-    process.  Under NCCL the tensors stay on the card.  Under gloo, which
-    takes CPU tensors, every exchanged slice of a CUDA stack is staged
-    through host memory here, explicitly: this is how several processes
-    share one card, which NCCL refuses.  Every process must make the same
-    exchanges in the same order; the route's exchanges depend only on
+    process.  Under NCCL the tensors stay on the card, and a shift or a
+    reduction neither waits on the host nor makes a CPU tensor, so a CUDA
+    graph of the seam step holds them as nodes
+    (`parallel/spatial.py::_SeamSteps`).  Under gloo, which takes CPU
+    tensors, every exchanged slice of a CUDA stack is staged through host
+    memory here, explicitly: this is how several processes share one card,
+    which NCCL refuses, and why a gloo mesh's steps run eagerly.  Every
+    process must make the same exchanges in the same order, graph replays
+    included; the route's exchanges, captures and replays depend only on
     shapes and knobs that every process shares."""
 
     def __init__(self, devices, width: int):

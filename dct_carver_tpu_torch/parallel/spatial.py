@@ -44,16 +44,20 @@ carve in two CUDA graphs, one for each direction between the sets, and
 every seam after the first replays one: the port's counterpart of the JAX
 package's jitted chunk (`_spatial_chunk_jit`, `jax.jit` over `shard_map`
 over `lax.fori_loop`).  CPU meshes, the plain path, the generalized DP
-(`delta_x`/`rigidity` other than (1, 0)) and meshes over several cards run
-the same step eagerly.
+(`delta_x`/`rigidity` other than (1, 0)) and meshes over several cards on
+one controller run the same step eagerly (`_graph_card`).
 
 Over the processes of a `torch.distributed` job (`parallel/multihost.py`),
 with `processes=True`, the mesh is a `parallel/shards.py::ProcessMesh`:
 each process passes its own shards as `devices`, as many on every process,
-runs the same steps
-eagerly (no CUDA graph captures its collectives), and gets back the
-columns it holds (`SpatialCarveResult.columns`; `gather()` assembles the
-whole map on every process), the counterpart of JAX's addressable shards.
+runs the same steps, and gets back the columns it holds
+(`SpatialCarveResult.columns`; `gather()` assembles the whole map on every
+process), the counterpart of JAX's addressable shards.  Over NCCL each
+process captures its own step as one card does, its point-to-point sends
+and all-reduces as nodes of the graphs, and replays them: the counterpart
+of JAX's one program over the processes of a multi-controller job.  Over
+gloo, which stages every exchange through host memory, every step runs
+eagerly.
 
 Seams equal the single-device carve's (`ops/carve.py`), element for
 element.  `collectives_per_seam` is the design's exchange count per seam,
@@ -78,6 +82,7 @@ from ..ops.dp import check_tie
 from ..ops.energy_fn import resolve_energy
 from ..utils.debug import check_finite, checks_nans, eager_steps
 from ..utils.graphs import StepGraphs
+from . import multihost
 from .mesh import make_mesh
 from .shards import ProcessMesh, ShardMesh, shard_count, shard_mesh
 
@@ -170,6 +175,25 @@ def _kernel_dp(p: _Params) -> bool:
     kernels and the kernels' DP (delta_x = 1, rigidity = 0); else the plain
     scan and walk, whose steps are never captured."""
     return p.use_pallas and p.delta_x == 1 and p.rigidity == 0.0
+
+
+def _graph_card(mesh: ShardMesh, p: _Params) -> torch.device | None:
+    """The card a carve's seam step is captured on, or None: every step
+    runs eagerly.  Captured with the kernels' DP (`_kernel_dp`), outside
+    `utils/debug.py::debug_mode`, when every stack of the mesh lies on one
+    CUDA card and, on a process mesh, its exchanges stay on that card
+    (NCCL).  Eager: CPU meshes, meshes over several cards on one
+    controller, gloo process meshes (host-staged exchanges), the plain path
+    and the generalized DP (whose scan allocates under capture)."""
+    cards = {st.device for st in mesh.stacks}
+    if len(cards) != 1 or not _kernel_dp(p) or eager_steps():
+        return None
+    (card,) = cards
+    if card.type != "cuda":
+        return None
+    if isinstance(mesh, ProcessMesh) and mesh.wire != card:
+        return None
+    return card
 
 
 # ------------------------------------------------------------- energy -----
@@ -454,19 +478,21 @@ class _SeamSteps:
     device (the step decrements both), and the removed pixels' original
     columns, which are copied into a chunk's record after each step.
 
-    On a mesh whose stacks all lie on one CUDA card, with the kernels
-    and their DP (`use_pallas`, delta_x = 1, rigidity = 0), the carve's
-    first seam runs eagerly, which builds the
-    kernels and sets their shared-memory limits, and every later seam
-    replays one of two CUDA graphs of the same step, captured once a carve
-    on a side stream, one for each direction between the sets: the host
-    issues one graph a seam instead of ~420 launches.  A replay credits the
-    kernels' launch counts and the mesh's exchange count with what its
-    capture counted.  CPU meshes, `use_pallas=False`, the generalized DP,
-    meshes over several cards, process meshes and every step inside
-    `utils/debug.py::debug_mode` run eagerly;
-    with its NaN checks the state is checked after every seam.  A capture
-    or replay that fails raises; nothing falls back to eager steps."""
+    Where `_graph_card` names a card (the mesh's stacks on one card, on a
+    process mesh with NCCL exchanges; the kernels and their DP; no
+    `debug_mode`), the carve's first seam runs eagerly, which builds the
+    kernels, sets their shared-memory limits and, on a process mesh, opens
+    every NCCL connection the step uses, and every later seam replays one
+    of two CUDA graphs of the same step, captured once a carve on a side
+    stream, one for each direction between the sets: the host issues one
+    graph a seam instead of ~420 launches (and, on a process mesh, 141
+    exchanges).  A replay credits the kernels' launch counts and the
+    mesh's exchange count with what its capture counted.  Every other step
+    runs eagerly; inside `debug_mode` with its NaN checks the state is
+    checked after every seam.  A capture or replay that fails raises;
+    nothing falls back to eager steps.  Each process of a process mesh
+    captures on its own, and the processes agree on the outcome before
+    any replays (`_capture`)."""
 
     def __init__(self, mesh: ShardMesh, st: SpatialCarveState, p: _Params):
         self.mesh, self.p = mesh, p
@@ -486,12 +512,7 @@ class _SeamSteps:
             [torch.zeros(n, dtype=torch.int32, device=x.device)
              for x in st.luma] for n in (1, 1, H))
         # the card the step is captured on; None: every step runs eagerly
-        # (a process mesh always: its collectives stay outside graphs)
-        devices = {x.device for x in st.luma}
-        dev = devices.pop() if len(devices) == 1 else None
-        self.graph_device = dev if _kernel_dp(p) and dev is not None \
-            and dev.type == "cuda" and not eager_steps() \
-            and not isinstance(mesh, ProcessMesh) else None
+        self.graph_device = _graph_card(mesh, p)
         name = p.energy_fn.name if p.energy_fn is not None else "dct"
         self.graphs = StepGraphs(
             self.graph_device, f"spatial seam step (energy {name!r})",
@@ -517,8 +538,29 @@ class _SeamSteps:
 
     def _replay(self, src: int) -> None:
         if not self.graphs.captured:
-            self.graphs.capture(self._step, (self.cur, 1 - self.cur))
+            self._capture()
         self.graphs.replay(src)
+
+    def _capture(self) -> None:
+        """Capture the step both ways.  A process of a process mesh whose
+        capture failed would leave the others waiting in the exchanges of
+        their first replay, so the processes first agree on the outcome
+        (`multihost.failed_processes`): if any failed, every one raises."""
+        sources = (self.cur, 1 - self.cur)
+        if not isinstance(self.mesh, ProcessMesh):
+            self.graphs.capture(self._step, sources)
+            return
+        error = None
+        try:
+            self.graphs.capture(self._step, sources)
+        except Exception as e:  # raised below, on every process
+            error = e
+        failed = multihost.failed_processes(error is None)
+        if failed:
+            raise RuntimeError(
+                f"{self.graphs.what}: the CUDA graph capture failed on "
+                f"process(es) {failed} of the process mesh, so every "
+                f"process stops the carve") from error
 
     def carve(self, st: SpatialCarveState, base: int,
               count: int) -> SpatialCarveState:

@@ -7,7 +7,9 @@ here the seam step runs over static buffers, two sets that swap every
 seam, so one graph a direction between the sets covers every seam, and
 the host issues one replay a seam instead of a launch a kernel.  Both seam
 loops use it: the single-image and batch routes (`ops/carve.py::
-SeamSteps`) and the spatial route (`parallel/spatial.py::_SeamSteps`).
+SeamSteps`) and the spatial route (`parallel/spatial.py::_SeamSteps`), on
+one controller and, over NCCL, on each process of a process mesh, whose
+exchanges the graph then holds as nodes.
 
 A capture runs the step once on a side stream without executing it; the
 kernel wrappers count their launches as they are captured.  Those counts

@@ -11,8 +11,11 @@ controller; the liveness probe reports a healthy job, a wedged peer (with
 the pending probe reused) and a killed one.  The process mesh is taken only
 when asked for (`processes=True`): `api.carve` and `Carver` inside the job
 carve each process's own image on one controller.  `scale` measures the cost of
-a collective between processes.  `dryrun_multichip` runs on CPU meshes of
-2, 4 and 8 shards against JAX.
+a collective between processes.  `agree` holds the processes' agreement on
+their seam steps' CUDA graph captures: one that failed on one process
+raises on every process.  The capture gate (`_graph_card`) is held on
+stand-in meshes: graphs over NCCL and on one card, eager steps elsewhere.
+`dryrun_multichip` runs on CPU meshes of 2, 4 and 8 shards against JAX.
 
 Run as a script, this file is the worker:
     python test_torch_multiprocess.py <scenario> <rank> <nproc> <port> <dir>
@@ -177,6 +180,33 @@ def _killpeer_scenario(rank, nproc, workdir):
         time.sleep(600)
 
 
+def _agree_scenario(rank, nproc, workdir):
+    """Each process captures its seam step alone; a stand-in capture that
+    fails on the rank named (none, then rank 1) must make every process
+    raise, naming it, and leave the job able to go on."""
+    from dct_carver_tpu_torch.parallel import multihost
+    from dct_carver_tpu_torch.parallel import spatial
+
+    luma = np.random.default_rng(0).random((16, 64), dtype=np.float32)
+    st, mesh = spatial.spatial_make_state(luma, devices=["cpu"] * SHARDS,
+                                          processes=True)
+    steps = spatial._SeamSteps(mesh, st, spatial._params(64, 16))
+    assert steps.graph_device is None  # gloo on the CPU: eager steps
+    for fail in (None, 1):
+        def capture(step, sources, fail=fail):  # no card here
+            if rank == fail:
+                raise RuntimeError(f"stand-in capture failure on {rank}")
+
+        steps.graphs.capture = capture
+        try:
+            steps._capture()
+        except RuntimeError as e:
+            _log(f"RAISED fail={fail} {e} CAUSE {e.__cause__!r}")
+        else:
+            _log(f"CAPTURED fail={fail}")
+    multihost.barrier("after")
+
+
 def _worker(argv):
     scenario, rank, nproc, port, workdir = argv
     rank, nproc = int(rank), int(nproc)
@@ -193,7 +223,8 @@ def _worker(argv):
         multihost.barrier("startup")
     _log("READY")
     {"carve": _carve_scenario, "scale": _scale_scenario,
-     "killpeer": _killpeer_scenario}[scenario](rank, nproc, workdir)
+     "killpeer": _killpeer_scenario,
+     "agree": _agree_scenario}[scenario](rank, nproc, workdir)
     _log("DONE")
 
 
@@ -213,6 +244,7 @@ if __name__ == "__main__":
 
 # ------------------------------------------------------------ the tests ---
 
+import contextlib  # noqa: E402
 import re  # noqa: E402
 import signal  # noqa: E402
 import socket  # noqa: E402
@@ -408,6 +440,69 @@ def test_probe_healthy_then_wedged_peer_times_out(carve_job):
         assert marker in outs[0], outs[0]
 
 
+def test_failed_capture_on_one_process_raises_on_every_process(tmp_path):
+    """A process mesh's processes capture their seam steps alone, then
+    agree on the outcome over the gloo group: a capture that failed on
+    rank 1 raises on both ranks, naming rank 1, and neither hangs (`_run`'s
+    timeout); when every capture succeeds, none raises."""
+    outs = _run("agree", 2, tmp_path, timeout=120)
+    for r, out in enumerate(outs):
+        assert "CAPTURED fail=None" in out, out
+        line = re.search(r"RAISED fail=1 (.*)", out)
+        assert line and "process(es) [1]" in line.group(1), out
+        cause = line.group(1).split(" CAUSE ")[1]
+        if r == 1:
+            assert "stand-in capture failure on 1" in cause, out
+        else:
+            assert cause == "None", out
+
+
+def _stand_in_process_mesh(card: str, wire: str):
+    """A `ProcessMesh` with the attributes the capture gate reads (its one
+    stack and its wire), made without a job or a card."""
+    mesh = tshards.ProcessMesh.__new__(tshards.ProcessMesh)
+    mesh.stacks = [tshards.Stack(torch.device(card), 0, 2)]
+    mesh.wire = torch.device(wire)
+    return mesh
+
+
+_NCCL = ("cuda:0", "cuda:0")   # a process mesh's (stack, wire)
+_GATE_CASES = {
+    # name: (mesh, knobs, inside debug_mode, the card captured on)
+    "nccl-one-card": (_NCCL, {}, False, "cuda:0"),
+    "gloo-one-card": (("cuda:0", "cpu"), {}, False, None),
+    "gloo-cpu": (("cpu", "cpu"), {}, False, None),
+    "nccl-plain-path": (_NCCL, dict(use_pallas=False), False, None),
+    "nccl-delta-x": (_NCCL, dict(delta_x=2), False, None),
+    "nccl-rigidity": (_NCCL, dict(rigidity=0.5), False, None),
+    "nccl-debug-mode": (_NCCL, {}, True, None),
+    "one-controller-one-card": (["cuda:0"] * 4, {}, False, "cuda:0"),
+    "one-controller-two-cards": (["cuda:0", "cuda:0", "cuda:1", "cuda:1"],
+                                 {}, False, None),
+    "one-controller-cpu": (["cpu"] * 4, {}, False, None),
+    "one-controller-debug-mode": (["cuda:0"] * 4, {}, True, None),
+}
+
+
+@pytest.mark.parametrize("case", list(_GATE_CASES))
+def test_graph_gate(case):
+    """Which seam steps are captured (`parallel/spatial.py::_graph_card`):
+    on a process mesh only with NCCL exchanges from a one-card stack, the
+    kernels' DP and no debug_mode; on one controller with every shard on
+    one card, as before."""
+    from dct_carver_tpu_torch.utils.debug import debug_mode
+
+    mesh, knobs, debug, want = _GATE_CASES[case]
+    if isinstance(mesh, tuple):
+        mesh = _stand_in_process_mesh(*mesh)
+    else:
+        mesh = tshards.ShardMesh(mesh, 64)
+    p = tsp._params(64, 16, **knobs)
+    with debug_mode() if debug else contextlib.nullcontext():
+        got = tsp._graph_card(mesh, p)
+    assert got == (None if want is None else torch.device(want))
+
+
 def test_two_process_killed_peer_detected(tmp_path):
     """SIGKILL one process after startup; the survivor's liveness probe
     reports it unhealthy within its deadline instead of hanging."""
@@ -472,6 +567,8 @@ def test_single_process_no_ops(monkeypatch):
     assert multihost.barrier("startup") is None
     assert multihost.process_health(timeout=1.0) \
         == jmultihost.process_health(timeout=1.0)
+    assert multihost.failed_processes(True) == []
+    assert multihost.failed_processes(False) == [0]
     # one controller's mesh: no collective, no barrier, rank 0
     assert tshards.shard_count(["cpu"] * 3) == 3
     mesh = tshards.shard_mesh(["cpu"] * 2, 8)
