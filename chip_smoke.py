@@ -82,7 +82,21 @@ process's own graphs, its exchanges inside; over gloo eager), again under
 single-device carve, counts exchanges a seam, times the two carves in
 turns, checkpoints each process's shards and resumes them, on the
 processes and on one controller, probes the job, times one shift and one
-psum alone, and runs `dryrun_multichip(4)`.
+psum alone, and runs `dryrun_multichip(4)`.  Phase 7 runs several cards
+of one controller, each part that the visible cards allow (one line says
+which was skipped): 7a carves the 8K luma through `spatial_carve_n_seams`
+over 4 cards x 1 shard and 2 cards x 2 shards, every seam after the first
+a replay of one graph over the cards, against the single-device carve
+(graphed, under `debug_mode`, in checkpointed chunks and resumed), counts
+launches, replays and exchanges a seam, drives `api.carve(parallel=
+"spatial")` both ways against the single-image route, and times the
+graphed and eager carves in turns, each replay on every card between CUDA
+events, and a profile; 7b carves config 4's whole batch (1024 1-Mpix
+images) by the default placement over every visible card, against each
+card's chunk carved on one card alone, lists any host wait inside it with
+torch's sync debug mode, times it in turns beside one card's share carved
+alone, and reads each card's busy share and the join between CUDA events.
+`python3 chip_smoke.py --multi-card` runs phase 7 alone.
 
 Every kernel's line gives its time, its plain version's, the least time
 the card could take for the same work (`bound_ms`: bytes over 3.35 TB/s
@@ -146,6 +160,13 @@ MP_TIMED = 16              # and the seams of its marginal timing (16 vs 32)
 MP_SHARDS = 4              # global shards of the multi-process mesh
 MP_SECONDS = 300           # a worker's limit
 MP_FLOOR_REPS = 200        # exchanges of one tiny slice, timed alone
+MC_SEAMS = 16              # phase 7a: the multi-card 8K carves' seams, the
+MC_CHUNK = 6               # checkpointed chunks (resumed at seam 12), and
+MC_TURNS = 2               # the timed turns (marginal of 16 and 32 seams)
+# phase 7a's layouts on one controller: (name, cards, shards a card)
+MC_LAYOUTS = (("4 x 1", 4, 1), ("2 x 2", 2, 2))
+NB_CARDS = 1024            # phase 7b: config 4's whole batch over the cards
+BATCH_TURNS = 2            # its timed turns beside one card's share
 CHUNKED_SEAMS_8K = 16      # phase 5b: the chunked 8K carve and the counts
 # under replay
 # phase 1c: rows wider than one thread block (MAX_WIDTH) and planes taller
@@ -211,6 +232,27 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     t_ops = ops / F32_UNFUSED_OPS_PER_S * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops
             else (t_ops, "operations"))
+
+
+def batch_chunks(B: int) -> list:
+    """The image counts of the batch route's chunks by its default
+    placement, one a visible card, as `carve_batch` cuts a batch of B."""
+    import torch
+
+    return [len(c) for c in torch.tensor_split(
+        torch.arange(B), torch.cuda.device_count()) if len(c)]
+
+
+def batch_launches(B: int, W: int, calls: int, **per_chunk) -> dict:
+    """The launches of `calls` seams of a (B, H, W) batch by the default
+    placement: each chunk's find-seam launches (`dp_launches`), and
+    `per_chunk`'s count of each other kernel once a chunk."""
+    chunks = batch_chunks(B)
+    total = {k: n * len(chunks) for k, n in per_chunk.items()}
+    for b in chunks:
+        for k, n in dp_launches(b, W, calls, plane=False).items():
+            total[k] = total.get(k, 0) + n
+    return total
 
 
 def dp_launches(B: int, W: int, calls: int, plane: bool = True) -> dict:
@@ -507,10 +549,11 @@ def log_event_busy(what: str, run, device, card: str,
 def capture_costs(luma, samples: int, card: str) -> None:
     """Host time of the capture in the first carve of a shape, `samples`
     times over, each after clear_step_cache(): its wall and process CPU
-    time (all threads; a wait that spins counts as CPU), split into the
-    wait for the device before it, capture_begin, the step's host work
-    under capture (both directions) and capture_end (which instantiates
-    the graph), with Python's garbage-collection pauses beside them."""
+    time (all threads; a wait that spins counts as CPU), split into any
+    wait for the device inside it ("sync": none since the capture stopped
+    waiting), capture_begin, the step's host work under capture (both
+    directions) and capture_end (which instantiates the graph), with
+    Python's garbage-collection pauses beside them."""
     import gc
 
     import torch
@@ -1114,17 +1157,21 @@ def phase_3(dev, chk: Checks, card: str, rng, times: dict) -> list:
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     log(f"  launches on the batch route: {launches}")
-    want = {**dp_launches(NB, WB, SEAMS_B, plane=False), "apply": SEAMS_B,
-            "strip": SEAMS_B}
+    # one launch a kernel, seam and card of the default placement
+    chunks = len(batch_chunks(NB))
+    want = batch_launches(NB, WB, SEAMS_B, apply=SEAMS_B, strip=SEAMS_B)
     for name, n in want.items():
         chk.require(launches[name] == n,
-                    f"{name} kernel launched {n} times for {NB} images")
-    chk.require(launches["energy"] == 2,
-                "energy kernel launched twice (export, first map), not once "
-                "an image")
+                    f"{name} kernel launched {n} times for {NB} images over "
+                    f"{chunks} card(s)")
+    chk.require(launches["energy"] == 1 + chunks,
+                f"energy kernel launched {1 + chunks} times (the export once, "
+                f"the first map once a card), not once an image")
     t = time.perf_counter()
+    # the plain reference on one card: its ops are host-bound, and the
+    # placement changes no result
     plain = api.carve(imgs, -SEAMS_B, parallel="batch", use_pallas=False,
-                      **kw)
+                      devices=[dev], **kw)
     log(f"  plain path on the card: {time.perf_counter() - t!r} s ({card})")
     for field in ("image", "visibility_map", "energy_image"):
         a, b = getattr(res, field), getattr(plain, field)
@@ -1784,9 +1831,11 @@ def phase_4(dev, chk: Checks, card: str, rng, dct_rate: float) -> list:
     launches = kernels.launch_counts()
     main_launches.append(launches)
     require_launches(launches, {
-        **dp_launches(NB, WB, SEAMS_BE, plane=False), "apply": SEAMS_BE,
-        "strip_gather": SEAMS_BE, "strip_scatter": SEAMS_BE, "energy": 0,
-        "strip": 0}, f"batch {SEAMS_BE}-seam carve of {NB} images")
+        **batch_launches(NB, WB, SEAMS_BE, apply=SEAMS_BE,
+                         strip_gather=SEAMS_BE, strip_scatter=SEAMS_BE),
+        "energy": 0, "strip": 0},
+        f"batch {SEAMS_BE}-seam carve of {NB} images over "
+        f"{len(batch_chunks(NB))} card(s)")
     singles = []
     for b in range(NB):
         one = api.carve(imgs[b], -SEAMS_BE, energy="grad_norm", **kw)
@@ -1858,10 +1907,11 @@ def phase_4(dev, chk: Checks, card: str, rng, dct_rate: float) -> list:
                            "--energy", "grad_norm"])
             torch.cuda.synchronize()
             chk.require(rc == 0, f"CLI batch rc {rc}")
-            require_launches(kernels.launch_counts(), {
-                **dp_launches(4, WB, SEAMS_BE, plane=False),
-                "strip_gather": SEAMS_BE, "strip_scatter": SEAMS_BE},
-                "CLI batch of 4 images")
+            require_launches(kernels.launch_counts(), batch_launches(
+                4, WB, SEAMS_BE, strip_gather=SEAMS_BE,
+                strip_scatter=SEAMS_BE),
+                f"CLI batch of 4 images over {len(batch_chunks(4))} "
+                f"card(s)")
             for b in range(4):
                 same(load_image(os.path.join(dst, f"im{b}.ppm")), singles[b],
                      f"CLI batch image {b} == single-image api.carve")
@@ -2477,10 +2527,11 @@ def phase_5(dev, chk: Checks, card: str, rng) -> list:
                       "uninterrupted", res.image, whole.image)
             inp, out = (os.path.join(tmp, f) for f in ("in.ppm", "out.ppm"))
             save_image(inp, img)
-            # the CLI's mesh is every visible card: one controller over
-            # several cards runs every step eagerly
+            # the CLI's mesh is every visible card: over one card or
+            # several of this controller, every seam after the first a
+            # replay
             cards = torch.cuda.device_count()
-            want = SEAMS_5C - 1 if cards == 1 else 0
+            want = SEAMS_5C - 1
             with count_replays() as replays:
                 rc = cli.main(["carve", inp, out, "--seams", f"-{SEAMS_5C}",
                                "--parallel", "spatial"])
@@ -2827,6 +2878,349 @@ def phase_6(dev, chk: Checks, card: str) -> list:
     chk.require(True, f"dryrun_multichip({MP_SHARDS}) in "
                 f"{time.perf_counter() - t!r} s")
     return [res["vmap"]["launches"] for res in results]
+
+
+def sync_cards() -> None:
+    """Wait for every visible card."""
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+@contextlib.contextmanager
+def replay_events():
+    """Time every CUDA graph replay inside the block between CUDA events on
+    each of its cards' current streams: yields a list that gets, a replay,
+    one (start, end) event pair a card (the first the card the graph was
+    captured on)."""
+    import torch
+
+    from dct_carver_tpu_torch.utils import graphs
+
+    replay = graphs.StepGraphs.replay
+    marks = []
+
+    def timed(self, src):
+        streams = [torch.cuda.current_stream(d) for d in self.devices]
+        starts = [torch.cuda.Event(enable_timing=True) for _ in streams]
+        for e, s in zip(starts, streams):
+            e.record(s)
+        replay(self, src)
+        ends = [torch.cuda.Event(enable_timing=True) for _ in streams]
+        for e, s in zip(ends, streams):
+            e.record(s)
+        marks.append(list(zip(starts, ends)))
+
+    graphs.StepGraphs.replay = timed
+    try:
+        yield marks
+    finally:
+        graphs.StepGraphs.replay = replay
+
+
+def phase_7(chk: Checks, card: str, rng) -> list:
+    """Several cards of one controller: the spatial route over each layout
+    of MC_LAYOUTS that the visible cards hold (7a), then the batch route
+    over every visible card (7b).  Returns the launch counts of 7a's
+    graphed carves."""
+    import torch
+
+    count = torch.cuda.device_count()
+    runs = []
+    for name, cards, per_card in MC_LAYOUTS:
+        if count < cards:
+            log(f"phase 7a: {count} card(s) visible: the spatial route over "
+                f"{name} (cards x shards a card) on one controller needs "
+                f"{cards} cards; skipped")
+            continue
+        mesh = [torch.device("cuda", i) for i in range(cards)
+                for _ in range(per_card)]
+        runs.append(phase_7a(chk, card, rng, name, mesh))
+    if count < 2:
+        log(f"phase 7b: {count} card visible: the batch route over every "
+            f"visible card needs two or more; skipped")
+    else:
+        phase_7b(chk, card, count)
+    return runs
+
+
+def phase_7a(chk: Checks, card: str, rng, name: str, mesh: list) -> dict:
+    """The 8K luma over `mesh`, stacks on several cards of this process:
+    every seam after the first a replay of one graph over all its cards.
+    Returns the launch counts of its graphed 16-seam carve."""
+    import os
+    import tempfile
+
+    import torch
+
+    from dct_carver_tpu_torch import api, kernels
+    from dct_carver_tpu_torch.ops.carve import carve_n_seams
+    from dct_carver_tpu_torch.parallel.mesh import make_mesh
+    from dct_carver_tpu_torch.parallel.spatial import (
+        collectives_per_seam, measure_collectives_per_seam,
+        spatial_carve_n_seams, spatial_carve_seams, spatial_make_state)
+    from dct_carver_tpu_torch.utils.debug import debug_mode
+
+    def eager():
+        return debug_mode(nan_checks=False, disable_jit=True)
+
+    def same(a, b, what):
+        chk.require(a.shape == b.shape and np.array_equal(a, b), what)
+
+    stacks = len({d.index for d in mesh})
+    nb = -(-H8 // K8)
+    home = mesh[0]
+    log(f"phase 7a: spatial_carve_n_seams({H8}x{W8}, {MC_SEAMS}) over {name} "
+        f"(cards x shards a card), one controller, n=8, K={K8}: the first "
+        f"seam eager, then one graph over the {stacks} cards a seam")
+    luma8 = torch.from_numpy(rng.random((H8, W8), dtype=np.float32)).to(home)
+    single = carve_n_seams(luma8, 2 * MC_SEAMS, 8, 0.0, 1.0).vmap
+
+    def first(k):
+        return torch.where(single <= k, single, 0)
+
+    spatial_carve_n_seams(luma8[:2 * K8, :1024], 2, devices=mesh)  # warm-up
+    sync_cards()
+    kernels.reset_launches()
+    with count_replays() as replays:
+        res = spatial_carve_n_seams(luma8, MC_SEAMS, devices=mesh)
+        sync_cards()
+    launches = kernels.launch_counts()
+    log(f"  launches on the {name} spatial route: {launches}")
+    chk.require(replays[0] == MC_SEAMS - 1,
+                f"{name}: {replays[0]} graph replays for {MC_SEAMS} seams")
+    want = {"block_dp_parts": stacks * nb * MC_SEAMS,
+            "seg_walk": stacks * nb * MC_SEAMS,
+            "sharded_apply": stacks * MC_SEAMS, "strip": stacks * MC_SEAMS,
+            "energy": stacks, "block_dp": 0, "find_seam": 0,
+            "find_seams": 0, "find_seam_tiled": 0, "apply": 0}
+    got = {k: launches[k] for k in want}
+    chk.require(got == want, f"{name} spatial launches {got} (one a stack "
+                f"a block, {stacks} stacks)")
+    chk.equal("carve", f"{name} {MC_SEAMS}-seam vmap == single-device",
+              res.vmap, first(MC_SEAMS))
+    with count_replays() as replays, eager():
+        e = spatial_carve_n_seams(luma8, MC_SEAMS, devices=mesh)
+    chk.require(replays[0] == 0, f"{name} under debug_mode: {replays[0]} "
+                f"replays")
+    chk.equal("carve", f"{name} debug_mode vmap == single-device", e.vmap,
+              first(MC_SEAMS))
+    with tempfile.TemporaryDirectory(prefix="dct_carver_smoke_") as tmp:
+        ck = os.path.join(tmp, "ck")
+        with count_replays() as replays:
+            chunked = spatial_carve_n_seams(luma8, MC_SEAMS, devices=mesh,
+                                            chunk=MC_CHUNK, checkpoint_dir=ck)
+        chk.require(replays[0] == MC_SEAMS - 1,
+                    f"{name} in chunks of {MC_CHUNK}: {replays[0]} replays")
+        chk.equal("carve", f"{name} chunks of {MC_CHUNK} == single-device",
+                  chunked.vmap, first(MC_SEAMS))
+        done = (MC_SEAMS - 1) // MC_CHUNK * MC_CHUNK
+        with count_replays() as replays:
+            resumed = spatial_carve_n_seams(luma8, MC_SEAMS, devices=mesh,
+                                            resume_from=ck)
+        chk.require(replays[0] == MC_SEAMS - done - 1,
+                    f"{name} resumed at seam {done}: {replays[0]} replays")
+        chk.equal("carve", f"{name} resumed at seam {done} == single-device",
+                  resumed.vmap, first(MC_SEAMS))
+    st, smesh = spatial_make_state(luma8, devices=mesh)
+    sync_cards()
+    smesh.exchanges = 0
+    spatial_carve_seams(st, smesh, 0, MC_SEAMS)
+    designed = collectives_per_seam(H8, K8, fused_apply=True)
+    chk.require(smesh.exchanges == MC_SEAMS * designed,
+                f"{name} exchanges under replay {smesh.exchanges} == "
+                f"{MC_SEAMS} x collectives_per_seam {designed}")
+    m = measure_collectives_per_seam(H8, W8, mesh, use_pallas=True)
+    chk.require(m["total"] == m["designed"] == designed,
+                f"{name} exchanges a seam {m['total']} == "
+                f"collectives_per_seam {m['designed']}")
+    del st, smesh, e, chunked, resumed
+
+    # api.carve on the spatial route, the default mesh where it is this one
+    img = rng.integers(0, 256, (H8, W8, 3), dtype=np.uint8)
+    devices = None if mesh == make_mesh() else mesh
+    kw = dict(output_seams=True, parallel="spatial", devices=devices)
+    with count_replays() as replays:
+        a = api.carve(img, -MC_SEAMS, **kw)
+    chk.require(replays[0] == MC_SEAMS - 1,
+                f"{name} api.carve(parallel='spatial', devices="
+                f"{'None' if devices is None else name}): {replays[0]} "
+                f"replays")
+    with count_replays() as replays, eager():
+        d = api.carve(img, -MC_SEAMS, **kw)
+    chk.require(replays[0] == 0, f"{name} api.carve under debug_mode: "
+                f"{replays[0]} replays")
+    b = api.carve(img, -MC_SEAMS, output_seams=True, device=str(home))
+    for field in ("image", "visibility_map"):
+        same(getattr(a, field), getattr(b, field),
+             f"{name} spatial api.carve {field} == single-image route")
+        same(getattr(d, field), getattr(b, field),
+             f"{name} spatial api.carve under debug_mode {field} == "
+             f"single-image route")
+    del img, a, b, d
+
+    # ms a seam: the marginal of 16 and 32 seams, each carve's capture taken
+    # out, graphed and under debug_mode in turns
+    def wall(seams, graphed):
+        sync_cards()
+        t = time.perf_counter()
+        with contextlib.nullcontext() if graphed else eager():
+            r = spatial_carve_n_seams(luma8, seams, devices=mesh)
+        sync_cards()
+        return time.perf_counter() - t - r.capture_seconds, r.capture_seconds
+
+    per_seam = {"graphed": [], "eager (debug_mode)": []}
+    captures = []
+    for turn in range(MC_TURNS):
+        for mode in list(per_seam)[::1 if turn % 2 == 0 else -1]:
+            (w16, c16), (w32, c32) = (wall(s, mode == "graphed")
+                                      for s in (MC_SEAMS, 2 * MC_SEAMS))
+            per_seam[mode].append((w32 - w16) / MC_SEAMS * 1e3)
+            if mode == "graphed":
+                captures += [c16 * 1e3, c32 * 1e3]
+    for mode, ms in per_seam.items():
+        log(f"  {name} {mode}: {ms!r} ms a seam (marginal of {MC_SEAMS} and "
+            f"{2 * MC_SEAMS} seams, captures out; {card})")
+    log(f"  {name} capture ms a carve (two graphs over {stacks} cards): "
+        f"{captures!r} ({card})")
+    with replay_events() as marks:
+        spatial_carve_n_seams(luma8, 2 * MC_SEAMS, devices=mesh)
+        sync_cards()
+    by_card = [[a.elapsed_time(b) for a, b in col] for col in zip(*marks)]
+    for d, ms in zip(sorted({x.index for x in mesh},
+                            key=[x.index for x in mesh].index), by_card):
+        ms = sorted(ms)
+        log(f"  {name} device ms a replay on cuda:{d} (CUDA events, "
+            f"{len(ms)} replays): min {ms[0]!r}, median {ms[len(ms) // 2]!r}"
+            f", max {ms[-1]!r} ({card})")
+    wall_p, _, top, busy_us = device_profile(
+        lambda: spatial_carve_n_seams(luma8, 2 * MC_SEAMS, devices=mesh),
+        top=40)
+    reps = 2 * MC_SEAMS - 1
+    log(f"  profiled {2 * MC_SEAMS}-seam carve over {name}: wall "
+        f"{wall_p * 1e3!r} ms, device busy (union over the cards) "
+        f"{busy_us / 1e3!r} ms; rows over {reps} replays and the eager "
+        f"first seam ({card}):")
+    for row, (kname, us, n) in enumerate(top):
+        if row < 16 or "emcpy" in kname or "opy" in kname:
+            log(f"    {us / 1e3 / reps:10.5f} ms a replay  {n:6d} x  "
+                f"{kname[:90]}")
+    del luma8, single, res
+    return launches
+
+
+def phase_7b(chk: Checks, card: str, count: int) -> None:
+    """Config 4's whole batch, NB_CARDS images, over every visible card by
+    the default placement, against each card's chunk carved on one card
+    alone, timed in turns with one card's share carved alone; each card's
+    busy share and the join by CUDA events; torch's sync debug mode lists
+    any host wait inside the carve."""
+    import warnings
+    from collections import Counter
+
+    import torch
+
+    from dct_carver_tpu_torch.parallel import mesh as pmesh
+    from dct_carver_tpu_torch.utils.graphs import CAPTURES
+
+    cards = [torch.device("cuda", i) for i in range(count)]
+    per = NB_CARDS // count
+    log(f"phase 7b: carve_batch of {NB_CARDS} x {HB}x{WB}x3, n=8, "
+        f"{SEAMS_B} seams, reconstruct included, over the default placement "
+        f"(every visible card: {count}, {per} images a card)")
+    gen = torch.Generator(device=cards[0])
+    gen.manual_seed(SEED + 7)
+    imgs = torch.randint(0, 256, (NB_CARDS, HB, WB, 3), dtype=torch.uint8,
+                         device=cards[0], generator=gen)
+    caught_at = dict(CAPTURES)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out, vm = pmesh.carve_batch(imgs, SEAMS_B)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    sync_cards()
+    sites = Counter(f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                    if "called a synchronizing" in str(w.message))
+    graphs = CAPTURES["graphs"] - caught_at["graphs"]
+    log(f"  host waits inside carve_batch over {count} cards (torch's sync "
+        f"debug mode): {dict(sites)}; {graphs} graphs captured in "
+        f"{(CAPTURES['seconds'] - caught_at['seconds']) * 1e3!r} ms")
+    chk.require(out.shape == (NB_CARDS, HB, WB - SEAMS_B, 3)
+                and vm.shape == (NB_CARDS, HB, WB)
+                and out.device == vm.device == cards[0],
+                f"{NB_CARDS}-image carve_batch joined on cuda:0")
+    for k in range(count):
+        part = slice(k * per, (k + 1) * per)
+        o, v = pmesh.carve_batch(imgs[part], SEAMS_B, devices=[cards[0]])
+        chk.equal("carve", f"batch over {count} cards, chunk {k}: vmaps == "
+                  f"carved on cuda:0 alone", vm[part], v)
+        chk.equal("carve", f"batch over {count} cards, chunk {k}: images == "
+                  f"carved on cuda:0 alone", out[part], o)
+        del o, v
+    del out, vm
+    walls = {f"{NB_CARDS} over {count} cards": [], f"{per} on cuda:0": []}
+    for turn in range(BATCH_TURNS):
+        for route in list(walls)[::1 if turn % 2 == 0 else -1]:
+            x = imgs if route.startswith(str(NB_CARDS)) else imgs[:per]
+            sync_cards()
+            t = time.perf_counter()
+            r = pmesh.carve_batch(x, SEAMS_B, devices=None if x is imgs
+                                  else [cards[0]])
+            sync_cards()
+            walls[route].append(time.perf_counter() - t)
+            del r
+    for route, ts in walls.items():
+        n = NB_CARDS if route.startswith(str(NB_CARDS)) else per
+        rates = [n * HB * WB * SEAMS_B / t / 1e6 for t in ts]
+        log(f"  carve_batch {route}: {[t * 1e3 for t in ts]!r} ms, "
+            f"{rates!r} Mpix/s ({card})")
+    # each card's chunk between CUDA events on its stream, against the
+    # carve's span there from the call to the join
+    chunk_fn = pmesh._carve_chunk
+    marks = {}
+
+    def timed_chunk(chunk, dev, *args, **kw):
+        s = torch.cuda.current_stream(dev)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record(s)
+        got = chunk_fn(chunk, dev, *args, **kw)
+        b.record(s)
+        marks[dev.index] = (a, b)
+        return got
+
+    starts, ends = ({d.index: torch.cuda.Event(enable_timing=True)
+                     for d in cards} for _ in range(2))
+    sync_cards()
+    for d in cards:
+        starts[d.index].record(torch.cuda.current_stream(d))
+    t = time.perf_counter()
+    pmesh._carve_chunk = timed_chunk
+    try:
+        r = pmesh.carve_batch(imgs, SEAMS_B)
+    finally:
+        pmesh._carve_chunk = chunk_fn
+    for d in cards:
+        ends[d.index].record(torch.cuda.current_stream(d))
+    sync_cards()
+    wall = time.perf_counter() - t
+    chunk_end = {}
+    for d in cards:
+        i = d.index
+        a, b = marks[i]
+        offset, span = starts[i].elapsed_time(a), a.elapsed_time(b)
+        total = starts[i].elapsed_time(ends[i])
+        chunk_end[i] = starts[i].elapsed_time(b)
+        log(f"  cuda:{i}: its chunk starts {offset!r} ms into the carve and "
+            f"runs {span!r} ms, busy {100 * span / total!r} % of the "
+            f"carve's {total!r} ms span on the card ({card})")
+    join = starts[0].elapsed_time(ends[0]) - max(chunk_end.values())
+    log(f"  the join on cuda:0 after the last chunk: {join!r} ms; wall "
+        f"{wall * 1e3!r} ms, {NB_CARDS * HB * WB * SEAMS_B / wall / 1e6!r} "
+        f"Mpix/s ({card})")
+    del r, imgs
 
 
 def main() -> int:
@@ -3194,6 +3588,8 @@ def main() -> int:
     phase_5a(dev, chk, card, rng, times)
     spatial_launches = phase_5(dev, chk, card, rng)
     multiproc_launches = phase_6(dev, chk, card)
+    # its own generator: on one card its carves are skipped
+    multicard_launches = phase_7(chk, card, np.random.default_rng(SEED + 7))
     # last: after one of its runs torch.profiler recorded no device time in
     # most later sessions (PERF.md §7), so nothing is profiled after it
     retarget_launches = phase_2d(dev, chk, card, rng, img, res, plain)
@@ -3206,10 +3602,11 @@ def main() -> int:
     # the wide carve of phase 1c, the single-image carve of phase 2, the
     # retargeter's precomputes of phase 2d, the batch carves of phases 3b and 3c, the plugged-energy carves of phase 4b
     # (grad_norm) and 4c (batch), and the spatial carves of phase 5b (8K
-    # over 4 shards, small shards) and 5c (grad_norm), and each process's
-    # carve of phase 6
+    # over 4 shards, small shards) and 5c (grad_norm), each process's
+    # carve of phase 6, and phase 7a's 8K carve over each layout of cards
     runs = (wide_launches, launches, *retarget_launches, *batch_launches,
-            *energy_launches, *spatial_launches, *multiproc_launches)
+            *energy_launches, *spatial_launches, *multiproc_launches,
+            *multicard_launches)
     rows = []
     for k in kernels.KERNELS:
         bound_ms, bound_by = bound(*BOUNDS[k.name])
@@ -3251,6 +3648,31 @@ def main() -> int:
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def multi_card() -> int:
+    """--multi-card: build the kernels and run phase 7 alone (the spatial
+    route over several cards of one controller, the batch route over every
+    visible card); exits non-zero if a check failed."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from dct_carver_tpu_torch.kernels import build
+
+    card = card_line()
+    log(f"phase 0: {torch.cuda.device_count()} x "
+        f"{torch.cuda.get_device_name(0)} | nvidia-smi: {card}")
+    build.load()
+    chk = Checks()
+    phase_7(chk, card, np.random.default_rng(SEED + 7))
+    if chk.failures:
+        print("chip_smoke --multi-card FAILED:\n  "
+              + "\n  ".join(chk.failures), file=sys.stderr)
+        return 1
+    log(card)
     return 0
 
 
@@ -3515,6 +3937,8 @@ if __name__ == "__main__":
         sys.exit(first_carve(sys.argv[2]))
     if sys.argv[1:2] == ["--strip-layouts"] and len(sys.argv) == 2:
         sys.exit(strip_layouts())
+    if sys.argv[1:2] == ["--multi-card"] and len(sys.argv) == 2:
+        sys.exit(multi_card())
     if sys.argv[1:2] == ["--multiproc-worker"] and len(sys.argv) == 7:
         # exit without the distributed shutdown, which can hang after a
         # peer failed; what matters is flushed first
@@ -3533,7 +3957,7 @@ if __name__ == "__main__":
         os._exit(rc)
     if len(sys.argv) > 1:
         print("usage: chip_smoke.py [--first-carve ROOT | --strip-layouts | "
-              "--multiproc-worker RANK NPROC PORT BACKEND "
+              "--multi-card | --multiproc-worker RANK NPROC PORT BACKEND "
               "DIR]", file=sys.stderr)
         sys.exit(2)
     sys.exit(main())

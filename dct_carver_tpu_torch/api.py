@@ -7,7 +7,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.carver import Carver, CarveResult, resolve_placement
+from .models.carver import (Carver, CarveResult, default_mesh,
+                            resolve_placement)
 from .utils.config import CarverConfig
 
 __all__ = ["carve", "CarveResult", "CarverConfig"]
@@ -26,9 +27,9 @@ def carve(image, seams_number: int, *, blocksize: int = 8,
     raises unless `device="cpu"` asks for the CPU).  `devices`: the mesh
     (`parallel/mesh.py::make_mesh`, e.g. `["cuda:0"] * 4`): the spatial
     route's shards, the batch route's chunks; `device` then defaults to its
-    first entry and may not name another.  With no `devices` the spatial
-    mesh is every visible card for `device` None or "cuda", else
-    `[device]`.
+    first entry and may not name another.  With no `devices` the mesh of
+    both routes is every visible card for `device` None or "cuda", else
+    `[device]` (`models/carver.py::default_mesh`).
 
     Routing (`parallel=`): "batch" carves an image STACK — a (B, H, W[, C])
     array, whose result fields come back stacked over B — with one launch
@@ -101,13 +102,14 @@ def _carve_stack(images: np.ndarray, seams_number: int, cfg: CarverConfig,
             f"cannot change dimension by {seams_number}: images are "
             f"{w0} wide")
     dev, mesh = resolve_placement(device, devices)
-    stack = torch.from_numpy(np.ascontiguousarray(images)).to(dev)
+    # on the host: carve_batch copies each chunk straight to its card
+    stack = torch.from_numpy(np.ascontiguousarray(images))
     energy = None
     if cfg.output_energy:
         # pre-carve energy export, per image (src/render.c:370-377 ordering)
-        energy = _stack_energy_u8(stack, cfg)
+        energy = _stack_energy_u8(stack.to(dev), cfg)
     kw = dict(blocksize=cfg.blocksize, edges=cfg.edges,
-              textures=cfg.textures, devices=mesh or [dev],
+              textures=cfg.textures, devices=mesh or default_mesh(dev),
               strip_update=cfg.strip_update, energy=cfg.energy_function,
               luma=cfg.luma, delta_x=cfg.delta_x, rigidity=cfg.rigidity,
               tie=cfg.tie, use_pallas=cfg.use_pallas)
@@ -118,7 +120,7 @@ def _carve_stack(images: np.ndarray, seams_number: int, cfg: CarverConfig,
             out, vmaps = carve_batch(stack, n, **kw)
         else:
             _, vmaps = carve_batch(stack, n, reconstruct=False, **kw)
-            out = reconstruct_enlarged(stack, vmaps, n)
+            out = reconstruct_enlarged(stack.to(vmaps.device), vmaps, n)
         out, vmaps = out.cpu().numpy(), vmaps.cpu().numpy()
     if not cfg.resize_canvas:
         # resize_canvas=FALSE analog (src/main.h:19), per image: removals

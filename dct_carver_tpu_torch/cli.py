@@ -9,7 +9,9 @@ package's compilation cache).  It is the counterpart of the JAX CLI running
 wherever `JAX_PLATFORMS` points: with no card visible the CLI raises unless
 `--device cpu` asks for the CPU.  `--spatial` / `--parallel spatial`
 column-shard the image over every visible card (`parallel/spatial.py`), or
-over one CPU shard with `--device cpu`.
+over one CPU shard with `--device cpu`; `batch` splits its images over
+every visible card the same way (`parallel/mesh.py::carve_batch`), or
+over the one device that `--device cuda:k` / `cpu` names.
 
 Usage examples:
     python -m dct_carver_tpu_torch.cli carve in.png out.png --seams -64
@@ -57,7 +59,8 @@ def _add_knobs(p: argparse.ArgumentParser) -> None:
                         "analog); 'dct' = the reference's DCT energy")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: the first CUDA "
-                        "card; 'cpu' runs on the CPU)")
+                        "card, and every visible card for the spatial "
+                        "route and batch; 'cpu' runs on the CPU)")
 
 
 def _run_batch(args) -> int:
@@ -67,6 +70,7 @@ def _run_batch(args) -> int:
 
     import numpy as np
 
+    from .models.carver import default_mesh, resolve_device
     from .parallel.mesh import carve_batch
     from .utils.image import load_image, save_image
 
@@ -91,7 +95,7 @@ def _run_batch(args) -> int:
         blocksize=args.blocksize, edges=args.edges, textures=args.textures,
         strip_update=not args.no_strip_update, energy=args.energy,
         luma=args.luma, delta_x=args.delta_x, rigidity=args.rigidity,
-        tie=args.tie, devices=[args.device],
+        tie=args.tie, devices=default_mesh(resolve_device(args.device)),
     )
     out = out.cpu().numpy()
     dt = time.perf_counter() - t0

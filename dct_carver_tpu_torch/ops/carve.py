@@ -319,12 +319,14 @@ class SeamSteps:
         # [label, width of each image]: one add a step moves them all
         self.ctr = torch.zeros(1 + lead, dtype=torch.int32, device=dev)
         self.label, self.width = self.ctr[:1], self.ctr[1:]
-        self.step_delta = torch.tensor([1] + [-1] * lead, dtype=torch.int32,
-                                       device=dev)
+        # filled on the device: a copy from the host would wait for it
+        self.step_delta = torch.full((1 + lead,), -1, dtype=torch.int32,
+                                     device=dev)
+        self.step_delta[:1].fill_(1)
         name = p.energy_fn.name if p.energy_fn is not None else "dct"
         self.kernel_dp = kernel_dp(dev, p)
         self.graphs = StepGraphs(
-            dev, f"seam step (energy {name!r})",
+            [dev], f"seam step (energy {name!r})",
             [(k, "launches") for k in KERNELS]) if graphed(dev, p) else None
         # the vmap record's stream: in the graph, a branch beside the apply
         # and the strip, which neither read nor write what it touches

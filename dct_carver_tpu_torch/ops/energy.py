@@ -18,8 +18,10 @@ LUMA_MODES = ("bt709", "bt601_studio")
 
 def _divide(x: torch.Tensor, d: float) -> torch.Tensor:
     """x / d, correctly rounded.  PyTorch's CUDA division by a Python scalar
-    multiplies by its reciprocal instead; a divisor on x's device does not."""
-    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
+    multiplies by its reciprocal instead; a divisor on x's device does not.
+    The divisor is filled there, not copied from the host, which would wait
+    for the device."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
 
 
 def to_luma(image: torch.Tensor, mode: str = "bt709",

@@ -10,18 +10,24 @@ single-image carve over the batch and shards the batch over a device mesh.
 Here the carve loop itself takes the leading B (`ops/carve.py`), so each
 seam step is one launch per kernel for the whole batch on a device.
 
-Over several devices the batch is cut into contiguous chunks, one per
-device, and the results are joined in order on the first device.  The host
-launches one chunk's carve after the other; no call in the carve waits for
-its device, so the devices run at the same time.  There is no padding: JAX
-pads the batch to a multiple of the mesh only to shard it evenly.
+With no devices named the batch goes over every visible card, as JAX's
+default mesh takes every device (`models/carver.py::default_mesh`).  Over
+several devices the batch is cut into contiguous chunks, one per device,
+and the results are joined in order on the first device.  Every chunk's
+copy to its card is queued before any carve (a copy between cards runs
+on the source card's stream, behind what is queued there), then the host
+launches one chunk's carve after the other; no call in the carve waits
+for its device, so the devices run at the same time.  There is no
+padding: JAX pads the batch to a multiple of the mesh only to shard it
+evenly.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..models.carver import NO_CARD, resolve_device
+from ..models.carver import (NO_CARD, default_mesh, resolve_device,
+                             resolve_placement)
 from ..ops import carve as carve_ops
 from ..ops.energy import to_luma
 from ..ops.energy_fn import resolve_energy
@@ -70,6 +76,16 @@ def batch_carve_states(images: torch.Tensor, n_seams: int, blocksize: int,
         energy_fn=energy_fn)
 
 
+def _carve_chunk(chunk: torch.Tensor, dev: torch.device, n_seams: int,
+                 reconstruct: bool, **knobs):
+    """One device's chunk of a batch carve, on `dev`: (vmaps, carved or
+    None)."""
+    chunk = chunk.to(dev).contiguous()
+    vmap = batch_carve_states(chunk, n_seams, **knobs).vmap
+    return vmap, (carve_ops.reconstruct_removed(chunk, vmap, n_seams)
+                  if reconstruct else None)
+
+
 def _join(parts: list[torch.Tensor], home: torch.device) -> torch.Tensor:
     if len(parts) == 1:
         return parts[0].to(home)
@@ -86,29 +102,32 @@ def carve_batch(images, n_seams: int, *, blocksize: int = 8,
     4 of BASELINE.md: 1024 x 1-Mpix images, 128 seams).
 
     images: (B, H, W[, C]) u8/float, a numpy array or a tensor.  `devices`:
-    the torch devices to split the batch over (default: the first CUDA
-    card; pass `["cpu"]` to run on the CPU).  Returns (carved (B, H, W - n_seams[, C]) |
-    None, vmaps (B, H, W) int32), tensors on the first device.  `energy`:
-    None/'dct', a builtin name or an `EnergyFunction`.
+    the torch devices to split the batch over (default: every visible CUDA
+    card, `models/carver.py::default_mesh`; pass `["cpu"]` to run on the
+    CPU).  Returns (carved (B, H, W - n_seams[, C]) | None, vmaps (B, H, W)
+    int32), tensors on the first device.  `energy`: None/'dct', a builtin
+    name or an `EnergyFunction`.
     """
     energy_fn = resolve_energy(energy)
-    devices = [resolve_device(d) for d in (devices or [None])]
+    device, mesh = resolve_placement(None, devices or None)
+    devices = mesh or default_mesh(device)
     images = torch.as_tensor(images)
     if images.ndim not in (3, 4) or not len(images):
         raise ValueError(f"images must be a (B, H, W[, C]) stack of B >= 1, "
                          f"got {tuple(images.shape)}")
+    chunks = torch.tensor_split(images, len(devices))
+    if images.device.type == "cuda":  # every copy queued before any carve
+        chunks = [c.to(dev) for dev, c in zip(devices, chunks)]
     outs, vmaps = [], []
-    for dev, chunk in zip(devices, torch.tensor_split(images, len(devices))):
+    for dev, chunk in zip(devices, chunks):
         if not len(chunk):
             continue
-        chunk = chunk.to(dev).contiguous()
-        state = batch_carve_states(
-            chunk, n_seams, blocksize, edges, textures, strip_update,
+        vmap, out = _carve_chunk(
+            chunk, dev, n_seams, reconstruct, blocksize=blocksize,
+            edges=edges, textures=textures, strip_update=strip_update,
             luma_mode=luma, energy_fn=energy_fn, delta_x=delta_x,
             rigidity=rigidity, tie=tie, use_pallas=use_pallas)
-        vmaps.append(state.vmap)
-        if reconstruct:
-            outs.append(carve_ops.reconstruct_removed(chunk, state.vmap,
-                                                      n_seams))
+        vmaps.append(vmap)
+        outs.append(out)
     vm = _join(vmaps, devices[0])
     return (_join(outs, devices[0]) if reconstruct else None), vm

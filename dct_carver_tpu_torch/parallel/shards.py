@@ -15,7 +15,9 @@ holding the same value.
 - A shift between shards within a stack is a slice and a concatenation;
   between devices only the boundary shard's slice moves, with
   `.to(device, non_blocking=True)` (PyTorch orders the copy after the
-  source's and before the destination's current stream).
+  source's and before the destination's current stream; inside a CUDA
+  graph over several cards, `utils/graphs.py::StepGraphs`, the copy and
+  those orders are nodes of the graph).
 - A reduction runs over the shard dimension of each stack; across devices
   the partials meet on the first stack's device and the result goes back.
   Every reduction of the route is exact in any order: integer sums, sums of

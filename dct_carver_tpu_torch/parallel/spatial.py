@@ -39,13 +39,15 @@ Per seam, with collectives blocked every K rows (K = `frontier_block`):
 
 The step writes into static buffers (`_SeamSteps`): two sets of planes that
 swap every seam, the extended M, and the logical width on the device, which
-the step decrements.  So on one card with the kernels it is captured once a
-carve in two CUDA graphs, one for each direction between the sets, and
-every seam after the first replays one: the port's counterpart of the JAX
-package's jitted chunk (`_spatial_chunk_jit`, `jax.jit` over `shard_map`
-over `lax.fori_loop`).  CPU meshes, the plain path, the generalized DP
-(`delta_x`/`rigidity` other than (1, 0)) and meshes over several cards on
-one controller run the same step eagerly (`_graph_card`).
+the step decrements.  So with the kernels, on one card or on several cards
+of this controller, it is captured once a carve in two CUDA graphs, one
+for each direction between the sets, and every seam after the first
+replays one: the port's counterpart of the JAX package's jitted chunk
+(`_spatial_chunk_jit`, `jax.jit` over `shard_map` over `lax.fori_loop`).
+Over several cards one graph holds every card's kernels and the copies
+between the cards (`utils/graphs.py::StepGraphs`).  Meshes with a CPU
+stack, the plain path and the generalized DP (`delta_x`/`rigidity` other
+than (1, 0)) run the same step eagerly (`_graph_cards`).
 
 Over the processes of a `torch.distributed` job (`parallel/multihost.py`),
 with `processes=True`, the mesh is a `parallel/shards.py::ProcessMesh`:
@@ -177,23 +179,29 @@ def _kernel_dp(p: _Params) -> bool:
     return p.use_pallas and p.delta_x == 1 and p.rigidity == 0.0
 
 
-def _graph_card(mesh: ShardMesh, p: _Params) -> torch.device | None:
-    """The card a carve's seam step is captured on, or None: every step
-    runs eagerly.  Captured with the kernels' DP (`_kernel_dp`), outside
-    `utils/debug.py::debug_mode`, when every stack of the mesh lies on one
-    CUDA card and, on a process mesh, its exchanges stay on that card
-    (NCCL).  Eager: CPU meshes, meshes over several cards on one
-    controller, gloo process meshes (host-staged exchanges), the plain path
-    and the generalized DP (whose scan allocates under capture)."""
-    cards = {st.device for st in mesh.stacks}
-    if len(cards) != 1 or not _kernel_dp(p) or eager_steps():
+def _graph_cards(mesh: ShardMesh, p: _Params) -> list | None:
+    """The cards a carve's seam step is captured on, the capturing one
+    first, or None: every step runs eagerly.  Captured with the kernels' DP
+    (`_kernel_dp`), outside `utils/debug.py::debug_mode`, when every stack
+    of the mesh lies on a CUDA card of this process, one card or several,
+    and, on a process mesh, its exchanges stay on its card (NCCL).  Eager:
+    meshes with a CPU stack, gloo process meshes (host-staged exchanges),
+    the plain path and the generalized DP (whose scan allocates under
+    capture)."""
+    if not _kernel_dp(p) or eager_steps():
         return None
-    (card,) = cards
-    if card.type != "cuda":
+    cards = []
+    for st in mesh.stacks:
+        if st.device.type != "cuda":
+            return None
+        card = torch.device("cuda", st.device.index
+                            if st.device.index is not None
+                            else torch.cuda.current_device())
+        if card not in cards:
+            cards.append(card)
+    if isinstance(mesh, ProcessMesh) and mesh.wire != mesh.stacks[0].device:
         return None
-    if isinstance(mesh, ProcessMesh) and mesh.wire != card:
-        return None
-    return card
+    return cards
 
 
 # ------------------------------------------------------------- energy -----
@@ -478,16 +486,18 @@ class _SeamSteps:
     device (the step decrements both), and the removed pixels' original
     columns, which are copied into a chunk's record after each step.
 
-    Where `_graph_card` names a card (the mesh's stacks on one card, on a
-    process mesh with NCCL exchanges; the kernels and their DP; no
-    `debug_mode`), the carve's first seam runs eagerly, which builds the
-    kernels, sets their shared-memory limits and, on a process mesh, opens
-    every NCCL connection the step uses, and every later seam replays one
-    of two CUDA graphs of the same step, captured once a carve on a side
-    stream, one for each direction between the sets: the host issues one
-    graph a seam instead of ~420 launches (and, on a process mesh, 141
-    exchanges).  A replay credits the kernels' launch counts and the
-    mesh's exchange count with what its capture counted.  Every other step
+    Where `_graph_cards` names the cards (every stack on a card of this
+    process, one or several, or on a process mesh one card with NCCL
+    exchanges; the kernels and their DP; no `debug_mode`), the carve's
+    first seam runs eagerly, which builds the kernels, sets their
+    shared-memory limits and, on a process mesh, opens every NCCL
+    connection the step uses, and every later seam replays one of two
+    CUDA graphs of the same step, captured once a carve on side streams,
+    one for each direction between the sets: the host issues one graph a
+    seam instead of ~420 launches a stack (and 141 exchanges: copies
+    between cards, or a process mesh's NCCL operations).  A replay credits
+    the kernels' launch counts and the mesh's exchange count with what its
+    capture counted.  Every other step
     runs eagerly; inside `debug_mode` with its NaN checks the state is
     checked after every seam.  A capture or replay that fails raises;
     nothing falls back to eager steps.  Each process of a process mesh
@@ -511,11 +521,11 @@ class _SeamSteps:
         self.width, self.new_width, self.orig = (
             [torch.zeros(n, dtype=torch.int32, device=x.device)
              for x in st.luma] for n in (1, 1, H))
-        # the card the step is captured on; None: every step runs eagerly
-        self.graph_device = _graph_card(mesh, p)
+        # the cards the step is captured on; None: every step runs eagerly
+        self.graph_cards = _graph_cards(mesh, p)
         name = p.energy_fn.name if p.energy_fn is not None else "dct"
         self.graphs = StepGraphs(
-            self.graph_device, f"spatial seam step (energy {name!r})",
+            self.graph_cards, f"spatial seam step (energy {name!r})",
             [*((k, "launches") for k in KERNELS), (mesh, "exchanges")])
         self.warm = False
 
@@ -572,7 +582,7 @@ class _SeamSteps:
                 for o in self.orig]
         nan_checks = checks_nans()
         for k in range(count):
-            if self.graph_device is not None and self.warm:
+            if self.graph_cards is not None and self.warm:
                 self._replay(self.cur)
             else:
                 self._step(self.cur)

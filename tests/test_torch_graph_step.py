@@ -397,7 +397,7 @@ def test_failed_capture_or_replay_raises(monkeypatch, where):
         if where == "step":
             raise RuntimeError("bool() of a tensor waits for the device")
 
-    g = tgraphs.StepGraphs(torch.device("cpu"), "seam step (energy 'dct')",
+    g = tgraphs.StepGraphs([torch.device("cpu")], "seam step (energy 'dct')",
                            [(Counter, "launches")])
     if where == "replay":
         g.capture(step, (0, 1))
@@ -419,3 +419,162 @@ class _Null:
 
     def __exit__(self, *exc):
         return False
+
+
+class _Card:
+    """Stand-ins for the `torch.cuda` calls a capture and a replay over
+    several cards make, logging each: every card's current stream, side
+    streams, events, memory pools and graphs."""
+
+    def __init__(self, cards):
+        self.log = []
+        self.current = {d: self.Stream(self, d, f"main {d}") for d in cards}
+        card = self
+
+        class Graph:
+            def capture_begin(self, pool=None):
+                card.log.append(("begin", pool))
+
+            def capture_end(self):
+                card.log.append(("end",))
+
+            def replay(self):
+                card.log.append(("replay",))
+
+        class Event:
+            def record(self, stream):
+                self.stream = stream
+                card.log.append(("record", stream.name))
+
+            def query(self):
+                return card.done
+
+        class MemPool:
+            def __init__(self):
+                self.device = card.device
+                card.log.append(("pool", self.device))
+
+        self.Graph, self.Event, self.MemPool = Graph, Event, MemPool
+        self.device = None
+        self.done = False  # whether every event recorded so far completed
+
+    class Stream:
+        def __init__(self, card, device, name=None):
+            self.card, self.device = card, torch.device(device)
+            self.name = name or f"side {self.device}"
+
+        def wait_stream(self, other):
+            self.card.log.append(("wait", self.name, other.name))
+
+        def wait_event(self, event):
+            self.card.log.append(("wait", self.name, event.stream.name))
+
+    def patch(self, monkeypatch):
+        import contextlib
+
+        card = self
+
+        @contextlib.contextmanager
+        def stream(s):
+            before = card.current[s.device]
+            card.current[s.device] = s
+            yield
+            card.current[s.device] = before
+
+        @contextlib.contextmanager
+        def device(d):
+            before, card.device = card.device, torch.device(d)
+            yield
+            card.device = before
+
+        @contextlib.contextmanager
+        def use_mem_pool(pool, d):
+            assert pool.device == torch.device(d)
+            card.log.append(("use pool", torch.device(d)))
+            yield
+            card.log.append(("pool done", torch.device(d)))
+
+        monkeypatch.setattr(torch.cuda, "CUDAGraph", self.Graph)
+        monkeypatch.setattr(torch.cuda, "Event", self.Event)
+        monkeypatch.setattr(torch.cuda, "MemPool", self.MemPool)
+        monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: "pool")
+        monkeypatch.setattr(torch.cuda, "Stream",
+                            lambda d: self.Stream(self, d))
+        monkeypatch.setattr(torch.cuda, "current_stream",
+                            lambda d: self.current[torch.device(d)])
+        monkeypatch.setattr(torch.cuda, "stream", stream)
+        monkeypatch.setattr(torch.cuda, "device", device)
+        monkeypatch.setattr(torch.cuda, "use_mem_pool", use_mem_pool)
+        monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: (
+            pytest.fail("a capture or a replay waited for a card")))
+
+
+def test_one_graph_over_several_cards(monkeypatch):
+    """A step over three cards of one process is captured as one graph a
+    source on the first card: every other card's side stream is forked
+    from the capturing stream inside the capture and joined back before
+    it ends, is that card's current stream while the step runs, and
+    allocates from a pool made on that card, one pool a card for both
+    graphs.  A replay waits for the work queued on every card, and every
+    card's stream waits for the replay.  When the object goes, its pools
+    are kept until an event a card after its last replay has completed.
+    Nothing waits for a card."""
+    cards = [torch.device("cuda", i) for i in (0, 2, 1)]
+    fake = _Card(cards)
+    fake.patch(monkeypatch)
+    monkeypatch.setattr(tgraphs, "_RETIRED", [])
+
+    class Counter:
+        launches = 0
+
+    seen = []
+
+    def step(src):
+        seen.append({d.index: fake.current[d].name for d in cards})
+        Counter.launches += 5
+
+    g = tgraphs.StepGraphs(cards, "spatial seam step", [(Counter, "launches")])
+    g.capture(step, (0, 1))
+    sides = {"side cuda:0", "side cuda:1", "side cuda:2"}
+    assert seen == [{0: "side cuda:0", 2: "side cuda:2", 1: "side cuda:1"}] * 2
+    assert Counter.launches == 0
+    log = fake.log
+    assert [e for e in log if e[0] == "pool"] == [("pool", cards[1]),
+                                                 ("pool", cards[2])]
+    for graph in range(2):  # each capture, between its begin and its end
+        begin = [i for i, e in enumerate(log) if e[0] == "begin"][graph]
+        end = [i for i, e in enumerate(log) if e[0] == "end"][graph]
+        inside = log[begin + 1:end]
+        before = log[:begin]
+        # every side stream starts after its card's queued work
+        for d in cards:
+            assert ("wait", f"side {d}", f"main {d}") in before
+        forks = [e for e in inside if e[:2] != ("wait", "side cuda:0")
+                 and e[0] == "wait"]
+        joins = [e for e in inside if e[:2] == ("wait", "side cuda:0")]
+        assert forks == [("wait", "side cuda:2", "side cuda:0"),
+                         ("wait", "side cuda:1", "side cuda:0")]
+        assert joins == [("wait", "side cuda:0", "side cuda:2"),
+                         ("wait", "side cuda:0", "side cuda:1")]
+        assert [e for e in inside if e[0] == "use pool"] == [
+            ("use pool", cards[1]), ("use pool", cards[2])]
+        assert {e[2] for e in joins} | {"side cuda:0"} == sides
+    fake.log.clear()
+    g.replay(1)
+    assert Counter.launches == 5
+    assert fake.log == [
+        ("record", "main cuda:2"), ("wait", "main cuda:0", "main cuda:2"),
+        ("record", "main cuda:1"), ("wait", "main cuda:0", "main cuda:1"),
+        ("replay",), ("record", "main cuda:0"),
+        ("wait", "main cuda:2", "main cuda:0"),
+        ("wait", "main cuda:1", "main cuda:0")]
+    pools = g.pools
+    fake.log.clear()
+    del g
+    assert fake.log == [("record", f"main {d}") for d in cards]
+    assert [r[1] for r in tgraphs._RETIRED] == [pools]
+    tgraphs._release_retired()  # the replays still run: kept
+    assert len(tgraphs._RETIRED) == 1
+    fake.done = True
+    tgraphs._release_retired()
+    assert not tgraphs._RETIRED

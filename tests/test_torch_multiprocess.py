@@ -13,8 +13,9 @@ when asked for (`processes=True`): `api.carve` and `Carver` inside the job
 carve each process's own image on one controller.  `scale` measures the cost of
 a collective between processes.  `agree` holds the processes' agreement on
 their seam steps' CUDA graph captures: one that failed on one process
-raises on every process.  The capture gate (`_graph_card`) is held on
-stand-in meshes: graphs over NCCL and on one card, eager steps elsewhere.
+raises on every process.  The capture gate (`_graph_cards`) is held on
+stand-in meshes: graphs over NCCL and on the cards of one controller,
+eager steps elsewhere.
 `dryrun_multichip` runs on CPU meshes of 2, 4 and 8 shards against JAX.
 
 Run as a script, this file is the worker:
@@ -191,7 +192,7 @@ def _agree_scenario(rank, nproc, workdir):
     st, mesh = spatial.spatial_make_state(luma, devices=["cpu"] * SHARDS,
                                           processes=True)
     steps = spatial._SeamSteps(mesh, st, spatial._params(64, 16))
-    assert steps.graph_device is None  # gloo on the CPU: eager steps
+    assert steps.graph_cards is None  # gloo on the CPU: eager steps
     for fail in (None, 1):
         def capture(step, sources, fail=fail):  # no card here
             if rank == fail:
@@ -467,29 +468,43 @@ def _stand_in_process_mesh(card: str, wire: str):
 
 
 _NCCL = ("cuda:0", "cuda:0")   # a process mesh's (stack, wire)
+_TWO_CARDS = ["cuda:0", "cuda:0", "cuda:1", "cuda:1"]
 _GATE_CASES = {
-    # name: (mesh, knobs, inside debug_mode, the card captured on)
-    "nccl-one-card": (_NCCL, {}, False, "cuda:0"),
+    # name: (mesh, knobs, inside debug_mode, the cards captured on)
+    "nccl-one-card": (_NCCL, {}, False, ["cuda:0"]),
     "gloo-one-card": (("cuda:0", "cpu"), {}, False, None),
     "gloo-cpu": (("cpu", "cpu"), {}, False, None),
     "nccl-plain-path": (_NCCL, dict(use_pallas=False), False, None),
     "nccl-delta-x": (_NCCL, dict(delta_x=2), False, None),
     "nccl-rigidity": (_NCCL, dict(rigidity=0.5), False, None),
     "nccl-debug-mode": (_NCCL, {}, True, None),
-    "one-controller-one-card": (["cuda:0"] * 4, {}, False, "cuda:0"),
-    "one-controller-two-cards": (["cuda:0", "cuda:0", "cuda:1", "cuda:1"],
-                                 {}, False, None),
+    "one-controller-one-card": (["cuda:0"] * 4, {}, False, ["cuda:0"]),
+    "one-controller-two-cards": (_TWO_CARDS, {}, False,
+                                 ["cuda:0", "cuda:1"]),
+    "one-controller-four-cards": (["cuda:2", "cuda:3", "cuda:0", "cuda:1"],
+                                  {}, False,
+                                  ["cuda:2", "cuda:3", "cuda:0", "cuda:1"]),
+    "one-controller-cards-interleaved": (["cuda:0", "cuda:1"] * 2, {}, False,
+                                         ["cuda:0", "cuda:1"]),
+    "one-controller-card-and-cpu": (["cuda:0", "cuda:0", "cpu", "cpu"], {},
+                                    False, None),
     "one-controller-cpu": (["cpu"] * 4, {}, False, None),
     "one-controller-debug-mode": (["cuda:0"] * 4, {}, True, None),
+    "two-cards-debug-mode": (_TWO_CARDS, {}, True, None),
+    "two-cards-plain-path": (_TWO_CARDS, dict(use_pallas=False), False,
+                             None),
+    "two-cards-delta-x": (_TWO_CARDS, dict(delta_x=2), False, None),
+    "two-cards-rigidity": (_TWO_CARDS, dict(rigidity=0.5), False, None),
 }
 
 
 @pytest.mark.parametrize("case", list(_GATE_CASES))
 def test_graph_gate(case):
-    """Which seam steps are captured (`parallel/spatial.py::_graph_card`):
-    on a process mesh only with NCCL exchanges from a one-card stack, the
-    kernels' DP and no debug_mode; on one controller with every shard on
-    one card, as before."""
+    """Which seam steps are captured, and on which cards
+    (`parallel/spatial.py::_graph_cards`, the capturing card first): with
+    the kernels' DP and no debug_mode, on a process mesh only with NCCL
+    exchanges from a one-card stack, on one controller when every shard
+    lies on a card, one or several."""
     from dct_carver_tpu_torch.utils.debug import debug_mode
 
     mesh, knobs, debug, want = _GATE_CASES[case]
@@ -499,8 +514,8 @@ def test_graph_gate(case):
         mesh = tshards.ShardMesh(mesh, 64)
     p = tsp._params(64, 16, **knobs)
     with debug_mode() if debug else contextlib.nullcontext():
-        got = tsp._graph_card(mesh, p)
-    assert got == (None if want is None else torch.device(want))
+        got = tsp._graph_cards(mesh, p)
+    assert got == (None if want is None else [torch.device(c) for c in want])
 
 
 def test_two_process_killed_peer_detected(tmp_path):

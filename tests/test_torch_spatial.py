@@ -137,7 +137,7 @@ def test_static_steps_swap_two_buffer_sets():
     st, mesh = tsp.spatial_make_state(luma, devices=CPU8, image=img)
     p = tsp._params(64, 16, dead_max=5)
     steps = tsp._SeamSteps(mesh, st, p)
-    assert steps.graph_device is None
+    assert steps.graph_cards is None
     assert steps.sets[0].luma is st.luma
     mid = steps.carve(st, 0, 3)
     assert mid.luma is steps.sets[1].luma and mid.image is steps.sets[1].image
@@ -152,7 +152,7 @@ def test_static_steps_swap_two_buffer_sets():
     np.testing.assert_array_equal(mesh.join(end.image).numpy(),
                                   whole.image.numpy())
     plain = tsp._SeamSteps(mesh, st, tsp._params(64, 16, use_pallas=False))
-    assert plain.graph_device is None
+    assert plain.graph_cards is None
 
 
 def test_spatial_enlarge_equals_jax(mesh8):
