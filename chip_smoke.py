@@ -47,7 +47,11 @@ such images (graph replays counted, the graphed carve against the eager
 kernel carve and, for 4 seams on 8 of its images, the plain path), then
 the energy and strip kernels timed at that shape.  Phase 4 runs the plugged energies: 4a holds the strip gather,
 strip scatter and band-energy kernels against their plain versions (1080p
-and B=8 1024x1024) and gather -> band energy -> scatter against strip.cu;
+and B=8 1024x1024; the band energy at every blocksize on bands gathered
+with delta_x = 1, 2 and 4 from the 1080p plane and stacks of 8 and 256
+1024x1024 images, and on full-row bands) and gather -> band energy ->
+scatter against strip.cu, and times the band energy at every blocksize on
+those planes beside its bound and the launch floor;
 4b carves 64 seams from the 1080p RGB image with each builtin gradient
 energy and a radius-2 custom one, with the launch counters and graph
 replays read around it, against the plain path (grad_norm's graphed carve
@@ -96,7 +100,11 @@ images) by the default placement over every visible card, against each
 card's chunk carved on one card alone, lists any host wait inside it with
 torch's sync debug mode, times it in turns beside one card's share carved
 alone, and reads each card's busy share and the join between CUDA events.
-`python3 chip_smoke.py --multi-card` runs phase 7 alone.
+`python3 chip_smoke.py --multi-card` runs phase 7 alone;
+`--band-variants` builds variants of the band-energy kernel's block shape
+and times them against each other, and `--band-times ROOT` times the band
+energy (and strip.cu) with the package found under ROOT, so that two
+commits compare in turns on one card.
 
 Every kernel's line gives its time, its plain version's, the least time
 the card could take for the same work (`bound_ms`: bytes over 3.35 TB/s
@@ -115,6 +123,7 @@ exits non-zero and prints no result.  Imports nothing of JAX.
 """
 
 import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -1550,9 +1559,94 @@ def phase_2d(dev, chk: Checks, card: str, rng, img, res, plain) -> list:
     return runs
 
 
+# the band kernel (#13): the planes its times are read on, and its readings
+# at every blocksize there ({"<plane> n=<n>": {...}}, phase 4a)
+BAND_TIMED = (f"{H}x{W}", f"B={NB} {HB}x{WB}", f"B={NB_TIMED} {HB}x{WB}")
+BAND: dict = {}
+
+
+def band_lumas(dev) -> list:
+    """(name, luma) of the band kernel's planes, made on the card from
+    SEED, the same in every process: the 1080p plane and stacks of NB and
+    NB_TIMED HBxWB images."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 13)
+    return [(name, torch.rand(shape, device=dev, generator=gen))
+            for name, shape in ((f"{H}x{W}", (H, W)),
+                                (f"B={NB} {HB}x{WB}", (NB, HB, WB)),
+                                (f"B={NB_TIMED} {HB}x{WB}",
+                                 (NB_TIMED, HB, WB)))]
+
+
+def walk_seams(luma, delta_x: int):
+    """One seam a row of each image of `luma` (..., H, W), from the middle
+    column, moving at most delta_x columns a row: (..., H) int32 on its
+    device."""
+    import torch
+
+    rng = np.random.default_rng(SEED + delta_x)
+    W_ = luma.shape[-1]
+    steps = rng.integers(-delta_x, delta_x + 1, tuple(luma.shape[:-1]))
+    seam = np.clip(W_ // 2 + np.cumsum(steps, axis=-1), 0, W_ - 1)
+    return torch.from_numpy(seam.astype(np.int32)).to(luma.device)
+
+
+def band_bound(n: int, rows: int, C: int) -> tuple[float, str]:
+    """The bound of band_energy on (rows, n, C) bands: each band float read
+    and each output written once, and the chains with shared vertical
+    chains (dct_ops)."""
+    cout = C - n + 1
+    return bound(4 * rows * (n * C + cout), dct_ops(n, rows, cout, C))
+
+
+def band_times(lumas, edges, textures) -> dict:
+    """band_energy at every blocksize on the BAND_TIMED planes (bands
+    gathered for delta_x = 1), and strip.cu (strip_update) at n=8 on the
+    same planes and seams: device ms a call, its source, back-to-back ms
+    between CUDA events, and the bound.  Uses the dct_carver_tpu_torch
+    that is imported (this checkout's, or another commit's under
+    --band-times)."""
+    import torch
+
+    from dct_carver_tpu_torch.kernels.strip_kernel import (
+        band_energy, strip_gather, strip_update)
+
+    out = {}
+    for name, luma in lumas:
+        if name not in BAND_TIMED:
+            continue
+        seam = walk_seams(luma, 1)
+        reps = 200 if luma.numel() < 2**25 else 10
+        calls = {}
+        for n in (2, 4, 8, 16):
+            bands = strip_gather(luma, seam, n)
+            C = bands.shape[-1]
+            calls[f"{name} n={n}"] = (
+                functools.partial(band_energy, bands, n, edges, textures),
+                band_bound(n, bands.numel() // (n * C), C))
+        energy = torch.zeros_like(luma)
+        rows = luma.numel() // luma.shape[-1]
+        calls[f"{name} strip n=8"] = (  # as phase 3c's bound
+            functools.partial(strip_update, luma, energy, seam, 8, edges,
+                              textures),
+            bound(4 * rows * (27 + 20 + 1), dct_ops(8, rows, 20, 27)))
+        for key, (fn, (b_ms, b_by)) in calls.items():
+            d_ms, src = device_reading(fn, reps)
+            out[key] = {"device_ms": d_ms, "device_ms_source": src,
+                        "ms": cuda_ms(fn, reps), "bound_ms": b_ms,
+                        "bound_by": b_by}
+        del calls, energy
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_4a(dev, chk: Checks, card: str, rng, times: dict) -> None:
     """The plugged-energy strip kernels against their plain versions, and
-    gather -> band_energy -> scatter against strip.cu."""
+    gather -> band_energy -> scatter against strip.cu; band_energy at every
+    blocksize and delta_x on the band_lumas planes and on full-row bands,
+    and its times there (band_times, into BAND and BATCH)."""
     import torch
 
     from dct_carver_tpu_torch.kernels.apply_kernel import apply_seam
@@ -1561,6 +1655,7 @@ def phase_4a(dev, chk: Checks, card: str, rng, times: dict) -> None:
     from dct_carver_tpu_torch.kernels.strip_kernel import (
         band_energy, strip_gather, strip_scatter, strip_update)
     from dct_carver_tpu_torch.ops.carve import _strip_extent
+    from dct_carver_tpu_torch.ops.dct import rows_to_bands
     from dct_carver_tpu_torch.ops.energy_fn import GRAD_NORM
 
     # the floor, taken beside the strip kernels' own times so that both
@@ -1600,12 +1695,6 @@ def phase_4a(dev, chk: Checks, card: str, rng, times: dict) -> None:
                       strip_scatter(e1.clone(), strip, seam, n),
                       strip_scatter(e1.clone(), strip, seam, n,
                                     use_pallas=False))
-        for n in (2, 4, 8, 16):
-            bands = strip_gather(l1, seam, n)
-            chk.equal("band_energy", f"{name} n={n} on gathered bands",
-                      band_energy(bands, n, edges, textures),
-                      band_energy(bands, n, edges, textures,
-                                  use_pallas=False))
         for n in (8, 16):
             l1, e1, seam = after_one_seam(x, dct_energy(x, n, edges,
                                                         textures))
@@ -1616,6 +1705,49 @@ def phase_4a(dev, chk: Checks, card: str, rng, times: dict) -> None:
                       f"{name} n={n} gather+band+scatter == strip.cu",
                       composed,
                       strip_update(l1, e1.clone(), seam, n, edges, textures))
+
+    # band_energy on gathered bands at every blocksize and delta_x on the
+    # 1080p plane and both stacks (at n = 16 and delta_x = 4 a 99-column
+    # band row is two tiles of 42 outputs), and on full-row bands (C = W)
+    lumas = band_lumas(dev)
+    for name, luma in lumas:
+        for dx in (1, 2, 4):
+            seam = walk_seams(luma, dx)
+            for n in (2, 4, 8, 16):
+                bands = strip_gather(luma, seam, n, delta_x=dx)
+                chk.equal("band_energy",
+                          f"{name} n={n} delta_x={dx} (C={bands.shape[-1]})",
+                          band_energy(bands, n, edges, textures),
+                          band_energy(bands, n, edges, textures,
+                                      use_pallas=False))
+                del bands
+    # full-row bands of the whole plane (one lane an output) and of its
+    # first 8 rows (n lanes an output: teams of up to 1024 threads, several
+    # tiles a row, at n = 16 30 tiles of 64 outputs)
+    x = lumas[0][1]
+    for n in (2, 4, 8, 16):
+        bands = rows_to_bands(x, n)[..., :W].contiguous()
+        for rows in (H, 8):
+            chk.equal("band_energy",
+                      f"{H}x{W} n={n} full-row bands of {rows} rows (C={W})",
+                      band_energy(bands[:rows], n, edges, textures),
+                      band_energy(bands[:rows], n, edges, textures,
+                                  use_pallas=False))
+    del bands
+    torch.cuda.empty_cache()
+    # its times at every blocksize on the 1080p plane and the 256-image
+    # stack, each beside its bound and the floor
+    BAND.update(band_times(lumas, edges, textures))
+    del lumas, x
+    torch.cuda.empty_cache()
+    for key, r in BAND.items():
+        log(f"  band {key:24s} device {r['device_ms']!r} ms "
+            f"({r['device_ms_source']}), back to back {r['ms']!r} ms, bound "
+            f"{r['bound_ms']!r} ms ({r['bound_by']}), floor "
+            f"{FLOOR['back_to_back']!r} ms ({card})")
+    stack8 = BAND[f"B={NB_TIMED} {HB}x{WB} n=8"]
+    BATCH["band_energy"] = ((stack8["device_ms"], stack8["device_ms_source"]),
+                            (stack8["bound_ms"], stack8["bound_by"]))
 
     # times at the main path's shapes: 1080p, grad_norm's n=2 (band_energy:
     # n=8, the DCT headline's blocksize, beside strip.cu)
@@ -3628,6 +3760,9 @@ def main() -> int:
                             floor_device_ms=FLOOR["back_to_back"],
                             floor_device_ms_in_graph=FLOOR["in_graph"],
                             floor_device_ms_source=FLOOR["source"])
+        if k.name == "band_energy":  # every blocksize, 1080p and B=256
+            rows[-1].update(by_shape=BAND,
+                            floor_device_ms=FLOOR["back_to_back"])
         if k.name in BATCH:  # the same kernel at phase 3c's batch shape
             (b_ms, b_src), (bb_ms, _) = BATCH[k.name]
             rows[-1].update(batch_device_ms=b_ms, batch_device_ms_source=b_src,
@@ -3872,6 +4007,154 @@ def strip_layouts() -> int:
     return 0
 
 
+# --band-variants: the band kernel (#13, csrc/strip_bands.cu) built once a
+# (threads a block aims at, lanes an output) pair from a copy of its source
+# with those two edited (band_variant_source); lanes 0: the shipped choice
+# by the call's size, else those lanes, at most n, for every call; the
+# first is the shipped kernel
+BAND_VARIANTS = ((256, 0), (256, 1), (256, 2), (256, 4), (256, 8), (256, 16),
+                 (128, 0), (512, 0))
+
+
+def band_variant_source(src: str, threads: int, lanes: int) -> str:
+    """strip_bands.cu's text `src` with kBandThreads = threads and, for
+    lanes > 0, every call on min(lanes, n) lanes an output: band_lanes
+    always takes the first branch, which launches that kernel."""
+    edits = [("constexpr int kBandThreads = 256;",
+              f"constexpr int kBandThreads = {threads};")]
+    if lanes:
+        edits += [("return outputs < kBandLargeOutputs ? n : 1;",
+                   "return n;"),
+                  ("launch_band<N, N>(",
+                   f"launch_band<N, ({lanes} < N ? {lanes} : N)>(")]
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise ValueError(f"strip_bands.cu: {old!r} is not there once")
+        src = src.replace(old, new)
+    return src
+
+
+def band_variants() -> int:
+    """Build each of BAND_VARIANTS from an edited copy of this checkout's
+    strip_bands.cu into its own library under build/band_variants/ (one
+    nvcc each, all at once), hold each bitwise against the shipped band_energy at every
+    blocksize on the BAND_TIMED planes with bands gathered for delta_x = 1
+    and 4, and time each at delta_x = 1 (device ms a call).  Exits
+    non-zero if a variant does not build, launch or agree."""
+    import ctypes
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from dct_carver_tpu_torch.kernels import build
+    from dct_carver_tpu_torch.kernels.energy_kernel import host_taps
+    from dct_carver_tpu_torch.kernels.strip_kernel import (band_energy,
+                                                           strip_gather)
+
+    card = card_line()
+    dev = torch.device("cuda", 0)
+    build.load()
+    out_dir = ROOT / "build" / "band_variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    shipped = (build.CSRC / "strip_bands.cu").read_text()
+    procs = {}
+    for t, g in BAND_VARIANTS:
+        lib = out_dir / f"band_{t}_{g}.so"
+        cu = out_dir / f"band_{t}_{g}.cu"
+        cu.write_text(band_variant_source(shipped, t, g))
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-shared",
+               f"-I{build.CSRC}", "-o", str(lib), str(cu)]
+        procs[(t, g)] = (lib, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    fns, failed = {}, []
+    for key, (lib, proc) in procs.items():
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{key}: nvcc failed\n{out}")
+            continue
+        for line in out.splitlines():
+            if "band_energy" in line or ("registers" in line
+                                         and "spill" not in line):
+                log(f"  ptxas {key}: {line.strip()}")
+        fn = ctypes.CDLL(str(lib)).dc_band_energy
+        fn.argtypes = list(build.SIGNATURES["dc_band_energy"])
+        fn.restype = ctypes.c_int
+        fns[key] = fn
+    edges, textures = 0.3, 0.7
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, luma in band_lumas(dev):
+        if name not in BAND_TIMED:
+            continue
+        for dx in (1, 4):
+            seam = walk_seams(luma, dx)
+            for n in (2, 4, 8, 16):
+                bands = strip_gather(luma, seam, n, delta_x=dx)
+                C = bands.shape[-1]
+                rows = bands.numel() // (n * C)
+                want = band_energy(bands, n, edges, textures)
+                got = torch.empty_like(want)
+                line = []
+                for key, fn in fns.items():
+                    def call(fn=fn):
+                        return fn(bands.data_ptr(), got.data_ptr(),
+                                  host_taps(n).ctypes.data, rows, n, C,
+                                  edges, textures, stream)
+
+                    got.fill_(float("nan"))
+                    rc = call()
+                    torch.cuda.synchronize()
+                    if rc != 0 or not torch.equal(got, want):
+                        failed.append(f"{key} {name} n={n} delta_x={dx}: "
+                                      f"rc {rc}")
+                        continue
+                    if dx == 1:
+                        ms = device_ms(call, 200 if luma.numel() < 2**25
+                                       else 10)
+                        line.append(f"{key[0]}/{key[1]} {ms!r}")
+                if line:
+                    log(f"band variants {name} n={n} (C={C}), threads/lanes "
+                        f"device ms: {', '.join(line)} ({card})")
+                del bands, want, got
+        torch.cuda.empty_cache()
+    if failed:
+        print("band variants FAILED:\n  " + "\n  ".join(failed),
+              file=sys.stderr)
+        return 1
+    log(json.dumps({"ok": True, "band_variants": "bitwise"}))
+    return 0
+
+
+def band_times_of(root: str) -> int:
+    """--band-times ROOT: band_times with the dct_carver_tpu_torch found
+    under ROOT (this checkout, or another commit's unpacked in a directory
+    .gitignore lists, to compare the two in turns, a fresh process each).
+    Prints one JSON line."""
+    import importlib
+
+    root_path = Path(root).resolve()
+    sys.path.insert(0, str(root_path))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    pkg = importlib.import_module("dct_carver_tpu_torch")
+    if Path(pkg.__file__).resolve().parents[1] != root_path:
+        print(f"chip_smoke: dct_carver_tpu_torch comes from {pkg.__file__}, "
+              f"not from {root_path}", file=sys.stderr)
+        return 2
+    from dct_carver_tpu_torch.kernels import build
+
+    build.load()
+    times = band_times(band_lumas(torch.device("cuda", 0)), 0.3, 0.7)
+    print(json.dumps({"root": str(root_path), "card": card_line(),
+                      "times": times}), flush=True)
+    return 0
+
+
 # --first-carve: the carves of a one-shot process (a CLI call, a script that
 # carves one image), each the first of its shape: the headline and a 4K
 # image, then the same shape again
@@ -3937,6 +4220,10 @@ if __name__ == "__main__":
         sys.exit(first_carve(sys.argv[2]))
     if sys.argv[1:2] == ["--strip-layouts"] and len(sys.argv) == 2:
         sys.exit(strip_layouts())
+    if sys.argv[1:2] == ["--band-variants"] and len(sys.argv) == 2:
+        sys.exit(band_variants())
+    if sys.argv[1:2] == ["--band-times"] and len(sys.argv) == 3:
+        sys.exit(band_times_of(sys.argv[2]))
     if sys.argv[1:2] == ["--multi-card"] and len(sys.argv) == 2:
         sys.exit(multi_card())
     if sys.argv[1:2] == ["--multiproc-worker"] and len(sys.argv) == 7:
@@ -3957,7 +4244,8 @@ if __name__ == "__main__":
         os._exit(rc)
     if len(sys.argv) > 1:
         print("usage: chip_smoke.py [--first-carve ROOT | --strip-layouts | "
-              "--multi-card | --multiproc-worker RANK NPROC PORT BACKEND "
-              "DIR]", file=sys.stderr)
+              "--band-variants | --band-times ROOT | --multi-card | "
+              "--multiproc-worker RANK NPROC PORT BACKEND DIR]",
+              file=sys.stderr)
         sys.exit(2)
     sys.exit(main())

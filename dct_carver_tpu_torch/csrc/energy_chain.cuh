@@ -37,24 +37,6 @@ struct Taps {
   }
 };
 
-// The same taps copied into shared memory (strip_bands.cu's band kernel).
-template <int N>
-struct SharedTaps {
-  const float* d;
-  __device__ __forceinline__ float operator()(int k, int j) const {
-    return d[k * N + j];
-  }
-};
-
-// Copy the n*n f32 taps into shared memory.  Every thread of the block must
-// call it (it synchronises).
-__device__ __forceinline__ void load_taps(const float* __restrict__ taps,
-                                          float* s_taps, int n) {
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  for (int i = tid; i < n * n; i += blockDim.x * blockDim.y) s_taps[i] = taps[i];
-  __syncthreads();
-}
-
 // One chain: sum_j D(k, j) * x(j), j = 0 .. N-1 in order, each op rounded.
 // The vertical chain is chain(D, ky, band column), the atom chain
 // chain(D, kx, V row).
@@ -103,31 +85,6 @@ __device__ __forceinline__ void pick_row(Pick& p, int ky, X coeff) {
     }
   }
   if (best >= 0) p.add(m, best * N + ky);
-}
-
-// The energy of one pixel over a window whose row d starts at src + roff[d]
-// and whose column dx is at index cidx[dx] of each row (strip_bands.cu's
-// gathered bands): the parts above, one ky at a time.
-template <int N, class D>
-__device__ __forceinline__ float energy_chain(const float* __restrict__ src,
-                                              const int (&roff)[N],
-                                              const int (&cidx)[N],
-                                              const D& taps, float edges,
-                                              float textures) {
-  Pick p;
-#pragma unroll 1
-  for (int ky = 0; ky < N; ++ky) {
-    float V[N];
-#pragma unroll
-    for (int dx = 0; dx < N; ++dx)
-      V[dx] = chain<N>(taps, ky, [&](int dy) {
-        return __ldg(src + roff[dy] + cidx[dx]);
-      });
-    pick_row<N>(p, ky, [&](int kx) {
-      return chain<N>(taps, kx, [&](int dx) { return V[dx]; });
-    });
-  }
-  return p.energy<N>(edges, textures);
 }
 
 }  // namespace dct_carver

@@ -59,7 +59,7 @@ SIGNATURES = {
     # energy, strip, seam, B, H, W, Wg, lo, lo_step, seam_step, half,
     # strip_w, stream
     "dc_strip_scatter": (_P, _P, _P, *(_I,) * 9, _P),
-    # bands, out, taps, rows, n, C, edges, textures, stream
+    # bands, out, taps (host), rows, n, C, edges, textures, stream
     "dc_band_energy": (_P, _P, _P, _L, _I, _I, _F, _F, _P),
     # msg, out, out_ss, S, Kb, Wl, Hh, lo, width, stream
     "dc_block_dp": (_P, _P, _L, _I, _I, _I, _I, _I, _P, _P),

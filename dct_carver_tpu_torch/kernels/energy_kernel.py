@@ -17,7 +17,7 @@ from ..ops.dct import (BLOCKSIZES, _dct_matrix_np, dct_energy_map,
                        window_offset)
 from .build import Kernel, check_plane, launch
 
-__all__ = ["dct_energy", "KERNEL", "host_taps", "dct_taps"]
+__all__ = ["dct_energy", "KERNEL", "host_taps"]
 
 KERNEL = Kernel(name="energy",
                 source="dct_carver_tpu_torch/csrc/energy.cu",
@@ -30,13 +30,6 @@ def host_taps(n: int) -> np.ndarray:
     and strip kernels take them by value as a kernel parameter, never
     cosines computed on the device."""
     return np.ascontiguousarray(_dct_matrix_np(n).astype(np.float32))
-
-
-@functools.lru_cache(maxsize=None)
-def dct_taps(n: int, device: torch.device) -> torch.Tensor:
-    """The (n, n) f32 DCT taps on `device`, for the band kernel, which
-    copies them into shared memory."""
-    return torch.from_numpy(host_taps(n)).to(device)
 
 
 def _energy_cuda(luma: torch.Tensor, n: int, edges, textures,

@@ -35,7 +35,7 @@ from ..ops.carve import (ShardOffset, _gather_strip_bands,
                          _recompute_strip, _scatter_strips, _strip_extent)
 from ..ops.dct import BLOCKSIZES, energy_from_bands, window_offset
 from .build import Kernel, check_plane, launch
-from .energy_kernel import dct_taps, host_taps
+from .energy_kernel import host_taps
 
 __all__ = ["strip_update", "strip_gather", "strip_scatter", "band_energy",
            "KERNEL", "GATHER_KERNEL", "SCATTER_KERNEL", "BAND_KERNEL"]
@@ -210,9 +210,9 @@ def band_energy(bands: torch.Tensor, n: int, edges, textures, *,
     rows = out.numel() // (C - n + 1)
     if rows == 0:
         return out
-    taps = dct_taps(n, dev)
     with torch.cuda.device(dev):
         launch(BAND_KERNEL, "dc_band_energy", bands.data_ptr(),
-               out.data_ptr(), taps.data_ptr(), rows, n, C, float(edges),
-               float(textures), torch.cuda.current_stream().cuda_stream)
+               out.data_ptr(), host_taps(n).ctypes.data, rows, n, C,
+               float(edges), float(textures),
+               torch.cuda.current_stream().cuda_stream)
     return out

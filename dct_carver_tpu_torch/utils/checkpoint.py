@@ -77,9 +77,11 @@ def save_state(path: str, state: CarveState, config: CarverConfig,
     )
 
 
-def load_state(path: str, device="cpu"):
+def load_state(path: str, device=None):
     """Returns (CarveState on `device`, CarverConfig, seams_done,
-    n_seams_total)."""
+    n_seams_total).  `device` defaults to the first CUDA card
+    (`state_from_numpy`), as JAX's `load_state` puts the state on its
+    default device."""
     with np.load(path) as z:
         meta = json.loads(bytes(z["meta"]).decode())
         if meta["version"] not in (1, _FORMAT_VERSION):

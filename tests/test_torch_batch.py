@@ -357,7 +357,7 @@ def test_batched_state_from_jax_continues_in_port(make_image):
     end = jmesh.batch_carve_states(jnp.asarray(imgs), n, 8, 0.0, 1.0,
                                    use_pallas=False)
     arrays = {name: np.asarray(v) for name, v in mid._asdict().items()}
-    state = state_from_numpy(arrays)
+    state = state_from_numpy(arrays, device="cpu")
     assert state.width == 32 - k and state.luma.shape == (3, 16, 32)
     back = state_to_numpy(state)
     for name, v in arrays.items():
@@ -376,4 +376,4 @@ def test_state_from_numpy_rejects_unequal_widths():
     assert arrays["width"].shape == (2,)
     arrays["width"] = np.array([6, 5], np.int32)
     with pytest.raises(ValueError, match="one width"):
-        state_from_numpy(arrays)
+        state_from_numpy(arrays, device="cpu")

@@ -10,6 +10,7 @@ structured corpus of tests/test_native.py, where JAX agrees with native.
 """
 
 import os
+import re
 import subprocess
 import sys
 
@@ -165,7 +166,7 @@ def test_one_seam_from_a_jax_mid_carve_state():
     nxt = jcarve.carve_n_seams(luma, m + 1, 8, 0.3, 0.7, use_pallas=False)
     arrays = {k: np.asarray(v) for k, v in mid._asdict().items()}
 
-    state = state_from_numpy(arrays)
+    state = state_from_numpy(arrays, device="cpu")
     back = state_to_numpy(state)
     for k, v in arrays.items():
         assert back[k].dtype == v.dtype
@@ -187,7 +188,33 @@ def test_state_from_numpy_rejects_mismatched_shapes():
     arrays = state_to_numpy(tcarve.make_state(torch.zeros((4, 6))))
     arrays["vmap"] = arrays["vmap"][:, :5]
     with pytest.raises(ValueError):
-        state_from_numpy(arrays)
+        state_from_numpy(arrays, device="cpu")
+
+
+@pytest.mark.parametrize("entry", ["state_from_numpy", "load_state"])
+def test_state_loaders_raise_with_no_card(entry, monkeypatch, tmp_path):
+    """With no device named, `state_from_numpy` and `load_state` put the
+    state on the first card, as JAX's `jnp.asarray` puts it on the default
+    device (dct_carver_tpu/utils/checkpoint.py:207-221): with no card
+    visible they raise NO_CARD's message instead of carrying on on the
+    CPU, and `device="cpu"` still loads."""
+    from dct_carver_tpu_torch.models.carver import NO_CARD
+    from dct_carver_tpu_torch.utils import checkpoint as tckpt
+
+    state = tcarve.make_state(torch.arange(24.0).reshape(4, 6) / 24)
+    path = str(tmp_path / "ck.npz")
+    tckpt.save_state(path, state, CarverConfig(), 1, 2)
+    load = {"state_from_numpy": lambda **kw: state_from_numpy(
+                state_to_numpy(state), **kw),
+            "load_state": lambda **kw: tckpt.load_state(path, **kw)[0]}[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match=re.escape(NO_CARD)):
+            load(**kw)
+    got = load(device="cpu")
+    assert got.luma.device == torch.device("cpu")
+    np.testing.assert_array_equal(got.luma.numpy(), state.luma.numpy())
 
 
 def test_port_never_imports_jax():

@@ -291,29 +291,42 @@ def test_strip_wrappers_reject_bad_shapes():
         band_energy(torch.zeros((4, 6, 9)), 6, 0.0, 1.0)
 
 
+@pytest.mark.parametrize("stack", [False, True], ids=["plane", "stack"])
+@pytest.mark.parametrize("delta_x", [1, 2, 4])
 @pytest.mark.parametrize("n", [2, 4, 8, 16])
-def test_band_energy_plain_equals_eager_jax(n):
+def test_band_energy_plain_equals_eager_jax(n, delta_x, stack):
     """`band_energy`'s plain version on gathered bands against eager JAX
     `energy_from_bands` on the same bands, bit for bit; and the DCT strip
-    as gather -> band_energy -> scatter equals a full recompute."""
-    rng = np.random.default_rng(20 + n)
-    luma = rng.random((24, 96), dtype=np.float32)
-    t = torch.from_numpy(luma)
-    seam = torch.from_numpy((np.cumsum(rng.integers(-1, 2, 24)) + 40)
-                            .astype(np.int32))
-    bands = strip_gather(t, seam, n)
+    as gather -> band_energy -> scatter equals a full recompute.  The bands
+    are those of a (24, 96) plane, or with `stack` of a (2, 24, 96) stack
+    of images with their own seams ((B, H, n, C) bands, as (B*H, n, C) for
+    JAX), gathered for the strip of `delta_x`: C = 9 .. 99 columns, the
+    geometries that chip_smoke.py phase 4a holds the kernel to."""
+    rng = np.random.default_rng([n, delta_x, int(stack)])
+    B = 2 if stack else 1
+    luma = rng.random((B, 24, 96), dtype=np.float32)
+    seams = np.clip(np.cumsum(rng.integers(-delta_x, delta_x + 1, (B, 24)),
+                              axis=-1) + 40, 0, 95).astype(np.int32)
+    t = torch.from_numpy(luma if stack else luma[0])
+    seam = torch.from_numpy(seams if stack else seams[0])
+    bands = strip_gather(t, seam, n, delta_x=delta_x)
+    half, strip_w = tcarve._strip_extent(n, delta_x)
+    assert bands.shape == (*seam.shape, n, strip_w + n - 1)
     got = band_energy(bands, n, 0.3, 0.8)
     want = np.asarray(jdct.energy_from_bands(
-        jnp.asarray(bands.numpy()), n, 0.3, 0.8))
-    np.testing.assert_array_equal(got.numpy(), want)
+        jnp.asarray(bands.numpy().reshape(-1, n, strip_w + n - 1)), n, 0.3,
+        0.8))
+    np.testing.assert_array_equal(got.numpy().reshape(want.shape), want)
     energy = torch.full_like(t, -1.0)
-    strip_scatter(energy, got, seam, n)
+    strip_scatter(energy, got, seam, n, delta_x=delta_x)
     full = energy_from_bands(rows_to_bands(t, n), n, 0.3, 0.8)
-    start, strip_w = tcarve._strip_bounds(seam, n, 96)
-    for i, s in enumerate(start.tolist()):
-        np.testing.assert_array_equal(energy[i, s:s + strip_w].numpy(),
-                                      full[i, s:s + strip_w].numpy())
-    assert int((energy >= 0).sum()) == 24 * strip_w
+    start, _ = tcarve._strip_bounds(seam, n, 96, delta_x)
+    for e, f, st in zip(energy.reshape(B, 24, 96), full.reshape(B, 24, 96),
+                        start.reshape(B, 24)):
+        for i, s in enumerate(st.tolist()):
+            np.testing.assert_array_equal(e[i, s:s + strip_w].numpy(),
+                                          f[i, s:s + strip_w].numpy())
+    assert int((energy >= 0).sum()) == B * 24 * strip_w
 
 
 # ------------------------------------------------- routes against JAX --
@@ -420,7 +433,7 @@ def test_jax_checkpoint_resumes_in_port(energy, tmp_path):
     luma = _rand_luma(24, 40, seed=30)
     path = str(tmp_path / "jax.npz")
     _interrupted(jckpt.carve_resumable, luma, JConfig(energy=energy), path)
-    state, cfg, done, total = tckpt.load_state(path)
+    state, cfg, done, total = tckpt.load_state(path, device="cpu")
     assert (done, total, state.width) == (3, 6, 37)
     assert cfg.energy == energy and cfg == CarverConfig(energy=energy)
     got = tckpt.carve_resumable(None, 6, CarverConfig(), resume_from=path,
@@ -470,7 +483,7 @@ def test_carve_resumable_chunks_and_progress(tmp_path):
                       ("update", 6 / 7), ("update", 1.0), ("end",)]
     whole = tcarve.carve_n_seams(luma, 7, 8, 0.0, 1.0, energy_fn=GRAD_NORM)
     np.testing.assert_array_equal(got.vmap.numpy(), whole.vmap.numpy())
-    assert tckpt.load_state(path)[2:] == (7, 7)
+    assert tckpt.load_state(path, device="cpu")[2:] == (7, 7)
     with pytest.raises(ValueError, match="requested"):
         tckpt.carve_resumable(None, 8, cfg, resume_from=path,
                               device="cpu")
@@ -481,7 +494,7 @@ def test_carve_resumable_chunks_and_progress(tmp_path):
     # a builtin passed as the object is stored by its name
     tckpt.save_state(path, tcarve.make_state(luma),
                      CarverConfig(energy=ENERGY_NULL), 0, 1)
-    assert tckpt.load_state(path)[1].energy == "null"
+    assert tckpt.load_state(path, device="cpu")[1].energy == "null"
 
 
 def test_carver_progress_and_checkpoint_cover_the_width_pass(tmp_path,
@@ -506,4 +519,4 @@ def test_carver_progress_and_checkpoint_cover_the_width_pass(tmp_path,
     assert events == ["init", 0.4, 0.8, 1.0, "end"]  # the width pass only
     want = JCarver(img, energy="grad_sumabs").resize(25, 17)
     np.testing.assert_array_equal(res.image, want.image)
-    assert tckpt.load_state(path)[2:] == (5, 5)
+    assert tckpt.load_state(path, device="cpu")[2:] == (5, 5)
