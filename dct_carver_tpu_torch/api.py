@@ -10,6 +10,7 @@ import torch
 from .models.carver import (Carver, CarveResult, default_mesh,
                             resolve_placement)
 from .utils.config import CarverConfig
+from .utils.profiling import span
 
 __all__ = ["carve", "CarveResult", "CarverConfig"]
 
@@ -48,7 +49,8 @@ def carve(image, seams_number: int, *, blocksize: int = 8,
         **framework_knobs,
     )
     if cfg.parallel == "batch" or (cfg.parallel == "auto" and image.ndim == 4):
-        return _carve_stack(image, seams_number, cfg, device, devices)
+        with span("carve.stack"):
+            return _carve_stack(image, seams_number, cfg, device, devices)
     carver = Carver(image, cfg, device=device, devices=devices)
     h, w = image.shape[:2]
     if seams_number == 0:
@@ -69,10 +71,12 @@ def _stack_energy_u8(images: torch.Tensor, cfg: CarverConfig) -> np.ndarray:
     from .ops.carve import full_energy_map
     from .ops.energy import normalize_to_u8, to_luma
 
-    e = full_energy_map(to_luma(images, cfg.luma, stack=True), cfg.blocksize,
-                        cfg.edges, cfg.textures, use_pallas=cfg.use_pallas,
-                        energy_fn=cfg.energy_function)
-    return normalize_to_u8(e).cpu().numpy()
+    with span("carve.energy_export"):
+        e = full_energy_map(to_luma(images, cfg.luma, stack=True),
+                            cfg.blocksize, cfg.edges, cfg.textures,
+                            use_pallas=cfg.use_pallas,
+                            energy_fn=cfg.energy_function)
+        return normalize_to_u8(e).cpu().numpy()
 
 
 def _carve_stack(images: np.ndarray, seams_number: int, cfg: CarverConfig,
@@ -107,7 +111,9 @@ def _carve_stack(images: np.ndarray, seams_number: int, cfg: CarverConfig,
     energy = None
     if cfg.output_energy:
         # pre-carve energy export, per image (src/render.c:370-377 ordering)
-        energy = _stack_energy_u8(stack.to(dev), cfg)
+        with span("carve.copy_in"):
+            on_dev = stack.to(dev)
+        energy = _stack_energy_u8(on_dev, cfg)
     kw = dict(blocksize=cfg.blocksize, edges=cfg.edges,
               textures=cfg.textures, devices=mesh or default_mesh(dev),
               strip_update=cfg.strip_update, energy=cfg.energy_function,
@@ -120,8 +126,14 @@ def _carve_stack(images: np.ndarray, seams_number: int, cfg: CarverConfig,
             out, vmaps = carve_batch(stack, n, **kw)
         else:
             _, vmaps = carve_batch(stack, n, reconstruct=False, **kw)
-            out = reconstruct_enlarged(stack.to(vmaps.device), vmaps, n)
-        out, vmaps = out.cpu().numpy(), vmaps.cpu().numpy()
+            with span("carve.copy_in"):
+                on_dev = stack.to(vmaps.device)
+            with span("carve.reconstruct"):
+                out = reconstruct_enlarged(on_dev, vmaps, n)
+        with span("carve.copy_out.image"):
+            out = out.cpu().numpy()
+        with span("carve.copy_out.vmap"):
+            vmaps = vmaps.cpu().numpy()
     if not cfg.resize_canvas:
         # resize_canvas=FALSE analog (src/main.h:19), per image: removals
         # zero-fill the vacated region on the original canvas, enlargements

@@ -25,6 +25,7 @@ import torch
 from ..ops import carve as carve_ops
 from ..ops.energy import normalize_to_u8, to_luma
 from ..utils.config import CarverConfig
+from ..utils.profiling import span
 
 __all__ = ["Carver", "CarveResult", "default_device", "default_mesh",
            "resolve_device", "resolve_placement"]
@@ -147,19 +148,22 @@ class Carver:
         return (self.devices if self.devices is not None
                 else default_mesh(self.device))
 
-    def _to_device(self, img: np.ndarray) -> torch.Tensor:
-        # a copy only where the array is strided or read-only (Pillow's)
-        return torch.from_numpy(np.require(img, requirements=("C", "W"))
-                                ).to(self.device)
+    def _to_device(self, img: np.ndarray, device=None) -> torch.Tensor:
+        # a copy on the host only where the array is strided (a height
+        # pass's transposition) or read-only (Pillow's)
+        with span("carve.copy_in"):
+            return torch.from_numpy(np.require(img, requirements=("C", "W"))
+                                    ).to(device or self.device)
 
     def _energy_u8(self, luma: torch.Tensor, center: str = "carve",
                    energy_fn=None):
         cfg = self.config
-        e = carve_ops.full_energy_map(luma, cfg.blocksize, cfg.edges,
-                                      cfg.textures, center=center,
-                                      use_pallas=cfg.use_pallas,
-                                      energy_fn=energy_fn)
-        return normalize_to_u8(e).cpu().numpy()
+        with span("carve.energy_export"):
+            e = carve_ops.full_energy_map(luma, cfg.blocksize, cfg.edges,
+                                          cfg.textures, center=center,
+                                          use_pallas=cfg.use_pallas,
+                                          energy_fn=energy_fn)
+            return normalize_to_u8(e).cpu().numpy()
 
     # -- lqr_carver_get_energy_image (src/render.c:175-202) ------------------
     def energy_image(self, *, vertically: bool | None = None) -> np.ndarray:
@@ -184,27 +188,30 @@ class Carver:
     def resize(self, new_width: int, new_height: int) -> CarveResult:
         """Retarget to (new_width, new_height): the width pass first, then
         the height pass on its result (liblqr's order)."""
-        result_img = self.image
-        vmap = None
-        energy = None
-        if new_width != self._w:
-            result_img, vmap, energy = self._carve_axis(
-                result_img, new_width - self._w, transpose=False)
-        if new_height != self._h:
-            result_img, vmap2, energy2 = self._carve_axis(
-                result_img, new_height - self._h, transpose=True)
-            if vmap is None:
-                vmap, energy = vmap2, energy2
-        if not self.config.resize_canvas:
-            # src/main.h:19 resize_canvas=FALSE: the retargeted layer sits at
-            # the top-left of the original canvas; shrunk dimensions
-            # zero-fill, grown ones crop
-            canvas = np.zeros((self._h, self._w) + result_img.shape[2:],
-                              result_img.dtype)
-            h = min(self._h, result_img.shape[0])
-            w = min(self._w, result_img.shape[1])
-            canvas[:h, :w] = result_img[:h, :w]
-            result_img = canvas
+        with span("carve.resize"):
+            result_img = self.image
+            vmap = None
+            energy = None
+            if new_width != self._w:
+                with span("carve.pass"):
+                    result_img, vmap, energy = self._carve_axis(
+                        result_img, new_width - self._w, transpose=False)
+            if new_height != self._h:
+                with span("carve.pass"):
+                    result_img, vmap2, energy2 = self._carve_axis(
+                        result_img, new_height - self._h, transpose=True)
+                if vmap is None:
+                    vmap, energy = vmap2, energy2
+            if not self.config.resize_canvas:
+                # src/main.h:19 resize_canvas=FALSE: the retargeted layer
+                # sits at the top-left of the original canvas; shrunk
+                # dimensions zero-fill, grown ones crop
+                canvas = np.zeros((self._h, self._w) + result_img.shape[2:],
+                                  result_img.dtype)
+                h = min(self._h, result_img.shape[0])
+                w = min(self._w, result_img.shape[1])
+                canvas[:h, :w] = result_img[:h, :w]
+                result_img = canvas
         return CarveResult(
             image=result_img,
             visibility_map=vmap if self.config.output_seams else None,
@@ -223,7 +230,8 @@ class Carver:
         if self._resolved_parallel() == "spatial":
             return self._carve_axis_spatial(img, delta, transpose)
         dev_img = self._to_device(img)
-        luma = to_luma(dev_img, cfg.luma)
+        with span("carve.luma"):
+            luma = to_luma(dev_img, cfg.luma)
         ckpt_path, ckpt_every, resume = self._ckpt
         if transpose or (self.progress is None and ckpt_path is None
                          and resume is None):
@@ -239,12 +247,15 @@ class Carver:
                 luma, n, cfg, checkpoint_path=ckpt_path,
                 checkpoint_every=ckpt_every, resume_from=resume,
                 progress=self.progress, device=self.device)
-        if delta < 0:
-            out = carve_ops.reconstruct_removed(dev_img, state.vmap, n)
-        else:
-            out = carve_ops.reconstruct_enlarged(dev_img, state.vmap, n)
-        out = out.cpu().numpy()
-        vmap_np = state.vmap.cpu().numpy()
+        with span("carve.reconstruct"):
+            if delta < 0:
+                out = carve_ops.reconstruct_removed(dev_img, state.vmap, n)
+            else:
+                out = carve_ops.reconstruct_enlarged(dev_img, state.vmap, n)
+        with span("carve.copy_out.image"):
+            out = out.cpu().numpy()
+        with span("carve.copy_out.vmap"):
+            vmap_np = state.vmap.cpu().numpy()
         # the reference exports the PRE-carve energy (display_carver_energy
         # runs before lqr_carver_resize, src/render.c:370-377)
         energy_np = (self._energy_u8(luma, energy_fn=cfg.energy_function)
@@ -266,9 +277,9 @@ class Carver:
         cfg = self.config
         n = abs(delta)
         mesh = self._mesh()
-        dev_img = torch.from_numpy(np.require(img, requirements=("C", "W"))
-                                   ).to(mesh[0])
-        luma = to_luma(dev_img, cfg.luma)
+        dev_img = self._to_device(img, mesh[0])
+        with span("carve.luma"):
+            luma = to_luma(dev_img, cfg.luma)
         ckpt_path, ckpt_every, resume = self._ckpt
         if transpose:  # as on one device, checkpoints and progress cover
             ckpt_path = resume = None  # the width pass (the first) only
@@ -287,8 +298,10 @@ class Carver:
         else:
             res = spatial_enlarge_n_seams(luma, n, dev_img, **common)
             out = res.image
-        out = out.cpu().numpy()
-        vmap_np = res.vmap.cpu().numpy()
+        with span("carve.copy_out.image"):
+            out = out.cpu().numpy()
+        with span("carve.copy_out.vmap"):
+            vmap_np = res.vmap.cpu().numpy()
         # the pre-carve energy export, unsharded as in the JAX package
         # (display_carver_energy runs before the resize, src/render.c:
         # 370-377)

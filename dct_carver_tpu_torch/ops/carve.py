@@ -51,6 +51,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils.debug import check_finite, checks_nans, eager_steps
+from ..utils.profiling import span
 from .dct import energy_from_bands, window_offset
 from .dp import check_tie, find_seam as find_seam_plain, mask_energy
 
@@ -402,31 +403,45 @@ class SeamSteps:
         if count and not 2 <= state.width - count + 1 <= state.width <= W:
             raise ValueError(f"cannot remove {count} seams from width "
                              f"{state.width} (buffer {W})")
-        for dst, x in zip((*self.sets[self.cur], self.vmap),
-                          (state.luma, state.origcol, state.energy,
-                           state.vmap)):
-            if dst.data_ptr() != x.data_ptr():
-                dst.copy_(x)
-        self.label.fill_(first + 1)
-        self.width.fill_(state.width)
-        nan_checks = checks_nans()
-        for k in range(count):
-            if self.graphs is not None and self.warm:
-                if not self.graphs.captured:
-                    self.graphs.capture(self._step, (self.cur, 1 - self.cur))
-                self.graphs.replay(self.cur)
-            else:
-                self._step(self.cur)
+        with span("carve.seams"):
+            for dst, x in zip((*self.sets[self.cur], self.vmap),
+                              (state.luma, state.origcol, state.energy,
+                               state.vmap)):
+                if dst.data_ptr() != x.data_ptr():
+                    dst.copy_(x)
+            self.label.fill_(first + 1)
+            self.width.fill_(state.width)
+            nan_checks = checks_nans()
+            done = 0
+            if count and self.graphs is not None and not self.warm:
+                with span("carve.seam.eager"):
+                    self._step(self.cur)
                 self.warm = True
-            self.cur ^= 1
-            if nan_checks:  # the kernels' writes, which no torch op sees
-                luma, origcol, energy = self.sets[self.cur]
-                check_finite(CarveState(luma, origcol, self.vmap,
-                                        state.width - k - 1, energy),
-                             f"after seam {first + k + 1}")
+                self._advance(state.width, first, 0, nan_checks)
+                done = 1
+            for k in range(done, count):
+                if self.graphs is not None:
+                    if not self.graphs.captured:
+                        self.graphs.capture(self._step,
+                                            (self.cur, 1 - self.cur))
+                    self.graphs.replay(self.cur)
+                else:
+                    self._step(self.cur)
+                self._advance(state.width, first, k, nan_checks)
         luma, origcol, energy = self.sets[self.cur]
         return CarveState(luma, origcol, self.vmap, state.width - count,
                           energy)
+
+    def _advance(self, width: int, first: int, k: int,
+                 nan_checks: bool) -> None:
+        """After seam first+k+1 of a carve from `width`: swap the sets, and
+        with NaN checks check the state (the kernels' writes, which no
+        torch op sees)."""
+        self.cur ^= 1
+        if nan_checks:
+            luma, origcol, energy = self.sets[self.cur]
+            check_finite(CarveState(luma, origcol, self.vmap, width - k - 1,
+                                    energy), f"after seam {first + k + 1}")
 
 
 # The step cache, the counterpart of jax.jit's compile cache: the last
@@ -470,12 +485,13 @@ def _take_steps(luma: torch.Tensor, p: StepParams) -> SeamSteps | None:
         # two sets of luma, int32 origcol and f32 energy; an int32 vmap
         if 2 * n * (luma.element_size() + 8) + 4 * n > CACHE_MAX_BYTES:
             return None
-        plane = torch.empty(luma.shape, dtype=torch.int32,
-                            device=luma.device)
-        steps = SeamSteps(CarveState(
-            torch.empty_like(luma), plane, torch.empty_like(plane),
-            luma.shape[-1], torch.empty(luma.shape, dtype=torch.float32,
-                                        device=luma.device)), p)
+        with span("carve.steps.build"):
+            plane = torch.empty(luma.shape, dtype=torch.int32,
+                                device=luma.device)
+            steps = SeamSteps(CarveState(
+                torch.empty_like(luma), plane, torch.empty_like(plane),
+                luma.shape[-1], torch.empty(luma.shape, dtype=torch.float32,
+                                            device=luma.device)), p)
     return steps
 
 
@@ -526,8 +542,11 @@ def carve_chunks(state: CarveState, first: int, counts, blocksize: int,
     p = _params(blocksize, edges, textures, strip_update, use_pallas,
                 delta_x, rigidity, tie, energy_fn)
     steps = _take_steps(state.luma, p)
-    return _run(steps or SeamSteps(state, p), steps is not None, state,
-                first, counts)
+    cached = steps is not None
+    if not cached:
+        with span("carve.steps.uncached"):
+            steps = SeamSteps(state, p)
+    return _run(steps, cached, state, first, counts)
 
 
 def carve_seams(state: CarveState, first: int, count: int, blocksize: int,
@@ -577,20 +596,24 @@ def carve_n_seams(luma: torch.Tensor, n_seams: int, blocksize: int, edges,
     p = _params(blocksize, edges, textures, strip_update, use_pallas,
                 delta_x, rigidity, tie, energy_fn)
     steps = _take_steps(luma, p)
-    if steps is None:
-        state = make_state(luma.clone())
-    else:  # the first state straight into the step's current set
-        lum, origcol, energy = steps.sets[steps.cur]
+    cached = steps is not None
+    if cached:  # the first state straight into the step's current set
+        lum, origcol, _ = steps.sets[steps.cur]
         lum.copy_(luma)
         origcol.copy_(torch.arange(W, dtype=torch.int32, device=luma.device)
                       .expand(luma.shape))
         steps.vmap.zero_()
-        state = CarveState(lum, origcol, steps.vmap, W, energy)
-    state = state._replace(energy=full_energy_map(
-        state.luma, blocksize, edges, textures, use_pallas=use_pallas,
-        energy_fn=energy_fn))
-    for state in _run(steps or SeamSteps(state, p), steps is not None,
-                      state, 0, (n_seams,)):
+        luma = lum
+    with span("carve.energy"):
+        energy = full_energy_map(luma, blocksize, edges, textures,
+                                 use_pallas=use_pallas, energy_fn=energy_fn)
+    if cached:
+        state = CarveState(luma, origcol, steps.vmap, W, energy)
+    else:  # a step of this carve's own, its first set made from `luma`
+        with span("carve.steps.uncached"):
+            state = make_state(luma.clone())._replace(energy=energy)
+            steps = SeamSteps(state, p)
+    for state in _run(steps, cached, state, 0, (n_seams,)):
         pass
     return state
 

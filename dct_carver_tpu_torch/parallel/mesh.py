@@ -31,6 +31,7 @@ from ..models.carver import (NO_CARD, default_mesh, resolve_device,
 from ..ops import carve as carve_ops
 from ..ops.energy import to_luma
 from ..ops.energy_fn import resolve_energy
+from ..utils.profiling import span
 
 __all__ = ["make_mesh", "carve_batch", "batch_carve_states"]
 
@@ -69,7 +70,8 @@ def batch_carve_states(images: torch.Tensor, n_seams: int, blocksize: int,
     if images.ndim not in (3, 4):
         raise ValueError(f"images must be a (B, H, W[, C]) stack, got "
                          f"{tuple(images.shape)}")
-    lumas = to_luma(images, luma_mode, stack=True)
+    with span("carve.luma"):
+        lumas = to_luma(images, luma_mode, stack=True)
     return carve_ops.carve_n_seams(
         lumas, n_seams, blocksize, edges, textures, strip_update=strip_update,
         use_pallas=use_pallas, delta_x=delta_x, rigidity=rigidity, tie=tie,
@@ -80,16 +82,20 @@ def _carve_chunk(chunk: torch.Tensor, dev: torch.device, n_seams: int,
                  reconstruct: bool, **knobs):
     """One device's chunk of a batch carve, on `dev`: (vmaps, carved or
     None)."""
-    chunk = chunk.to(dev).contiguous()
+    with span("carve.copy_in"):
+        chunk = chunk.to(dev).contiguous()
     vmap = batch_carve_states(chunk, n_seams, **knobs).vmap
-    return vmap, (carve_ops.reconstruct_removed(chunk, vmap, n_seams)
-                  if reconstruct else None)
+    if not reconstruct:
+        return vmap, None
+    with span("carve.reconstruct"):
+        return vmap, carve_ops.reconstruct_removed(chunk, vmap, n_seams)
 
 
 def _join(parts: list[torch.Tensor], home: torch.device) -> torch.Tensor:
-    if len(parts) == 1:
-        return parts[0].to(home)
-    return torch.cat([p.to(home) for p in parts])
+    with span("batch.join"):
+        if len(parts) == 1:
+            return parts[0].to(home)
+        return torch.cat([p.to(home) for p in parts])
 
 
 def carve_batch(images, n_seams: int, *, blocksize: int = 8,
@@ -117,16 +123,18 @@ def carve_batch(images, n_seams: int, *, blocksize: int = 8,
                          f"got {tuple(images.shape)}")
     chunks = torch.tensor_split(images, len(devices))
     if images.device.type == "cuda":  # every copy queued before any carve
-        chunks = [c.to(dev) for dev, c in zip(devices, chunks)]
+        with span("carve.copy_in"):
+            chunks = [c.to(dev) for dev, c in zip(devices, chunks)]
     outs, vmaps = [], []
     for dev, chunk in zip(devices, chunks):
         if not len(chunk):
             continue
-        vmap, out = _carve_chunk(
-            chunk, dev, n_seams, reconstruct, blocksize=blocksize,
-            edges=edges, textures=textures, strip_update=strip_update,
-            luma_mode=luma, energy_fn=energy_fn, delta_x=delta_x,
-            rigidity=rigidity, tie=tie, use_pallas=use_pallas)
+        with span("batch.chunk"):
+            vmap, out = _carve_chunk(
+                chunk, dev, n_seams, reconstruct, blocksize=blocksize,
+                edges=edges, textures=textures, strip_update=strip_update,
+                luma_mode=luma, energy_fn=energy_fn, delta_x=delta_x,
+                rigidity=rigidity, tie=tie, use_pallas=use_pallas)
         vmaps.append(vmap)
         outs.append(out)
     vm = _join(vmaps, devices[0])

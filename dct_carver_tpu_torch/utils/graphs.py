@@ -28,6 +28,8 @@ import time
 
 import torch
 
+from .profiling import span
+
 __all__ = ["StepGraphs", "CAPTURES"]
 
 # every capture of this process: graphs captured and their host seconds,
@@ -100,50 +102,51 @@ class StepGraphs:
         memory pool a card, on side streams that start after the work
         queued on each card's current stream.  Nothing waits for a card.
         The counters are left as they were before the capture."""
-        t = time.perf_counter()
-        _release_retired()
-        dev, others = self.device, self.devices[1:]
-        pool = torch.cuda.graph_pool_handle()
-        if len(self.pools) != len(others):
-            self.pools = []
-            for d in others:
-                with torch.cuda.device(d):
-                    self.pools.append(torch.cuda.MemPool())
-        graphs = {}  # kept only when every source captured
-        for src in sources:
-            before = [getattr(o, a) for o, a in self.counters]
-            graph = torch.cuda.CUDAGraph()
-            sides = [torch.cuda.Stream(d) for d in self.devices]
-            for side, d in zip(sides, self.devices):
-                side.wait_stream(torch.cuda.current_stream(d))
-            try:
-                with torch.cuda.device(dev), torch.cuda.stream(sides[0]):
-                    graph.capture_begin(pool=pool)
-                    try:
-                        with self._on_others(sides):
-                            step(src)
-                    except BaseException:
-                        with contextlib.suppress(RuntimeError):
-                            graph.capture_end()
-                        raise
-                    graph.capture_end()
-            except Exception as e:
-                raise RuntimeError(f"{self.what}: its CUDA graph capture "
-                                   f"failed: {e}.  {_HINT}") from e
-            finally:
-                deltas = []
-                for (o, a), n in zip(self.counters, before):
-                    if getattr(o, a) != n:
-                        deltas.append((o, a, getattr(o, a) - n))
-                    setattr(o, a, n)
-            for side, d in zip(sides, self.devices):
-                torch.cuda.current_stream(d).wait_stream(side)
-            graphs[src] = (graph, deltas)
-        self.graphs.update(graphs)
-        CAPTURES["graphs"] += len(graphs)
-        seconds = time.perf_counter() - t
-        self.capture_seconds += seconds
-        CAPTURES["seconds"] += seconds
+        with span("carve.capture"):
+            t = time.perf_counter()
+            _release_retired()
+            dev, others = self.device, self.devices[1:]
+            pool = torch.cuda.graph_pool_handle()
+            if len(self.pools) != len(others):
+                self.pools = []
+                for d in others:
+                    with torch.cuda.device(d):
+                        self.pools.append(torch.cuda.MemPool())
+            graphs = {}  # kept only when every source captured
+            for src in sources:
+                before = [getattr(o, a) for o, a in self.counters]
+                graph = torch.cuda.CUDAGraph()
+                sides = [torch.cuda.Stream(d) for d in self.devices]
+                for side, d in zip(sides, self.devices):
+                    side.wait_stream(torch.cuda.current_stream(d))
+                try:
+                    with torch.cuda.device(dev), torch.cuda.stream(sides[0]):
+                        graph.capture_begin(pool=pool)
+                        try:
+                            with self._on_others(sides):
+                                step(src)
+                        except BaseException:
+                            with contextlib.suppress(RuntimeError):
+                                graph.capture_end()
+                            raise
+                        graph.capture_end()
+                except Exception as e:
+                    raise RuntimeError(f"{self.what}: its CUDA graph capture "
+                                       f"failed: {e}.  {_HINT}") from e
+                finally:
+                    deltas = []
+                    for (o, a), n in zip(self.counters, before):
+                        if getattr(o, a) != n:
+                            deltas.append((o, a, getattr(o, a) - n))
+                        setattr(o, a, n)
+                for side, d in zip(sides, self.devices):
+                    torch.cuda.current_stream(d).wait_stream(side)
+                graphs[src] = (graph, deltas)
+            self.graphs.update(graphs)
+            CAPTURES["graphs"] += len(graphs)
+            seconds = time.perf_counter() - t
+            self.capture_seconds += seconds
+            CAPTURES["seconds"] += seconds
 
     @contextlib.contextmanager
     def _on_others(self, sides):

@@ -1,9 +1,19 @@
 """Profiling / tracing (SURVEY §5: the reference has none; we add
-`torch.profiler` traces plus lightweight wall-clock stage timing).
+`torch.profiler` traces and named spans at the carve's layer boundaries).
 
 Counterpart of `dct_carver_tpu/utils/profiling.py`: `trace` writes a Chrome
 trace (open it in Perfetto or `chrome://tracing`) where the JAX package
 writes a `jax.profiler` one.
+
+`span(name)` marks one layer boundary of a carve (`carve.pass`,
+`carve.copy_in`, `carve.seams`, ...; the table is in `PERF.md`).  It
+records a `torch.profiler.record_function` range only while a profiler
+session runs on the calling thread (`trace`, an operator's own
+`torch.profiler.profile`, the benchmark's traced runs), so its range shares
+the profiler's clock with the card's kernels and copies.  Otherwise it is
+one flag check that returns a shared no-op context: no allocation, no
+clock read, no lock.  No span sits inside code that a CUDA graph captures
+or inside a per-seam loop.
 """
 
 from __future__ import annotations
@@ -15,7 +25,20 @@ import time
 
 import torch
 
-__all__ = ["trace", "device_timer", "profile_carve"]
+__all__ = ["trace", "span", "profile_carve"]
+
+_OFF = contextlib.nullcontext()  # every span while no profiler runs
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """A context that records the range `name` while a `torch.profiler`
+    session runs on this thread, else the shared no-op context."""
+    if not _profiler_enabled():
+        return _OFF
+    from torch.profiler import record_function
+
+    return record_function(name)
 
 
 @contextlib.contextmanager
@@ -35,19 +58,6 @@ def trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(
         log_dir, f"{socket.gethostname()}.{os.getpid()}."
                  f"{time.time_ns() // 1_000_000}.pt.trace.json"))
-
-
-@contextlib.contextmanager
-def device_timer(name: str, results: dict | None = None):
-    """Wall-clock a device computation: at exit, wait for the card when
-    CUDA is initialised, then add the seconds to `results[name]`."""
-    t0 = time.perf_counter()
-    yield
-    if torch.cuda.is_initialized():
-        torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    if results is not None:
-        results[name] = results.get(name, 0.0) + dt
 
 
 def profile_carve(luma, n_seams: int, blocksize: int = 8, *, log_dir: str,
