@@ -12,7 +12,9 @@ and folded DP routes) against the plain path; phase 1c holds the tiled
 find-seam (one warp a column tile) against the plain find-seam at rows
 wider than one thread block (32769 and 40000 columns) and at its own
 geometry (1080p, 4K, 8K repeated, windows and seams at tile edges, H = 1,
-2 and 999, per-image windows, several tiles a warp), sweeps the tiled
+2 and 999, per-image windows, several tiles a warp), holds and times its
+finish (blocks of FINISH_ROWS rows; 1080p, 4K, 3456x2160, 16 and 32
+images, its `blocked_finishes` count), sweeps the tiled
 kernel's geometry and both find-seam kernels over widths and batch sizes
 (the tables the tiled constants and `seam_route`'s thresholds come from),
 carves a 512x40000 RGB image through `api.carve` with the
@@ -151,6 +153,8 @@ PLAIN_SEAMS_E = 16         # phase 4b: seams of the plain comparison carves
 # of the energies other than grad_norm (the plain DP is ~0.17 s a seam)
 SEAMS_BE = 32              # phase 4c/4d: seams of the plugged-energy batch
 H8, W8 = 4320, 7680        # phase 5: BASELINE config 5's 8K panorama
+W_BIDIR = 3456             # phase 1c: the 4K resize's height pass, a
+# 3456 x 2160 plane
 SHARDS = 4                 # column shards, all on the one card
 K8 = 96                    # the route's rows per exchange (FRONTIER_BLOCK)
 SEAMS_8K = 64
@@ -938,6 +942,8 @@ def phase_1c(dev, chk: Checks, card: str, rng, times: dict) -> dict:
                   tiled(e8, w8, l8, tie, max_warps=5), want)
     del e_q, e_b, e8
 
+    finish_1c(dev, chk, card, rng)
+
     # row 3's times at the wide carve's shape
     e_w = on_dev(rng.random((H_WIDE, W_WIDE), dtype=np.float32))
     time_kernel(times, "find_seam_tiled", lambda: find_seam(e_w, W_WIDE),
@@ -1048,6 +1054,81 @@ def phase_1c(dev, chk: Checks, card: str, rng, times: dict) -> dict:
                            apply_seam(x, oc, e, seam, 62, use_pallas=False)):
         chk.equal("apply", f"{H_TALL}x64 {part}", g, w_)
     return launches
+
+
+def finish_1c(dev, chk: Checks, card: str, rng) -> None:
+    """Phase 1c's tiled finish (blocks of FINISH_ROWS parent rows, their
+    jumps composed in parallel, then walked and filled): bitwise against
+    the plain find-seam at the benchmark's planes (1080x1920, 2160x3840,
+    3456x2160: H - 1 no multiple of FINISH_ROWS), at one block, one block
+    and a row and exactly two, with per-image windows, on a 16-image stack
+    (several compose items a CTA) and a 32-image one (past
+    FINISH_COMPOSE_COLUMNS: the row walk); `blocked_finishes` against the
+    calls that compose (`composes_blocks`); then the finish's and the
+    forward's device ms at those planes."""
+    import torch
+
+    from dct_carver_tpu_torch.kernels.dp_kernel import (
+        FINISH_ROWS, ROUTE_MAX_BATCH, TILED_KERNEL, _find_seams_tiled,
+        composes_blocks, find_seams)
+
+    def on_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    calls = {"all": 0, "blocked": 0}
+
+    def hold(case, e, width, lo, tie):
+        calls["all"] += 1
+        calls["blocked"] += composes_blocks(*e.shape)
+        chk.equal("find_seam_tiled", f"finish {case} {tie}",
+                  _find_seams_tiled(e, width, lo, tie),
+                  find_seams(e, width, lo, tie=tie, use_pallas=False))
+
+    log(f"phase 1c: the tiled finish, blocks of {FINISH_ROWS} rows")
+    before = TILED_KERNEL.blocked_finishes
+    planes = ((H, W), (H4, W4), (W_BIDIR, H4))
+    for h, w in planes:
+        e_r = on_dev(rng.random((1, h, w), dtype=np.float32))
+        e_q = on_dev((rng.integers(0, 3, (1, h, w)) / 2).astype(np.float32))
+        for tie in TIES:
+            hold(f"{h}x{w} random", e_r, w, 0, tie)
+            hold(f"{h}x{w} quantized [7, {w - 20})", e_q, w - 27, 7, tie)
+        del e_r, e_q
+    for h in (FINISH_ROWS + 1, FINISH_ROWS + 2, 2 * FINISH_ROWS + 1):
+        e = on_dev((rng.integers(0, 3, (1, h, W)) / 2).astype(np.float32))
+        for tie in TIES:
+            hold(f"{h}x{W} quantized", e, W, 0, tie)
+    for col in (0, W - 1):
+        e_b = torch.ones((1, H, W), device=dev)
+        e_b[..., col] = 0
+        for tie in TIES:
+            hold(f"{H}x{W} seam along column {col}", e_b, W, 0, tie)
+    # 16 images: more compose items than CTAs; the most images the tiled
+    # route takes: the row walk
+    for nb in (ROUTE_MAX_BATCH // 2, ROUTE_MAX_BATCH):
+        es = on_dev((rng.integers(0, 3, (nb, H, W)) / 2).astype(np.float32))
+        ws = rng.integers(1, W + 1, nb).astype(np.int32)
+        widths = on_dev(ws)
+        los = on_dev((rng.random(nb) * (W + 1 - ws)).astype(np.int32))
+        for tie in TIES:
+            hold(f"B={nb} x {H}x{W} per-image windows", es, widths, los, tie)
+            hold(f"B={nb} x {H}x{W}", es, W, 0, tie)
+        del es
+    del e_b, e
+    got = TILED_KERNEL.blocked_finishes - before
+    chk.require(got == calls["blocked"],
+                f"blocked_finishes counted {got} of {calls['all']} tiled "
+                f"calls, {calls['blocked']} of them composed")
+    for b, h, w in ((1, H, W), (1, H4, W4), (1, W_BIDIR, H4),
+                    (ROUTE_MAX_BATCH // 2, H, W), (ROUTE_MAX_BATCH, H, W)):
+        e = on_dev(rng.random((b, h, w), dtype=np.float32))
+        parts = {part: device_ms(lambda: _find_seams_tiled(e, w, 0,
+                                                           "leftmost"),
+                                 20, only=part)
+                 for part in ("finish", "tile_rows")}
+        log(f"  finish B={b} {h}x{w}: finish {parts['finish']!r} ms, "
+            f"forward {parts['tile_rows']!r} ms a call ({card})")
+        del e
 
 
 def phase_3(dev, chk: Checks, card: str, rng, times: dict) -> list:

@@ -67,10 +67,12 @@
 //     finish, a later launch).
 //   - Write after read: none; each cell is written once a call.  One
 //     memset clears every slice first (tag 0: no block wrote it).
-// A last launch, one CTA an image, takes the tie-most argmin of the last
-// block's slice and walks the parents up (seam_walk.cuh, shared with
-// find_seam.cu).  A call with H >= 2 is three launches: the frontier's
-// memset, the forward and the finish; with H = 1 only the finish.
+// A last launch, the finish, takes the tie-most argmin of the last
+// block's slice and walks the parents up in blocks of kFinishRows rows
+// whose parents it first composes into one jump a column (below; the row
+// walk of seam_walk.cuh stays find_seam.cu's).  A call with H >= 2 is
+// three launches: the memset of the frontier and the finish's counters,
+// the forward and the finish; with H = 1 only the finish.
 //
 // Op order as ops/dp.py: m = e + min(min(left, centre), right).  Cells
 // outside [lo_b, lo_b + width_b) are +inf; so are left of column 0 and right
@@ -319,32 +321,429 @@ tile_rows_kernel(const float* __restrict__ E_all, unsigned long long* front,
   cp_async_wait<0>();
 }
 
-// The tie-most argmin of each image's last DP row F (through its window;
-// column c at F[c * f_step]) and the backtrack over its parents; one CTA
-// an image.
+// The finish: the tie-most argmin of each image's last DP row and the walk
+// up its parents, in blocks of R = kFinishRows parent rows (block k holds
+// rows kR + 1 .. min((k + 1)R, H - 1)).  A step is c = clamp(c + P[r][c],
+// 0, W - 1), so a block's R steps compose into one map a column: its jump,
+// the column at the block's top row less the column at its bottom row,
+// |jump| <= R, one int8.  One launch, three phases:
+//   1. Items, taken by the CTAs in turn (each its first by its index, then
+//      by an atomic ticket, so that a CTA held up by phases 2-3 takes
+//      fewer): each image's argmin, and its compose items (block, chunk of
+//      `cols` columns, one or two a thread): the block's parents around
+//      the chunk (R columns a side) are staged in shared memory in one
+//      round trip, a row a warp, then each thread follows its columns'
+//      parents up and stores their jumps.
+//   2. Walk the blocks: the last CTA of an image to finish an item (an
+//      atomic count an image, after a __threadfence) walks the image's
+//      jumps from the argmin up, in rounds of as many blocks as a window
+//      of the jump table that the round cannot leave fits in shared
+//      memory (a block moves the seam at most R columns), and keeps each
+//      block's two end columns.
+//   3. Fill: a block's seam reads its n rows of parents within n + 1
+//      columns (it starts at cb and ends at ct, one column a row at most),
+//      so that CTA stages those windows for as many blocks as fit in one
+//      round trip, then one thread a block walks its rows and writes the
+//      seam.
+// So a seam takes ~H / R + 2R dependent steps instead of H - 1.  A plane
+// of one block (H - 1 <= R), and a stack whose B * W passes
+// kComposeColumns, have no items but the argmin: a CTA an image walks the
+// rows block after block, each from a window of R - 1 columns a side of
+// its bottom column, as the row walk of seam_walk.cuh did; composing
+// reads every parent, and from about that many columns it costs more than
+// the images' row walks side by side.  The grid is at most what is
+// resident; no CTA waits for another, so any grid is safe.
+constexpr int kFinishRows = 64;                  // R: a multiple of K
+constexpr int kFinishWarps = kFinishThreads / 32;
+constexpr size_t kFinishSmem = 220 * 1024;       // dynamic shared memory
+constexpr int kJumpRows = 40;                    // blocks a walk round, least
+constexpr int kWalkBlocks = 256;                 // block ends a walker keeps
+// the most columns B * W that the finish composes: on an H100, composing
+// took a fifth less time than seam_walk.cuh's row walk at 32 768 and
+// 40 000 (32 x 1024, 1 x 40 000) and 7-11 % more at 61 440 and 80 000
+// (32 x 1920, 2 x 40 000)
+constexpr long long kComposeColumns = 48 * 1024;
+static_assert(kFinishRows % 32 == 0 && kFinishRows <= 127,
+              "a multiple of the forward's K = 32 whose jumps fit an int8");
+// G rows of the jump window, 2GR + 1 columns each from a 16-byte boundary
+static_assert(kJumpRows * (2 * kJumpRows * kFinishRows + 16) <= kFinishSmem,
+              "a jump window");
+// a staged compose row: columns [c0 - R, c0 + 2 * kFinishThreads + R)
+// from a 16-byte boundary
+static_assert(kFinishRows * (2 * kFinishThreads + 2 * kFinishRows + 32) <=
+                  kFinishSmem, "a compose item");
+
+// The finish's blocks for H rows: ceil((H - 1) / R), 0 for one row.
+__host__ __device__ inline int finish_blocks(int H) {
+  return H > 1 ? (H - 2) / kFinishRows + 1 : 0;
+}
+
+// The row pitch of the jump table: W rounded up to 16 bytes.
+__host__ __device__ inline int jump_pitch(int W) { return (W + 15) & ~15; }
+
+// One finish launch.  Its scratch lies in the frontier's allocation: after
+// the frontier's slices one 64-bit cell an image (its count of items done
+// and its argmin) and one for the tickets, cleared by the frontier's
+// memset; then, from a 16-byte boundary, the jumps (B, blocks,
+// jump_pitch(W)) int8.  All are used only when the blocks are composed.
+struct Finish {
+  // the last DP row: column c of image b at F[b * f_stride + c * f_step]
+  const float* F;
+  long long f_stride;
+  int f_step;
+  const int8_t* parents;
+  int* seams;
+  unsigned* cell;  // image b: cell[2b] items done, cell[2b + 1] its argmin;
+                   // cell[2B]: the tickets taken
+  int8_t* jumps;
+  int B, H, W;
+  int blocks;     // finish_blocks(H)
+  bool composed;  // blocks > 1 and B * W <= kComposeColumns
+  int cols;       // columns a compose item: 512, 1024 or 2048
+  int chunks;  // compose items a block: ceil(W / cols)
+  const int* lo_arr;
+  const int* width_arr;
+  int lo0, width0;
+};
+
+// Copies of U bytes a row of a fill window whose reads span `span` + 1
+// columns from any start: the span, the start's offset in its U bytes, and
+// the column itself.
+__host__ __device__ constexpr int fill_units(int U, int span) {
+  return (span + 2 * U - 1) / U;
+}
+
+// Fill windows a turn: R rows of fill_units(U, R) copies each.
+template <int U>
+__host__ __device__ constexpr int fill_slots() {
+  return static_cast<int>(kFinishSmem /
+                          (kFinishRows * U * fill_units(U, kFinishRows)));
+}
+
+// cp.async of U bytes (4 or 16) from global to shared memory.
+template <int U>
+__device__ __forceinline__ void copy(void* dst, const void* src) {
+  if (U == 16)
+    cp_async16(static_cast<float*>(dst), static_cast<const float*>(src));
+  else
+    cp_async4(static_cast<float*>(dst), static_cast<const float*>(src));
+}
+
+// The tie-most argmin of image b's last DP row through its window, to
+// every thread.
 template <bool RIGHTMOST>
-__global__ void __launch_bounds__(kFinishThreads)
-finish_kernel(const float* __restrict__ F, long long f_stride, int f_step,
-              const int8_t* __restrict__ parents_all, int* __restrict__ seams,
-              int H, int W, const int* __restrict__ lo_arr,
-              const int* __restrict__ width_arr, int lo0, int width0) {
-  __shared__ __align__(4) int8_t win_s[kSegBytes];
-  const int b = blockIdx.x;
-  const float* f = F + b * f_stride;
-  const int lo = lo_arr ? lo_arr[b] : lo0;
-  const int hi = min(lo + (width_arr ? width_arr[b] : width0), W);
+__device__ int last_argmin(const Finish& f, int b) {
+  const float* F = f.F + b * f.f_stride;
+  const int lo = f.lo_arr ? f.lo_arr[b] : f.lo0;
+  const int hi = min(lo + (f.width_arr ? f.width_arr[b] : f.width0), f.W);
+  __shared__ float s_v[kFinishWarps];
+  __shared__ int s_j[kFinishWarps + 1];
+  const int t = threadIdx.x;
   float bv = INFINITY;
   int bj = -1;
-  for (int c = threadIdx.x; c < W; c += blockDim.x) {
-    const float v = c >= lo && c < hi ? f[c * f_step] : INFINITY;
+  for (int c = t; c < f.W; c += blockDim.x) {
+    const float v = c >= lo && c < hi ? F[c * f.f_step] : INFINITY;
     if (better<RIGHTMOST>(v, c, bv, bj)) {
       bv = v;
       bj = c;
     }
   }
-  walk_back(parents_all + static_cast<size_t>(b) * H * parent_pitch(W), H, W,
-            block_argmin<RIGHTMOST>(bv, bj),
-            seams + static_cast<size_t>(b) * H, win_s);
+  // each warp's best by shuffles, then warp 0's over the warps'
+  const auto warp_best = [&]() {
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ov = __shfl_down_sync(0xffffffffu, bv, off);
+      const int oj = __shfl_down_sync(0xffffffffu, bj, off);
+      if (oj >= 0 && better<RIGHTMOST>(ov, oj, bv, bj)) {
+        bv = ov;
+        bj = oj;
+      }
+    }
+  };
+  warp_best();
+  if (t % 32 == 0) {
+    s_v[t / 32] = bv;
+    s_j[t / 32] = bj;
+  }
+  __syncthreads();
+  if (t < 32) {
+    bv = s_v[t];
+    bj = s_j[t];
+    warp_best();
+    if (t == 0) s_j[kFinishWarps] = bj;
+  }
+  __syncthreads();
+  return s_j[kFinishWarps];
+}
+
+// Phase 1 for block k, columns [ch * f.cols, ...) of image b, with copies
+// of U bytes (16 where the parents' rows start 16-byte aligned).
+template <int U>
+__device__ void compose(const Finish& f, int b, int k, int ch,
+                        unsigned char* smem) {
+  constexpr int R = kFinishRows;
+  const int t = threadIdx.x;
+  const int W = f.W;
+  const int Wp = parent_pitch(W);
+  const int bot = min((k + 1) * R, f.H - 1);
+  const int n = bot - k * R;
+  const int c0 = ch * f.cols;
+  const int c1 = min(c0 + f.cols, W);
+  const int ws = max(c0 - n, 0) & ~(U - 1);
+  const int pitch = (min(c1 + n, W) - ws + U - 1) / U * U;
+  // staged row r is parent row bot - r, a row a warp at a time
+  const int8_t* P =
+      f.parents + (static_cast<size_t>(b) * f.H + bot) * Wp + ws;
+  for (int r = t / 32; r < n; r += kFinishWarps) {
+    const int8_t* src = P - static_cast<size_t>(r) * Wp;
+    for (int x = t % 32 * U; x < pitch; x += 32 * U)
+      copy<U>(smem + r * pitch + x, src + x);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  // each thread's columns c0 + t and c0 + t + kFinishThreads, each as the
+  // column less its start
+  const int ca = c0 + t, cb = ca + kFinishThreads;
+  const int8_t* row = reinterpret_cast<const int8_t*>(smem);
+  int8_t* J = f.jumps + (static_cast<size_t>(b) * f.blocks + k) *
+                            jump_pitch(W);
+  if (cb < c1) {
+    int da = 0, db = 0;
+    for (int r = 0; r < n; ++r, row += pitch) {
+      da = min(max(da + row[ca - ws + da], -ca), W - 1 - ca);
+      db = min(max(db + row[cb - ws + db], -cb), W - 1 - cb);
+    }
+    J[ca] = static_cast<int8_t>(da);
+    J[cb] = static_cast<int8_t>(db);
+  } else if (ca < c1) {
+    int da = 0;
+    for (int r = 0; r < n; ++r, row += pitch)
+      da = min(max(da + row[ca - ws + da], -ca), W - 1 - ca);
+    J[ca] = static_cast<int8_t>(da);
+  }
+}
+
+// Phase 3 for blocks i0 .. i0 + m - 1 of a turn whose first block is k1
+// (block k1 - i, its ends s_cb[i] and s_ct[i]): the parents each one's
+// rows can reach, in rows of Q copies of U bytes a window, staged all at
+// once, then thread j walks block i0 + j up from its bottom column.  WIDE:
+// one block whose top column is unknown, so its window is R - 1 columns a
+// side of the bottom one; the walk leaves the top column in s_ct[i0].
+template <int U, bool WIDE>
+__device__ void fill(const Finish& f, int b, int k1, int i0, int m,
+                     const int* s_cb, int* s_ct, unsigned char* smem) {
+  constexpr int R = kFinishRows;
+  // a block's rows read columns within [a, a + n] (a + 2n - 2 WIDE)
+  constexpr int Q = fill_units(U, WIDE ? 2 * R - 2 : R);
+  constexpr int kPitch = Q * U;
+  constexpr int kSlot = R * kPitch;
+  static_assert(kSlot <= kFinishSmem, "a fill window");
+  __shared__ int s_lo[64];
+  static_assert(fill_slots<U>() <= 64, "a window start a slot");
+  const int t = threadIdx.x;
+  const int H = f.H, W = f.W;
+  const int Wp = parent_pitch(W);
+  const int8_t* P = f.parents + static_cast<size_t>(b) * H * Wp;
+  int* seam = f.seams + static_cast<size_t>(b) * H;
+  int bot = 0, n = 0, cb = 0;
+  bool inner = true;  // no step can leave [0, W): no clamp
+  if (t < m) {
+    const int k = k1 - i0 - t;
+    bot = min((k + 1) * R, H - 1);
+    n = bot - k * R;
+    cb = s_cb[i0 + t];
+    const int x = cb + s_ct[i0 + t];
+    const int a = WIDE ? max(cb - n + 1, 0) : max(x - n + 1, 0) >> 1;
+    // Q copies from lo hold [a, a + n] (a + 2n - 2) and stay in the row
+    s_lo[t] = min(a & ~(U - 1), max(Wp - kPitch, 0));
+    inner = a >= 1 && a + (WIDE ? 2 * n - 2 : n) <= W - 2;
+  }
+  inner = __all_sync(0xffffffffu, inner);  // the warp's walks in step
+  __syncthreads();
+  // only the U bytes that row r of block j can reach: within r columns of
+  // its bottom column, and within n - r of its top one
+  for (int e = t; e < m * R * Q; e += blockDim.x) {
+    const int j = e / (R * Q);
+    const int r = (e - j * R * Q) / Q;
+    const int x = s_lo[j] + (e - j * R * Q - r * Q) * U;
+    const int kj = k1 - i0 - j;
+    const int bj = min((kj + 1) * R, H - 1);
+    const int nj = bj - kj * R;
+    const int cj = s_cb[i0 + j];
+    int a = cj - r, z = cj + r;
+    if (!WIDE) {
+      a = max(a, s_ct[i0 + j] - nj + r);
+      z = min(z, s_ct[i0 + j] + nj - r);
+    }
+    if (r < nj && x + U <= Wp && x + U > a && x <= z)
+      copy<U>(smem + j * kSlot + r * kPitch + x - s_lo[j],
+              P + static_cast<size_t>(bj - r) * Wp + x);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  if (t < m) {
+    const int8_t* p =
+        reinterpret_cast<const int8_t*>(smem) + t * kSlot + cb - s_lo[t];
+    int d = 0;  // the column less cb
+    if (inner) {
+      for (int r = 1; r <= n; ++r, p += kPitch) {
+        d += p[d];
+        seam[bot - r] = cb + d;
+      }
+    } else {
+      for (int r = 1; r <= n; ++r, p += kPitch) {
+        d = min(max(d + p[d], -cb), W - 1 - cb);
+        seam[bot - r] = cb + d;
+      }
+    }
+    if (WIDE) s_ct[i0 + t] = cb + d;
+  }
+  __syncthreads();  // the windows are free again
+}
+
+// Phases 2 and 3 for image b from its argmin c; all threads of the CTA
+// call it.
+template <int U>
+__device__ void walk_blocks(const Finish& f, int b, int c,
+                            unsigned char* smem) {
+  constexpr int R = kFinishRows;
+  constexpr int kSlots = fill_slots<U>();
+  __shared__ int s_cb[kWalkBlocks], s_ct[kWalkBlocks];  // a block's ends
+  __shared__ int s_c;
+  const int t = threadIdx.x;
+  const int W = f.W;
+  const int Jp = jump_pitch(W);
+  const int8_t* J = f.jumps + static_cast<size_t>(b) * f.blocks * Jp;
+  if (t == 0) f.seams[static_cast<size_t>(b) * f.H + f.H - 1] = c;
+  if (!f.composed) {  // the row walk, block after block
+    for (int k = f.blocks - 1; k >= 0; --k) {
+      if (t == 0) s_cb[0] = c;
+      __syncthreads();
+      fill<U, true>(f, b, k, 0, 1, s_cb, s_ct, smem);
+      c = s_ct[0];
+    }
+    return;
+  }
+  // rows of a round: kJumpRows, or as many rows as wide as the plane (and
+  // 16-byte boundaries) as fit
+  const int rows = max(kJumpRows, static_cast<int>(kFinishSmem /
+                                                   ((W + 46) & ~15)));
+  // blocks k1 .. k0 a turn, from the bottom
+  for (int k1 = f.blocks - 1; k1 >= 0; k1 -= kWalkBlocks) {
+    const int k0 = max(k1 - kWalkBlocks + 1, 0);
+    // the jumps of blocks kh .. kh - G + 1 at columns [ws, ws + 16q),
+    // which hold [c - GR, c + GR] clamped to [0, W)
+    for (int kh = k1; kh >= k0; kh -= rows) {
+      const int G = min(rows, kh - k0 + 1);
+      const int ww = min(2 * G * R + 1, W);
+      const int w0 = min(max(c - G * R, 0), W - ww);
+      const int ws = w0 & ~15;
+      const int q = (w0 + ww - ws + 15) / 16;
+      // row r is read r jumps from c: within rR columns of it
+      for (int e = t; e < G * q; e += blockDim.x) {
+        const int r = e / q;
+        const int x = ws + 16 * (e - r * q);
+        if (x + 16 > c - r * R && x <= c + r * R)
+          copy<16>(smem + 16 * e, J + static_cast<size_t>(kh - r) * Jp + x);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      if (t == 0) {
+        for (int i = 0; i < G; ++i) {
+          s_cb[k1 - kh + i] = c;
+          c += static_cast<int8_t>(smem[16 * q * i + c - ws]);
+          s_ct[k1 - kh + i] = c;
+        }
+        s_c = c;
+      }
+      __syncthreads();
+      c = s_c;
+    }
+    for (int i0 = 0; i0 <= k1 - k0; i0 += kSlots)
+      fill<U, false>(f, b, k1, i0, min(kSlots, k1 - k0 + 1 - i0), s_cb, s_ct,
+                     smem);
+  }
+}
+
+// The kernel, with copies of U bytes (16 where the parents' rows start
+// 16-byte aligned).
+template <bool RIGHTMOST, int U>
+__global__ void __launch_bounds__(kFinishThreads)
+finish_kernel(const Finish f) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ bool s_last;
+  __shared__ unsigned s_next;
+  const int t = threadIdx.x;
+  if (!f.composed) {  // no items but the argmin: a CTA an image
+    for (int b = blockIdx.x; b < f.B; b += gridDim.x)
+      walk_blocks<U>(f, b, last_argmin<RIGHTMOST>(f, b), smem);
+    return;
+  }
+  // an image's items: its argmin, then blocks x chunks compose items
+  const long long items = 1 + static_cast<long long>(f.blocks) * f.chunks;
+  unsigned* tickets = f.cell + 2 * f.B;
+  for (long long it = blockIdx.x; it < f.B * items;) {
+    if (t == 0) s_next = atomicAdd(tickets, 1u);  // lands while it works
+    const int b = static_cast<int>(it / items);
+    const int i = static_cast<int>(it - b * items) - 1;
+    if (i < 0) {
+      const int j = last_argmin<RIGHTMOST>(f, b);
+      if (t == 0) f.cell[2 * b + 1] = j;
+    } else {
+      compose<U>(f, b, i / f.chunks, i % f.chunks, smem);
+    }
+    __syncthreads();
+    if (t == 0) {
+      __threadfence();  // the CTA's jumps or argmin, before the count
+      const bool last = atomicAdd(f.cell + 2 * b, 1u) == items - 1;
+      if (last) __threadfence();  // every item's, before they are read
+      s_last = last;
+    }
+    __syncthreads();
+    it = gridDim.x + static_cast<long long>(s_next);
+    if (s_last) walk_blocks<U>(f, b, __ldcg(f.cell + 2 * b + 1), smem);
+    __syncthreads();  // every thread has read s_next and s_last
+  }
+}
+
+template <bool RIGHTMOST, int U>
+int launch_finish(Finish f, cudaStream_t s) {
+  const auto kernel = finish_kernel<RIGHTMOST, U>;
+  // CTAs resident on the card, asked of the runtime once a device and kept
+  static int resident_by[kMaxDevices] = {};
+  int dev = 0;
+  if (const int e = static_cast<int>(cudaGetDevice(&dev))) return e;
+  int resident = dev < kMaxDevices ? resident_by[dev] : 0;
+  if (resident == 0) {
+    if (const int e = allow_smem(kernel, kFinishSmem)) return e;
+    int sms = 0, per_sm = 0;
+    if (const int e = static_cast<int>(cudaDeviceGetAttribute(
+            &sms, cudaDevAttrMultiProcessorCount, dev)))
+      return e;
+    if (const int e = static_cast<int>(
+            cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm, kernel, kFinishThreads, kFinishSmem)))
+      return e;
+    resident = per_sm * sms;
+    if (dev < kMaxDevices) resident_by[dev] = resident;
+  }
+  if (resident < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  // the narrowest compose items whose count fits one wave: a chain of R
+  // steps a column, and a CTA's items share its shared memory's bandwidth
+  long long items = f.B;
+  for (int cols = kFinishThreads / 2; cols <= 2 * kFinishThreads;
+       cols *= 2) {
+    f.cols = cols;
+    f.chunks = (f.W + cols - 1) / cols;
+    if (f.composed)
+      items = f.B * (1 + static_cast<long long>(f.blocks) * f.chunks);
+    if (items <= resident) break;
+  }
+  kernel<<<static_cast<int>(std::min<long long>(items, resident)),
+           kFinishThreads, kFinishSmem, s>>>(f);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int C, bool VEC, bool RIGHTMOST>
@@ -381,10 +780,6 @@ int launch_forward(const float* E, unsigned long long* front,
   t.run = static_cast<int>((G + resident - 1) / resident);
   const long long used = (G + t.run - 1) / t.run;
   const int ctas = static_cast<int>((used + warps - 1) / warps);
-  // tag 0 marks a cell no block has written
-  if (const int e = static_cast<int>(cudaMemsetAsync(
-          front, 0, sizeof(unsigned long long) * t.blocks * t.B * t.W, s)))
-    return e;
   void* args[] = {&E, &front, &parents, &t, &lo, &width, &lo0, &width0};
   if (const int e = static_cast<int>(cudaLaunchCooperativeKernel(
           reinterpret_cast<const void*>(kernel), dim3(ctas), dim3(threads),
@@ -396,17 +791,19 @@ int launch_forward(const float* E, unsigned long long* front,
 }  // namespace dct_carver
 
 // E: (B, H, W) f32 row-major; parents: (B, H, Wp) int8 scratch, Wp = W
-// rounded up to a multiple of 4; seams: (B, H) int32 out; front:
-// (ceil((H - 1) / K), B, W) 64-bit scratch, one slice a block.  Image b's
-// DP runs over the column window [lo_b, lo_b + width_b), read from lo[b]
-// and width[b] (int32 arrays on the device), or lo0 and width0 for every
-// image where the pointer is null.  C: columns a lane (4 or 8); Wt: owned
-// columns a tile (a multiple of 4); K: rows a block, with Hh = K rounded up
-// to 4, Hh <= Wt and Wt + 2 * Hh <= 32 * C; warps: warp-tiles a CTA
-// (1..8); max_warps: a cap on the warps launched (0: as many as are
-// resident).  Launches, on `stream`, the frontier's memset, the forward and
-// the finish when H >= 2, else only the finish.  Returns the first
-// cudaError_t of a call or launch.
+// rounded up to a multiple of 4; seams: (B, H) int32 out; front: 64-bit
+// scratch of tiled_scratch_cells (kernels/dp_kernel.py) cells: the
+// frontier's ceil((H - 1) / K) slices of (B, W) cells, one a block, then the
+// finish's B counters and jumps (struct Finish).  Image b's DP runs over
+// the column window [lo_b, lo_b + width_b), read from lo[b] and width[b]
+// (int32 arrays on the device), or lo0 and width0 for every image where
+// the pointer is null.  C: columns a lane (4 or 8); Wt: owned columns a
+// tile (a multiple of 4); K: rows a block, with Hh = K rounded up to 4,
+// Hh <= Wt and Wt + 2 * Hh <= 32 * C; warps: warp-tiles a CTA (1..8);
+// max_warps: a cap on the warps launched (0: as many as are resident).
+// Launches, on `stream`, the memset of the frontier and the counters, the
+// forward and the finish when H >= 2, else only the finish.  Returns the
+// first cudaError_t of a call or launch.
 extern "C" int dc_find_seams_tiled(const float* E, int8_t* parents,
                                    int* seams, unsigned long long* front,
                                    int B, int H, int W, const int* lo,
@@ -425,11 +822,19 @@ extern "C" int dc_find_seams_tiled(const float* E, int8_t* parents,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // the last DP row: row 0 of each plane when H = 1, else the last block's
   // frontier cells (a cell's value is its low 32 bits)
-  const float* F = E;
-  long long f_stride = static_cast<long long>(H) * W;
-  int f_step = 1;
+  Finish f{E, static_cast<long long>(H) * W, 1, parents, seams, nullptr,
+           nullptr, B, H, W, finish_blocks(H),
+           finish_blocks(H) > 1 &&
+               static_cast<long long>(B) * W <= kComposeColumns,
+           0, 0, lo, width, lo0, width0};
   if (H >= 2) {
     const Tiling t{B, H, W, tiles, Wt, Hh, K, (H - 2) / K + 1, 1};
+    const size_t cells = static_cast<size_t>(t.blocks) * B * W;
+    // tag 0 marks a frontier cell no block has written; the finish's cells
+    // start at no item done and no ticket taken
+    if (const int e = static_cast<int>(cudaMemsetAsync(
+            front, 0, sizeof(unsigned long long) * (cells + B + 1), s)))
+      return e;
     // 16-byte energy copies when every row starts 16-byte aligned
     const bool vec = W % 4 == 0 && reinterpret_cast<uintptr_t>(E) % 16 == 0;
     const auto go = [&](auto c) {
@@ -447,19 +852,23 @@ extern "C" int dc_find_seams_tiled(const float* E, int8_t* parents,
                                                    width, lo0, width0, warps,
                                                    max_warps, s)
                  : launch_forward<CC, false, false>(E, front, parents, t, lo,
-                                                    width, lo0, width0, warps,
-                                                    max_warps, s);
+                                                    width, lo0, width0,
+                                                    warps, max_warps, s);
     };
     const int err = C == 4 ? go(std::integral_constant<int, 4>{})
                            : go(std::integral_constant<int, 8>{});
     if (err) return err;
-    F = reinterpret_cast<const float*>(
+    f.F = reinterpret_cast<const float*>(
         front + static_cast<size_t>(t.blocks - 1) * B * W);
-    f_stride = 2LL * W;
-    f_step = 2;
+    f.f_stride = 2LL * W;
+    f.f_step = 2;
+    f.cell = reinterpret_cast<unsigned*>(front + cells);
+    f.jumps = reinterpret_cast<int8_t*>(front + ((cells + B + 2) & ~size_t{1}));
   }
-  const auto finish = rightmost ? finish_kernel<true> : finish_kernel<false>;
-  finish<<<B, kFinishThreads, 0, s>>>(F, f_stride, f_step, parents, seams, H,
-                                      W, lo, width, lo0, width0);
-  return static_cast<int>(cudaGetLastError());
+  // 16-byte copies of the parents where each row starts 16-byte aligned
+  if (parent_pitch(W) % 16 == 0)
+    return rightmost ? launch_finish<true, 16>(f, s)
+                     : launch_finish<false, 16>(f, s);
+  return rightmost ? launch_finish<true, 4>(f, s)
+                   : launch_finish<false, 4>(f, s);
 }

@@ -6,7 +6,9 @@ one public function: a CUDA tensor with `use_pallas` goes to the kernel
 tensor goes to the plain version.  Each wrapper counts its launches on its
 module's `KERNEL`; `dp_kernel.find_seams`, the batch route's DP, counts on
 `dp_kernel.BATCH_KERNEL`, the tiled find-seam (where `dp_kernel.seam_route`
-sends a shape; three launches a call) on `dp_kernel.TILED_KERNEL`,
+sends a shape; three launches a call) on `dp_kernel.TILED_KERNEL`, which
+also counts the calls whose finish walked composed blocks of rows
+(`blocked_finishes`; `reset_launches` clears it too),
 `strip_kernel`'s plugged-energy strip kernels
 on `GATHER_KERNEL`, `SCATTER_KERNEL` and `BAND_KERNEL`, and the spatial
 route's four on `spatial_kernel`'s records.  Every wrapper takes a (H, W)
@@ -31,6 +33,7 @@ KERNELS = (energy_kernel.KERNEL, dp_kernel.KERNEL, dp_kernel.BATCH_KERNEL,
 def reset_launches() -> None:
     for k in KERNELS:
         k.launches = 0
+    dp_kernel.TILED_KERNEL.blocked_finishes = 0
 
 
 def launch_counts() -> dict[str, int]:

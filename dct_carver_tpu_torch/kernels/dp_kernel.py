@@ -12,7 +12,10 @@ warp a column tile, the counterpart of the streamed route `dp_forward` +
 `dp_backtrack`), which every row wider than one thread block
 (`MAX_WIDTH`) takes.  Each counts on its own record the launches its C
 entry makes: `KERNEL` and `BATCH_KERNEL` one a call, `TILED_KERNEL` three
-(the frontier's memset, the forward, the finish; one for a one-row plane).
+(the memset of the frontier and the finish's counters, the forward, the
+finish; one for a one-row plane).  `TILED_KERNEL.blocked_finishes` counts
+the tiled calls whose finish walked composed blocks of `FINISH_ROWS` rows
+(`composes_blocks`).
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from ..ops.dp import (check_tie, find_seam as find_seam_plain,
 from .build import Kernel, check_plane, launch
 
 __all__ = ["find_seam", "find_seams", "seam_route", "KERNEL", "BATCH_KERNEL",
-           "TILED_KERNEL", "MAX_WIDTH"]
+           "TILED_KERNEL", "MAX_WIDTH", "FINISH_ROWS", "composes_blocks"]
 
 KERNEL = Kernel(name="find_seam",
                 source="dct_carver_tpu_torch/csrc/find_seam.cu",
@@ -36,6 +39,7 @@ BATCH_KERNEL = Kernel(name="find_seams",
 TILED_KERNEL = Kernel(name="find_seam_tiled",
                       source="dct_carver_tpu_torch/csrc/find_seam_tiled.cu",
                       replaces="dct_carver_tpu/pallas/dp_kernel.py:124,184")
+TILED_KERNEL.blocked_finishes = 0
 
 # one CTA covers a row of at most 1024 threads of 32 columns each
 # (csrc/dp_rows.cuh::chunk_for); wider rows take the tiled kernel
@@ -60,6 +64,13 @@ TILE_WARPS = 1
 # §6 holds the sweep, with the run it comes from.
 ROUTE_MIN_WIDTH = 64
 ROUTE_MAX_BATCH = 32
+# the tiled kernel's finish walks the parents in blocks of FINISH_ROWS
+# rows (`csrc/find_seam_tiled.cu`'s kFinishRows, `ops/dp.py::
+# backtrack_blocked`'s R); a jump over a block is one int8.  It composes
+# the blocks of a stack whose B * W is at most FINISH_COMPOSE_COLUMNS (its
+# kComposeColumns) and walks the others' rows block after block.
+FINISH_ROWS = 64
+FINISH_COMPOSE_COLUMNS = 48 * 1024
 
 
 def seam_route(B: int, W: int) -> str:
@@ -100,6 +111,28 @@ def parent_pitch(W: int) -> int:
     """The row pitch of the kernel's int8 parents scratch: W rounded up to
     4, so each thread stores its parents four to a 32-bit word."""
     return (W + 3) // 4 * 4
+
+
+def composes_blocks(B: int, H: int, W: int) -> bool:
+    """Whether the tiled kernel's finish composes the blocks of a (B, H, W)
+    stack: more than one block of rows, and B * W columns that composing
+    pays for."""
+    return H - 1 > FINISH_ROWS and B * W <= FINISH_COMPOSE_COLUMNS
+
+
+def tiled_scratch_cells(B: int, H: int, W: int, K: int = TILE_K) -> int:
+    """The 64-bit cells of the tiled kernel's scratch (`front` of
+    `csrc/find_seam_tiled.cu`'s C entry): the frontier's ceil((H - 1) / K)
+    slices of B x W cells, the finish's cell an image and its ticket cell,
+    then, from a 16-byte boundary, the finish's jumps, B x ceil((H - 1) /
+    FINISH_ROWS) rows of W rounded up to 16 bytes, when there is more than
+    one block of rows."""
+    if H < 2:
+        return 1
+    cells = -(-(H - 1) // K) * B * W + B + 1
+    blocks = -(-(H - 1) // FINISH_ROWS)
+    jumps = B * blocks * (-(-W // 16) * 16) if blocks > 1 else 0
+    return cells + cells % 2 + -(-jumps // 8)
 
 
 def _pointer_args(width, lo, dev) -> tuple[list, list]:
@@ -169,14 +202,15 @@ def _find_seams_tiled(E: torch.Tensor, width, lo, tie: str, *,
     if not E.is_cuda:
         group = -(-B * -(-W // tile) // max_warps) if max_warps else 1
         return find_seam_tiled(E, width, lo, tie, tile=tile, K=K,
-                               group=group).to(torch.int32)
+                               group=group, R=FINISH_ROWS).to(torch.int32)
     dev = E.device
     check_plane("energy", E, torch.float32, dev)
     ptrs, scalars = _pointer_args(width, lo, dev)
     parents = torch.empty((B, H, parent_pitch(W)), dtype=torch.int8,
                           device=dev)
-    # the frontier: each block's last row as (value, block) cells
-    front = torch.empty((max(-(-(H - 1) // K), 1), B, W), dtype=torch.int64,
+    # the frontier (each block's last row as (value, block) cells) and the
+    # finish's counters and jumps
+    front = torch.empty(tiled_scratch_cells(B, H, W, K), dtype=torch.int64,
                         device=dev)
     seams = torch.empty((B, H), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
@@ -186,6 +220,7 @@ def _find_seams_tiled(E: torch.Tensor, width, lo, tie: str, *,
                int(tie == "rightmost"), chunk, tile, K, warps, max_warps,
                torch.cuda.current_stream().cuda_stream,
                launches=3 if H > 1 else 1)
+    TILED_KERNEL.blocked_finishes += composes_blocks(B, H, W)
     return seams
 
 

@@ -308,6 +308,7 @@ class SeamSteps:
 
     def __init__(self, state: CarveState, p: StepParams):
         from ..kernels import KERNELS
+        from ..kernels.dp_kernel import TILED_KERNEL
         from ..utils.graphs import StepGraphs
 
         self.p = p
@@ -328,7 +329,8 @@ class SeamSteps:
         self.kernel_dp = kernel_dp(dev, p)
         self.graphs = StepGraphs(
             [dev], f"seam step (energy {name!r})",
-            [(k, "launches") for k in KERNELS]) if graphed(dev, p) else None
+            [*((k, "launches") for k in KERNELS),
+             (TILED_KERNEL, "blocked_finishes")]) if graphed(dev, p) else None
         # the vmap record's stream: in the graph, a branch beside the apply
         # and the strip, which neither read nor write what it touches
         self.side = torch.cuda.Stream(dev) if self.graphs is not None \

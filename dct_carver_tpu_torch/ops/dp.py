@@ -28,7 +28,7 @@ import torch
 
 __all__ = ["cumulative_energy", "backtrack", "find_seam", "remove_seam",
            "mask_energy", "check_tie", "TIES", "parent_directions",
-           "backtrack_windowed", "find_seam_tiled"]
+           "backtrack_windowed", "backtrack_blocked", "find_seam_tiled"]
 
 TIES = ("leftmost", "rightmost")
 
@@ -124,8 +124,8 @@ def parent_directions(M: torch.Tensor, tie: str = "leftmost") -> torch.Tensor:
     else:
         p = torch.where(right <= prev, torch.where(right <= left, 1, -1),
                         torch.where(prev <= left, 0, -1))
-    return torch.cat([torch.zeros_like(p[..., :1, :]), p], dim=-2).to(
-        torch.int8)
+    return torch.cat([torch.zeros_like(M[..., :1, :], dtype=p.dtype), p],
+                     dim=-2).to(torch.int8)
 
 
 def backtrack_windowed(P: torch.Tensor, last: torch.Tensor, K: int = 64,
@@ -159,9 +159,52 @@ def backtrack_windowed(P: torch.Tensor, last: torch.Tensor, K: int = 64,
     return torch.stack(seam, dim=-1).to(torch.int32)
 
 
+def backtrack_blocked(P: torch.Tensor, last: torch.Tensor, R: int = 64,
+                      tie: str = "leftmost") -> torch.Tensor:
+    """The tiled find-seam kernel's finish (`csrc/find_seam_tiled.cu`
+    `finish_kernel`): the `tie`-most argmin of the last DP row `last`
+    (..., W), then the walk up the parents P (..., H, W) of
+    `parent_directions` in blocks of R rows.  Block k holds parent rows
+    kR + 1 .. min((k + 1)R, H - 1).  A step is c = clamp(c + P[r, c], 0,
+    W - 1), so the R steps of a block compose into one map a column, the
+    jump from its bottom row to its top row (at most R columns).
+
+    Compose: every block's jump for every column.  Walk the blocks: the
+    seam's column at each block's bottom row, from the last row up, one
+    jump a block.  Fill: each block's rows from its bottom column.  ->
+    (..., H) int32.  It gives `backtrack_windowed`'s seams, and is here to
+    hold the kernel's algorithm to them."""
+    check_tie(tie)
+    if R < 1:
+        raise ValueError(f"R must be >= 1, got {R}")
+    H, W = P.shape[-2:]
+    P = P.to(torch.int64)
+    blocks = [(k * R + 1, min((k + 1) * R, H - 1))
+              for k in range(-(-(H - 1) // R))]
+
+    def walk(c, top, bot, seam=None):
+        # parent rows bot .. top from the columns c at row bot
+        for r in range(bot, top - 1, -1):
+            c = (c + P[..., r, :].gather(-1, c)).clamp(0, W - 1)
+            if seam is not None:
+                seam[r - 1] = c[..., 0]
+        return c
+
+    cols = torch.arange(W, device=P.device).expand(P.shape[:-2] + (W,))
+    jumps = [walk(cols, top, bot) - cols for top, bot in blocks]
+    seam = [_argmin_tie(last, tie)] * H  # rows 0 .. H - 2 filled below
+    j, bottom = seam[-1], [None] * len(blocks)
+    for k in reversed(range(len(blocks))):
+        bottom[k] = j
+        j = j + jumps[k].gather(-1, j[..., None])[..., 0]
+    for (top, bot), c in zip(blocks, bottom):
+        walk(c[..., None], top, bot, seam)
+    return torch.stack(seam, dim=-1).to(torch.int32)
+
+
 def find_seam_tiled(E: torch.Tensor, width, lo=0, tie: str = "leftmost", *,
-                    tile: int = 64, K: int = 32,
-                    group: int = 1) -> torch.Tensor:
+                    tile: int = 64, K: int = 32, group: int = 1,
+                    R: int = 64) -> torch.Tensor:
     """The tiled find-seam kernel's algorithm (`csrc/find_seam_tiled.cu`):
     (..., H, W) energy, masked to the column window [lo, lo + width) (ints,
     or (B,) tensors for a stack), -> (..., H) int32 seams.
@@ -176,9 +219,10 @@ def find_seam_tiled(E: torch.Tensor, width, lo=0, tie: str = "leftmost", *,
     ends is exact for |dc| rows.  The kernel's warps each take `group`
     adjacent tiles, block by block; the tiles' order within a block does
     not change a value, so here `group` only nests the loop.  Then
-    `backtrack_windowed`.  It gives `find_seam`'s seams, and is here to
-    hold the kernel's algorithm to them.  The defaults are the kernel's
-    (`kernels/dp_kernel.py`'s TILE_W and TILE_K)."""
+    `backtrack_blocked` in blocks of R rows.  It gives `find_seam`'s
+    seams, and is here to hold the kernel's algorithm to them.  The
+    defaults are the kernel's (`kernels/dp_kernel.py`'s TILE_W, TILE_K and
+    FINISH_ROWS)."""
     check_tie(tie)
     if tile < 4 or tile % 4 or K < 1 or group < 1:
         raise ValueError(f"tile must be a positive multiple of 4, K >= 1 "
@@ -209,7 +253,7 @@ def find_seam_tiled(E: torch.Tensor, width, lo=0, tie: str = "leftmost", *,
                 P[..., r0 + 1:r0 + N + 1, g0:g1] = par[..., 1:, own]
                 nxt[..., g0:g1] = M[..., -1, own]
         front = nxt
-    return backtrack_windowed(P, front, tie=tie)
+    return backtrack_blocked(P, front, R, tie)
 
 
 def find_seam(E: torch.Tensor, delta_x: int = 1, rigidity: float = 0.0,

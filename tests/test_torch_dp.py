@@ -17,7 +17,7 @@ from dct_carver_tpu.ops import dp as jdp
 from dct_carver_tpu.pallas.batch_dp_kernel import find_seams_vec
 from dct_carver_tpu.pallas.dp_kernel import find_seam_pallas
 from dct_carver_tpu_torch import kernels
-from dct_carver_tpu_torch.kernels.dp_kernel import find_seam
+from dct_carver_tpu_torch.kernels.dp_kernel import FINISH_ROWS, find_seam
 from dct_carver_tpu_torch.ops import dp as tdp
 
 H, W = 24, 128  # the Pallas kernel wants H % 8 == 0 and W % 128 == 0
@@ -176,3 +176,77 @@ def test_windowed_backtrack_of_a_stack_with_per_image_windows(tie, kind):
         tie=tie)))
     np.testing.assert_array_equal(got, tdp.find_seam(
         torch.from_numpy(masked), tie=tie).numpy())
+
+
+# ------------------------------------------ the tiled kernel's finish --
+# `csrc/find_seam_tiled.cu`'s finish composes each block of R parent rows
+# into one jump a column, walks the jumps from the last row up, then fills
+# each block's rows.  `ops/dp.py::backtrack_blocked` is that algorithm in
+# plain PyTorch; it must give `backtrack_windowed`'s seams (find_seam.cu's
+# walk) and `backtrack`'s, at one block, several and a ragged last one.
+
+R = FINISH_ROWS
+BLOCK_HEIGHTS = [1, 2, R - 1, R, R + 1, 2 * R + 1, 1080]
+
+
+def _blocked(P, last, tie, r=R):
+    return tdp.backtrack_blocked(P, last, r, tie).numpy()
+
+
+@pytest.mark.parametrize("r", [R, 8])
+@pytest.mark.parametrize("h", BLOCK_HEIGHTS)
+@pytest.mark.parametrize("tie", ["leftmost", "rightmost"])
+def test_blocked_backtrack_on_random_parents(tie, h, r):
+    # parents in {-1, 0, 1} that no DP made: the clamp at both borders
+    rng = np.random.default_rng(h)
+    P = torch.from_numpy(rng.integers(-1, 2, (2, h, 150)).astype(np.int8))
+    last = torch.from_numpy(rng.integers(0, 3, (2, 150)).astype(np.float32))
+    got = _blocked(P, last, tie, r)
+    np.testing.assert_array_equal(
+        got, tdp.backtrack_windowed(P, last, 64, tie).numpy())
+    assert got.dtype == np.int32 and got.shape == (2, h)
+    assert (np.abs(np.diff(got, axis=-1)) <= 1).all()
+
+
+@pytest.mark.parametrize("h", BLOCK_HEIGHTS)
+@pytest.mark.parametrize("tie", ["leftmost", "rightmost"])
+def test_blocked_backtrack_on_dp_parents(tie, h):
+    # tie-heavy energies: most cells tie with a neighbour, both ways
+    M = tdp.cumulative_energy(torch.from_numpy(_tie_heavy((2, h, 140), h)))
+    P = tdp.parent_directions(M, tie)
+    got = _blocked(P, M[..., -1, :], tie)
+    np.testing.assert_array_equal(
+        got, tdp.backtrack_windowed(P, M[..., -1, :], 64, tie).numpy())
+    np.testing.assert_array_equal(got, tdp.backtrack(M, tie=tie).numpy())
+
+
+@pytest.mark.parametrize("h", [R + 1, 2 * R + 1])
+@pytest.mark.parametrize("border", ["first", "last"])
+@pytest.mark.parametrize("tie", ["leftmost", "rightmost"])
+def test_blocked_backtrack_along_a_border(tie, border, h):
+    E = np.ones((h, W), np.float32)
+    col = 0 if border == "first" else W - 1
+    E[:, col] = 0
+    M = tdp.cumulative_energy(torch.from_numpy(E))
+    got = _blocked(tdp.parent_directions(M, tie), M[-1], tie)
+    assert (got == col).all()
+    np.testing.assert_array_equal(got, tdp.backtrack(M, tie=tie).numpy())
+
+
+@pytest.mark.parametrize("kind", ["random", "tie-heavy"])
+@pytest.mark.parametrize("tie", ["leftmost", "rightmost"])
+def test_blocked_backtrack_of_a_stack_with_per_image_windows(tie, kind):
+    B, Hb, Wb = 4, 2 * R + 8, 256  # the Pallas kernel wants H % 8 == 0
+    E = (np.random.default_rng(9).random((B, Hb, Wb), dtype=np.float32)
+         if kind == "random" else _tie_heavy((B, Hb, Wb), 10))
+    width = np.array([Wb, 200, 3, 17], np.int32)
+    lo = np.array([0, 37, 253, 0], np.int32)
+    masked = tdp.mask_energy(torch.from_numpy(E), torch.from_numpy(width),
+                             torch.from_numpy(lo))
+    M = tdp.cumulative_energy(masked)
+    got = _blocked(tdp.parent_directions(M, tie), M[..., -1, :], tie)
+    np.testing.assert_array_equal(got, np.asarray(find_seams_vec(
+        jnp.asarray(E), jnp.asarray(width), jnp.asarray(lo), interpret=True,
+        tie=tie)))
+    np.testing.assert_array_equal(got, tdp.backtrack(M, tie=tie).numpy())
+    assert (got >= lo[:, None]).all() and (got < (lo + width)[:, None]).all()

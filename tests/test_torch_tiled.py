@@ -25,8 +25,9 @@ from dct_carver_tpu.pallas.dp_kernel import find_seam_pallas
 from dct_carver_tpu_torch import kernels
 from dct_carver_tpu_torch.kernels import dp_kernel
 from dct_carver_tpu_torch.kernels.dp_kernel import (
-    MAX_WIDTH, TILE_C, TILE_K, TILE_W, TILE_WARPS, _find_seams_tiled,
-    check_tile_geometry, find_seam, find_seams, seam_route, tile_halo)
+    FINISH_ROWS, MAX_WIDTH, TILE_C, TILE_K, TILE_W, TILE_WARPS,
+    _find_seams_tiled, check_tile_geometry, find_seam, find_seams, seam_route,
+    tile_halo)
 from dct_carver_tpu_torch.ops import dp as tdp
 
 H = 24
@@ -240,3 +241,40 @@ def test_geometry_rejects_what_no_warp_runs(tile, K, chunk, warps):
 ])
 def test_seam_route(B, W, want):
     assert seam_route(B, W) == want
+
+
+# planes past the finish's FINISH_ROWS rows a block: one block and a row
+# more, two blocks and a row, and several with a ragged last block
+@pytest.mark.parametrize("h", [FINISH_ROWS + 1, 2 * FINISH_ROWS + 1, 300])
+@pytest.mark.parametrize("tie", TIES)
+def test_tiled_blocked_finish_equals_jax_scan(tie, h):
+    E = _energy("tie-heavy", (h, 200), 24)
+    got = _tiled(E, 190, 5, tie, 48, 8)
+    np.testing.assert_array_equal(got, _scan(E, 190, 5, tie))
+
+
+# the kernel's scratch: the frontier's ceil((H - 1) / K) slices of B x W
+# cells, a cell an image and the tickets' cell, rounded up to an even count
+# of cells, then the jumps, B x blocks rows of W rounded up to 16 bytes, at
+# two blocks or more
+@pytest.mark.parametrize("B,H,W,K,want", [
+    (1, 1, 64, 32, 1),
+    (1, 65, 64, 32, 2 * 64 + 1 + 1),
+    (1, 66, 64, 32, 3 * 64 + 1 + 1 + 2 * 64 // 8),
+    (2, 200, 100, 32, 7 * 2 * 100 + 2 + 1 + 1 + 2 * 4 * 112 // 8),
+    (1, 1080, 1920, 32, 34 * 1920 + 1 + 1 + 17 * 1920 // 8),
+])
+def test_tiled_scratch_cells(B, H, W, K, want):
+    assert dp_kernel.tiled_scratch_cells(B, H, W, K) == want
+
+
+# the finish composes more than one block of rows where B * W columns pay
+# for it (FINISH_COMPOSE_COLUMNS), and walks the rows block after block
+# elsewhere: the counts `blocked_finishes` adds a call
+@pytest.mark.parametrize("B,H,W,want", [
+    (1, 1, 64, False), (1, 65, 1920, False), (1, 66, 1920, True),
+    (1, 1080, 1920, True), (16, 1080, 1920, True), (32, 1080, 1024, True),
+    (32, 1080, 1920, False), (1, 512, 40000, True), (2, 1080, 40000, False),
+])
+def test_finish_composes_blocks(B, H, W, want):
+    assert dp_kernel.composes_blocks(B, H, W) is want
