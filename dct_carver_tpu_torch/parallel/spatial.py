@@ -49,6 +49,15 @@ between the cards (`utils/graphs.py::StepGraphs`).  Meshes with a CPU
 stack, the plain path and the generalized DP (`delta_x`/`rigidity` other
 than (1, 0)) run the same step eagerly (`_graph_cards`).
 
+A carve's phases carry the port's spans (`utils/profiling.py::span`, the
+table in `PERF.md`): `carve.spatial.shard` (padding and splitting the
+columns onto the stacks), `carve.energy`, `carve.steps.build`,
+`carve.seams` around each chunk's seam loop, with `carve.seam.eager` (a
+graphed step's first seam), `carve.capture` and `carve.spatial.record`
+(the chunk's vmap scatter) inside it, and `carve.spatial.gather` (the
+columns assembled).  None sits inside the captured step or runs once a
+seam.
+
 Over the processes of a `torch.distributed` job (`parallel/multihost.py`),
 with `processes=True`, the mesh is a `parallel/shards.py::ProcessMesh`:
 each process passes its own shards as `devices`, as many on every process,
@@ -84,6 +93,7 @@ from ..ops.dp import check_tie
 from ..ops.energy_fn import resolve_energy
 from ..utils.debug import check_finite, checks_nans, eager_steps
 from ..utils.graphs import StepGraphs
+from ..utils.profiling import span
 from . import multihost
 from .mesh import make_mesh
 from .shards import ProcessMesh, ShardMesh, shard_count, shard_mesh
@@ -577,29 +587,45 @@ class _SeamSteps:
         """Seams base+1 .. base+count from `st`, the state whose planes are
         this object's current set; never waits for the devices."""
         H = st.luma[0].shape[1]
-        self.set_width(st.width)
-        recs = [torch.empty((count, H), dtype=torch.int32, device=o.device)
-                for o in self.orig]
-        nan_checks = checks_nans()
-        for k in range(count):
-            if self.graph_cards is not None and self.warm:
-                self._replay(self.cur)
-            else:
-                self._step(self.cur)
+        with span("carve.seams"):
+            self.set_width(st.width)
+            recs = [torch.empty((count, H), dtype=torch.int32,
+                                device=o.device) for o in self.orig]
+            nan_checks = checks_nans()
+            done = 0
+            if count and self.graph_cards is not None and not self.warm:
+                with span("carve.seam.eager"):
+                    self._step(self.cur)
                 self.warm = True
-            self.cur ^= 1
-            for r, o in zip(recs, self.orig):
-                r[k].copy_(o)
-            if nan_checks:  # the kernels' writes, which no torch op sees
-                planes = self.sets[self.cur]
-                check_finite(SpatialCarveState(
-                    self.mesh.join(planes.luma), None, None, None,
-                    self.mesh.join(planes.energy), st.width - k - 1),
-                    f"after seam {base + k + 1}")
-        _record(self.mesh, st.vmap, recs, base)
+                self._advance(recs, 0, base, st.width, nan_checks)
+                done = 1
+            for k in range(done, count):
+                if self.graph_cards is not None:
+                    self._replay(self.cur)
+                else:
+                    self._step(self.cur)
+                self._advance(recs, k, base, st.width, nan_checks)
+            with span("carve.spatial.record"):
+                _record(self.mesh, st.vmap, recs, base)
         planes = self.sets[self.cur]
         return SpatialCarveState(planes.luma, planes.image, planes.origcol,
                                  st.vmap, planes.energy, st.width - count)
+
+    def _advance(self, recs, k: int, base: int, width: int,
+                 nan_checks: bool) -> None:
+        """After seam base+k+1 of a carve from `width`: swap the sets, copy
+        the removed pixels' original columns into row k of the record, and
+        with NaN checks check the state (the kernels' writes, which no
+        torch op sees)."""
+        self.cur ^= 1
+        for r, o in zip(recs, self.orig):
+            r[k].copy_(o)
+        if nan_checks:
+            planes = self.sets[self.cur]
+            check_finite(SpatialCarveState(
+                self.mesh.join(planes.luma), None, None, None,
+                self.mesh.join(planes.energy), width - k - 1),
+                f"after seam {base + k + 1}")
 
 
 def _params(W: int, H: int, *, blocksize: int = 8, edges: float = 0.0,
@@ -630,7 +656,9 @@ def spatial_carve_seams(state: SpatialCarveState, mesh: ShardMesh,
     H = state.luma[0].shape[1]
     W = mesh.width if image_width is None else int(image_width)
     p = _params(W, H, dead_max=(mesh.width - W) + first + count, **knobs)
-    return _SeamSteps(mesh, state, p).carve(state, first, count)
+    with span("carve.steps.build"):
+        steps = _SeamSteps(mesh, state, p)
+    return steps.carve(state, first, count)
 
 
 def measure_collectives_per_seam(H: int, W: int, devices=None, *,
@@ -790,16 +818,19 @@ def _make_state(luma: torch.Tensor, image, devices, p: _Params,
                 processes: bool):
     H, W = luma.shape
     Wp = _padded(W, devices, processes)
-    mesh = shard_mesh(devices, Wp, processes)
-    home = mesh.stacks[0].device
-    luma_s = mesh.split(_pad_to(luma.to(home), Wp))
-    origcol = mesh.split(torch.arange(Wp, dtype=torch.int32, device=home)
-                         .expand(H, Wp))
-    vmap = [torch.zeros_like(o) for o in origcol]
-    image_s = None
-    if image is not None:
-        image_s = mesh.split(_pad_to(torch.as_tensor(image).to(home), Wp))
-    energy = _sharded_energy(mesh, luma_s, p)
+    with span("carve.spatial.shard"):
+        mesh = shard_mesh(devices, Wp, processes)
+        home = mesh.stacks[0].device
+        luma_s = mesh.split(_pad_to(luma.to(home), Wp))
+        origcol = mesh.split(torch.arange(Wp, dtype=torch.int32,
+                                          device=home).expand(H, Wp))
+        vmap = [torch.zeros_like(o) for o in origcol]
+        image_s = None
+        if image is not None:
+            image_s = mesh.split(_pad_to(torch.as_tensor(image).to(home),
+                                         Wp))
+    with span("carve.energy"):
+        energy = _sharded_energy(mesh, luma_s, p)
     return SpatialCarveState(luma_s, image_s, origcol, vmap, energy, W), mesh
 
 
@@ -919,7 +950,8 @@ def spatial_carve_n_seams(luma, n_seams: int, *, blocksize: int = 8,
         if done:
             progress.update(done / n_seams)
     step = chunk if chunk > 0 else n_seams
-    steps = _SeamSteps(mesh, state, p)  # one capture serves every chunk
+    with span("carve.steps.build"):  # one capture serves every chunk
+        steps = _SeamSteps(mesh, state, p)
     while done < n_seams:
         count = min(step, n_seams - done)
         state = steps.carve(state, done, count)
@@ -937,8 +969,9 @@ def spatial_carve_n_seams(luma, n_seams: int, *, blocksize: int = 8,
                           **params})
     if progress is not None:
         progress.end()
-    return _result(mesh, state.vmap, state.image, W, W, mesh.Wl,
-                   state.width, steps.capture_seconds)
+    with span("carve.spatial.gather"):
+        return _result(mesh, state.vmap, state.image, W, W, mesh.Wl,
+                       state.width, steps.capture_seconds)
 
 
 def spatial_enlarge_n_seams(luma, n_seams: int, image, *, devices=None,
@@ -965,4 +998,5 @@ def spatial_enlarge_n_seams(luma, n_seams: int, image, *, devices=None,
     vmap = mesh.split(torch.nn.functional.pad(seams, (0, Wp - W)))
     Wlo = -(-(W + n_seams) // mesh.size)
     out = _sharded_enlarge(mesh, img, vmap, n_seams, W, Wlo)
-    return _result(mesh, vmap, out, W, W + n_seams, Wlo, W + n_seams)
+    with span("carve.spatial.gather"):
+        return _result(mesh, vmap, out, W, W + n_seams, Wlo, W + n_seams)

@@ -4,11 +4,13 @@ With no profiler running a span is the one shared no-op context and never
 enters `torch.profiler.record_function`.  Under `utils/profiling.trace`
 each route's spans nest by time as the carve's layers do: the request's
 root, its passes or chunks, and in each the copy in, luma, energy, step
-set-up, seam loop, reconstruct and copies out.  On a simulated card the
-step cache's build, the eager first seam and the capture show once a key,
-and a step too large for the cache shows as uncached at every carve.  The
-number of spans does not grow with the seams, and the carve's results are
-the same with the profiler on and off.
+set-up, seam loop, reconstruct and copies out (on the spatial route the
+sharding, step build, seam loop with the chunk's vmap record, and the
+columns' assembly).  On a simulated card the step cache's build, the eager
+first seam and the capture show once a key, and a step too large for the
+cache shows as uncached at every carve; the spatial route's once a carve.
+The number of spans does not grow with the seams, and the carve's results
+are the same with the profiler on and off.
 """
 
 from collections import Counter
@@ -47,7 +49,14 @@ ROUTES = {
     "batch": lambda: api.carve(_image(3, (4, H, W, 3)), -3,
                                parallel="batch", devices=["cpu", "cpu"],
                                output_seams=True),
+    "spatial": lambda: api.carve(_image(5, (H, 64, 3)), -5,
+                                 parallel="spatial", devices=["cpu"] * 4,
+                                 output_seams=True),
 }
+SPATIAL_PASS = ["carve.copy_in", "carve.luma", "carve.spatial.shard",
+                "carve.energy", "carve.steps.build", "carve.seams",
+                "carve.spatial.gather", "carve.copy_out.image",
+                "carve.copy_out.vmap"]
 
 
 def _traced(fn, log_dir):
@@ -147,6 +156,40 @@ def test_batch_spans_nest_by_chunk(tmp_path):
         assert _names(spans, kids[chunk]) == CHUNK
 
 
+@pytest.fixture
+def sim_spatial(sim_capture, monkeypatch):
+    """`sim_capture` with the spatial route's step graphed on a stand-in
+    card: its first seam eager, then a capture and replays of stand-in
+    graphs (so the carve's output is not read)."""
+    from dct_carver_tpu_torch.parallel import spatial as tsp
+
+    monkeypatch.setattr(tsp, "_graph_cards",
+                        lambda mesh, p: [torch.device("cpu")])
+    return sim_capture
+
+
+@pytest.mark.parametrize("card", [False, True], ids=["cpu", "sim_card"])
+def test_spatial_spans_nest_under_the_pass(request, tmp_path, card):
+    """The spatial route's set-up, seam loop and assembly nest in its pass;
+    on a card the eager first seam and the capture sit in the seam loop,
+    before the chunk's vmap record, and nothing sits inside them."""
+    if card:
+        request.getfixturevalue("sim_spatial")
+    _, spans = _traced(ROUTES["spatial"], tmp_path)
+    roots, kids = _tree(spans)
+    assert _names(spans, roots) == ["carve.resize"]
+    passes = kids[roots[0]]
+    assert _names(spans, passes) == ["carve.pass"]
+    inner = kids[passes[0]]
+    assert _names(spans, inner) == SPATIAL_PASS
+    seams = inner[SPATIAL_PASS.index("carve.seams")]
+    assert _names(spans, kids[seams]) == (
+        ["carve.seam.eager", "carve.capture"] if card else []) + [
+        "carve.spatial.record"]
+    for i in kids[seams]:
+        assert not kids[i]
+
+
 @pytest.mark.parametrize("fits", [True, False], ids=["cached", "too_large"])
 def test_step_set_up_shows_once_a_key(sim_capture, monkeypatch, tmp_path,
                                       fits):
@@ -201,6 +244,32 @@ def test_spans_do_not_grow_with_the_seams(request, monkeypatch, card):
         api.carve(_image(4), -seams, device="cpu")
         counts.append(Counter(entered))
     assert counts[0] == counts[1] and counts[0]["carve.seams"] == 1
+    assert counts[0]["carve.capture"] == int(card)
+
+
+@pytest.mark.parametrize("card", [False, True], ids=["cpu", "sim_card"])
+def test_spatial_spans_do_not_grow_with_the_seams(request, monkeypatch,
+                                                   card):
+    """The spatial route's spans a carve, as a running profiler would
+    record them: the same at 5 and 20 seams, its step built, warmed and
+    captured once a carve on a card."""
+    if card:
+        request.getfixturevalue("sim_spatial")
+    entered = []
+    monkeypatch.setattr(tprof, "_profiler_enabled", lambda: True)
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name: entered.append(name) or tprof._OFF)
+    counts = []
+    for seams in (5, 20):
+        entered.clear()
+        api.carve(_image(6, (H, 64, 3)), -seams, parallel="spatial",
+                  devices=["cpu"] * 4)
+        counts.append(Counter(entered))
+    assert counts[0] == counts[1]
+    assert all(counts[0][n] == 1 for n in (
+        "carve.steps.build", "carve.seams", "carve.spatial.record",
+        "carve.spatial.gather"))
+    assert counts[0]["carve.seam.eager"] == int(card)
     assert counts[0]["carve.capture"] == int(card)
 
 
