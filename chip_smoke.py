@@ -9,14 +9,20 @@ PyTorch version on the card, bit for bit, at the main path's shapes
 (1080x1920, and 2160x3840 at n=16), and times both; phase 1b runs whole
 4-seam carves at 4320x7680 and 4096x4096 (the shapes of the TPU's streamed
 and folded DP routes) against the plain path; phase 1c holds the tiled
-find-seam (one warp a column tile) against the plain find-seam at rows
-wider than one thread block (32769 and 40000 columns) and at its own
+find-seam (column tiles, K rows a block) against the plain find-seam at
+rows wider than one thread block (32769 and 40000 columns) and at its own
 geometry (1080p, 4K, 8K repeated, windows and seams at tile edges, H = 1,
 2 and 999, per-image windows, several tiles a warp), holds and times its
 finish (blocks of FINISH_ROWS rows; 1080p, 4K, 3456x2160, 16 and 32
-images, its `blocked_finishes` count), sweeps the tiled
-kernel's geometry and both find-seam kernels over widths and batch sizes
-(the tables the tiled constants and `seam_route`'s thresholds come from),
+images, its `blocked_finishes` count), holds its split forward (helper
+warps beside each tile's DP warp) at the benchmark's planes, short and
+odd-width planes, 512x40000 and stacks of 8-32 images, with its
+`split_forwards` count, times the forward's ns a DP row in both schedules
+in turns (alone and in graphed seam steps), sweeps the tiled kernel's
+geometry and schedules, the split schedule against one warp a tile over
+stacks and long rows, and both find-seam kernels over widths and batch
+sizes (the tables the tiled constants, `split_forward`'s threshold and
+`seam_route`'s thresholds come from),
 carves a 512x40000 RGB image through `api.carve` with the
 launch counters read around it against the plain path, and holds the
 apply at 65536 rows.  Every find-seam launch count is checked against the
@@ -103,6 +109,8 @@ card's chunk carved on one card alone, lists any host wait inside it with
 torch's sync debug mode, times it in turns beside one card's share carved
 alone, and reads each card's busy share and the join between CUDA events.
 `python3 chip_smoke.py --multi-card` runs phase 7 alone;
+`--tiled-forward` builds the kernels and runs phase 1c's split-forward
+checks, its timing in turns and its sweeps alone;
 `--band-variants` builds variants of the band-energy kernel's block shape
 and times them against each other, and `--band-times ROOT` times the band
 energy (and strip.cu) with the package found under ROOT, so that two
@@ -198,11 +206,22 @@ SWEEP_ROWS = 1080
 SWEEP_BATCHES = ((8, WB), (16, WB), (32, WB), (64, WB), (128, WB), (256, WB),
                  (32, W), (64, W), (32, 4096), (64, 4096))
 # the tiled kernel's geometry sweep: (columns a lane, owned columns, K),
-# each extended row one warp wide, times warp-tiles a CTA, at these shapes
+# each extended row one warp wide, times the forward's schedules (warp-tiles
+# a CTA, split): one warp a tile, 1 or 4 tiles a CTA, and the split
+# schedule, at these shapes (the benchmark's three single-image planes
+# first)
 GEOMETRIES = ((4, 64, 32), (4, 96, 16), (8, 128, 64), (8, 192, 32))
-GEOMETRY_WARPS = (1, 4)
-GEOMETRY_SHAPES = ((1, H, W), (1, H8, W8), (1, H_WIDE, W_WIDE),
-                   (NB, HB, WB))
+GEOMETRY_SCHEDULES = ((1, False), (4, False), (1, True))
+GEOMETRY_SHAPES = ((1, H, W), (1, H4, W4), (1, W_BIDIR, H4), (1, H8, W8),
+                   (1, H_WIDE, W_WIDE), (NB, HB, WB))
+# the split schedule's sweep against the one-warp schedule (forward device
+# ms): stacks of (B, W) with HB rows, and single long rows (B, H, W)
+SPLIT_BATCHES = tuple((b, w) for b in (1, 8, 16, 32)
+                      for w in (WB, W, 4096))
+SPLIT_LONG = ((1, H_WIDE, W_WIDE), (1, H_WIDE, 32768), (1, H8, W8),
+              (2, H_WIDE, W_WIDE), (1, H_WIDE, 528 * 64),
+              (1, H_WIDE, 529 * 64), (1, H, W - 3), (8, HB, WB - 3))
+FORWARD_TURNS = 2          # (old, new, new, old) rounds of the ns a row
 # an H100 SXM's peaks (NVIDIA's data sheet): device memory, and float32
 # outside the tensor cores (a fused multiply-add counted as two operations)
 HBM_BYTES_PER_S = 3.35e12
@@ -816,25 +835,26 @@ def phase_1b(dev, chk: Checks, card: str, rng) -> None:
 
 
 def phase_1c(dev, chk: Checks, card: str, rng, times: dict) -> dict:
-    """The tiled find-seam (one warp a column tile) against the plain
-    find-seam: rows wider than one thread block (both ties, column windows,
-    seams along either border, a stack with per-image windows), then at
-    the tiled kernel's own geometry (1080p, 4K and 8K planes, 8K repeated,
-    a window cutting a tile, seams along a tile edge, H not a multiple of
-    K, H = 1 and 2, a B = 8 stack with per-image windows, several tiles a
-    warp); the geometry sweep of the tiled kernel and the width sweep of
-    both kernels, which its constants and `seam_route`'s thresholds come
-    from; a whole `api.carve` of a wide RGB image against the plain
-    path with the launch counters read around it; the apply at H_TALL
-    rows.  Returns the launch counts of the wide carve."""
+    """The tiled find-seam (column tiles, in the forward's schedule that
+    `split_forward` picks) against the plain find-seam: rows wider than
+    one thread block (both ties, column windows, seams along either
+    border, a stack with per-image windows), then at the tiled kernel's
+    own geometry (1080p, 4K and 8K planes, 8K repeated, a window cutting a
+    tile, seams along a tile edge, H not a multiple of K, H = 1 and 2, a B
+    = 8 stack with per-image windows, several tiles a warp); its finish
+    (`finish_1c`), its split forward and the two schedules' times
+    (`split_1c`, `forward_turns`); the sweeps (`sweeps_1c`) that its
+    constants and `seam_route`'s thresholds come from; a whole `api.carve`
+    of a wide RGB image against the plain path with the launch counters
+    read around it; the apply at H_TALL rows.  Returns the launch counts
+    of the wide carve."""
     import torch
 
     from dct_carver_tpu_torch import api, kernels
     from dct_carver_tpu_torch.kernels.apply_kernel import apply_seam
     from dct_carver_tpu_torch.kernels.dp_kernel import (
-        BATCH_KERNEL, KERNEL, MAX_WIDTH, TILE_C, TILE_K, TILE_W, TILE_WARPS,
-        _find_seams_one_cta, _find_seams_tiled, find_seam, find_seams,
-        seam_route)
+        MAX_WIDTH, TILE_C, TILE_K, TILE_W, TILE_WARPS,
+        _find_seams_tiled, find_seam, find_seams)
 
     def on_dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -842,9 +862,11 @@ def phase_1c(dev, chk: Checks, card: str, rng, times: dict) -> dict:
     def tiled(e, width, lo=0, tie="leftmost", **kw):
         return _find_seams_tiled(e, width, lo, tie, **kw)
 
-    log(f"phase 1c: the tiled find-seam (one warp a tile: {TILE_W} owned "
-        f"columns, K = {TILE_K}, {TILE_C} columns a lane, {TILE_WARPS} "
-        f"tiles a CTA) vs the plain find-seam at widths past {MAX_WIDTH}")
+    log(f"phase 1c: the tiled find-seam ({TILE_W} owned columns a tile, "
+        f"K = {TILE_K}, {TILE_C} columns a lane; one warp a tile, "
+        f"{TILE_WARPS} tiles a CTA, or split, a CTA a tile, as split_forward "
+        f"picks) vs the plain find-seam at widths past "
+        f"{MAX_WIDTH}")
     for w in (MAX_WIDTH + 1, W_WIDE):
         e_r = on_dev(rng.random((TILED_ROWS, w), dtype=np.float32))
         e_q = on_dev((rng.integers(0, 3, (TILED_ROWS, w)) / 2)
@@ -943,6 +965,8 @@ def phase_1c(dev, chk: Checks, card: str, rng, times: dict) -> dict:
     del e_q, e_b, e8
 
     finish_1c(dev, chk, card, rng)
+    split_1c(dev, chk, card, rng)
+    forward_turns(dev, chk, card, rng)
 
     # row 3's times at the wide carve's shape
     e_w = on_dev(rng.random((H_WIDE, W_WIDE), dtype=np.float32))
@@ -959,59 +983,7 @@ def phase_1c(dev, chk: Checks, card: str, rng, times: dict) -> dict:
         f"{times['find_seam_tiled'][1]!r} ms ({card})")
     del e_w
 
-    log("phase 1c: geometry sweep of the tiled kernel, device ms under "
-        "torch.profiler (columns a lane C, owned columns Wt, rows a block K, "
-        "warp-tiles a CTA)")
-    totals = {}
-    for b, h, w in GEOMETRY_SHAPES:
-        e = on_dev(rng.random((b, h, w), dtype=np.float32))
-        for c, wt, k in GEOMETRIES:
-            for warps in GEOMETRY_WARPS:
-                ms = device_ms(lambda: tiled(e, w, tile=wt, K=k, chunk=c,
-                                             warps=warps), 5)
-                key = (c, wt, k, warps)
-                totals[key] = totals.get(key, 0.0) + ms
-                log(f"  geometry B={b} {h}x{w} C={c} Wt={wt} K={k} "
-                    f"warps={warps}: {ms!r} ms ({card})")
-        del e
-    best = min(totals, key=totals.get)
-    log(f"  geometry sums over the shapes: "
-        + ", ".join(f"{k}: {v!r}" for k, v in sorted(totals.items(),
-                                                   key=lambda kv: kv[1]))
-        + f"; least {best}, the default is "
-        f"{(TILE_C, TILE_W, TILE_K, TILE_WARPS)} ({card})")
-
-    log("phase 1c: width sweep, find_seam.cu (its C entry, whatever the "
-        "route) against the tiled kernel, device ms under torch.profiler")
-    table = []
-    shapes = [(1, H8 if w == W8 else SWEEP_ROWS, w) for w in SWEEP_WIDTHS]
-    shapes += [(b, HB, w) for b, w in SWEEP_BATCHES]
-    for b, h, w in shapes:
-        e = on_dev(rng.random((b, h, w), dtype=np.float32))
-        reps = 5 if b * w >= 65536 else 10
-        one = (device_ms(lambda: _find_seams_one_cta(
-            KERNEL if b == 1 else BATCH_KERNEL, e, w, 0, "leftmost"), reps)
-            if w <= MAX_WIDTH else None)
-        til = device_ms(lambda: tiled(e, w), reps)
-        fwd = device_ms(lambda: tiled(e, w), reps, only="tile_rows")
-        route = seam_route(b, w)
-        row = {"B": b, "H": h, "W": w, "find_seam_ms": one,
-               "tiled_ms": til, "tiled_forward_ms": fwd,
-               "find_seam_us_a_row": None if one is None
-               else one * 1e3 / h, "tiled_us_a_row": til * 1e3 / h,
-               "ratio": None if one is None else one / til, "route": route}
-        table.append(row)
-        faster = "tiled" if one is None or til < one else "find_seam"
-        log(f"  sweep B={b} {h}x{w}: find_seam.cu {one!r} ms, tiled {til!r} "
-            f"ms (forward {fwd!r}), us a row {row['find_seam_us_a_row']!r} / "
-            f"{row['tiled_us_a_row']!r}, find_seam/tiled {row['ratio']!r}; "
-            f"faster: {faster}, seam_route: {route}"
-            f"{'' if faster == route else ' (DIFFERS)'} ({card})")
-        del e
-    log("  sweep table (B, H, W, find_seam.cu ms, tiled ms, ratio, route): "
-        + json.dumps([[r["B"], r["H"], r["W"], r["find_seam_ms"],
-                       r["tiled_ms"], r["ratio"], r["route"]]
-                      for r in table]))
+    sweeps_1c(dev, card, rng)
 
     log(f"phase 1c: api.carve({H_WIDE}x{W_WIDE}x3, -{WHOLE_SEAMS}) on the "
         "card")
@@ -1129,6 +1101,262 @@ def finish_1c(dev, chk: Checks, card: str, rng) -> None:
         log(f"  finish B={b} {h}x{w}: finish {parts['finish']!r} ms, "
             f"forward {parts['tile_rows']!r} ms a call ({card})")
         del e
+
+
+def split_1c(dev, chk: Checks, card: str, rng) -> None:
+    """Phase 1c's split forward (a CTA a tile: the DP warp and two helper
+    warps): bitwise against the plain find-seam at the benchmark's
+    planes (1080x1920, 2160x3840, 3456x2160), H = 2, 33, 65 and 1080,
+    windows that cut a tile, seams along tile edges and both borders, both
+    ties, rows of no multiple of 4 columns (4-byte copies), 512 x 40000,
+    stacks of 8, 16 and 32 images with per-image windows (the split
+    schedule forced where `split_forward` would not take it), several
+    tiles a CTA, and every geometry of the sweep;
+    `split_forwards` against the calls that took the split schedule."""
+    import torch
+
+    from dct_carver_tpu_torch.kernels.dp_kernel import (
+        TILE_W, TILED_KERNEL, _find_seams_tiled, find_seams)
+
+    def on_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def quantized(shape):
+        return on_dev((rng.integers(0, 3, shape) / 2).astype(np.float32))
+
+    calls = [0]
+    wants = {}
+
+    def hold(case, e, width, lo, tie, **kw):
+        kw.setdefault("split", True)
+        calls[0] += e.shape[1] > 1 and kw["split"]
+        key = (case.split(", C=")[0], tie)  # one input, several geometries
+        if key not in wants:
+            wants[key] = find_seams(e, width, lo, tie=tie, use_pallas=False)
+        got = _find_seams_tiled(e, width, lo, tie, **kw)
+        chk.equal("find_seam_tiled", f"split {case} {tie}", got, wants[key])
+        return got
+
+    log("phase 1c: the split forward (two helper warps a tile) vs the plain "
+        "find-seam")
+    before = TILED_KERNEL.split_forwards
+    lo = 3 * TILE_W + 5
+    for h, w in ((H, W), (H4, W4), (W_BIDIR, H4)):
+        e_r = on_dev(rng.random((1, h, w), dtype=np.float32))
+        e_q = quantized((1, h, w))
+        for tie in TIES:
+            hold(f"{h}x{w} random", e_r, w, 0, tie)
+            hold(f"{h}x{w} quantized [{lo}, {w - 131})", e_q, w - 131 - lo,
+                 lo, tie)
+        del e_r, e_q
+    for h in (2, 33, 65, H):
+        e = quantized((1, h, W))
+        for tie in TIES:
+            hold(f"{h}x{W} quantized", e, W, 0, tie)
+    for col in (0, TILE_W - 1, TILE_W, 5 * TILE_W, W - 1):
+        e_b = torch.ones((1, H, W), device=dev)
+        e_b[..., col] = 0
+        for tie in TIES:
+            got = hold(f"{H}x{W} seam along column {col}", e_b, W, 0, tie)
+            chk.require(bool((got == col).all()),
+                        f"split {H}x{W} {tie}: the seam runs along column "
+                        f"{col}")
+    for w in (W - 3, 5001):  # 4-byte copies of the energy
+        e = quantized((1, H, w))
+        for tie in TIES:
+            hold(f"{H}x{w} quantized", e, w, 0, tie)
+            hold(f"{H}x{w} quantized [5, {w - 10})", e, w - 15, 5, tie)
+    e_w = quantized((1, H_WIDE, W_WIDE))
+    for tie in TIES:
+        hold(f"{H_WIDE}x{W_WIDE} quantized", e_w, W_WIDE, 0, tie)
+        hold(f"{H_WIDE}x{W_WIDE} quantized [1000, {W_WIDE - 4000})", e_w,
+             W_WIDE - 5000, 1000, tie)
+    del e_w
+    for nb in (8, 16, 32):
+        es = quantized((nb, H, W))
+        ws = rng.integers(1, W + 1, nb).astype(np.int32)
+        widths = on_dev(ws)
+        los = on_dev((rng.random(nb) * (W + 1 - ws)).astype(np.int32))
+        for tie in TIES:
+            hold(f"B={nb} x {H}x{W} per-image windows", es, widths, los, tie)
+            if nb == 8:
+                hold(f"B={nb} x {H}x{W} per-image windows", es, widths, los,
+                     tie, max_warps=5)  # several tiles a CTA
+        del es
+    e_q = quantized((1, H, W))
+    for c, wt, k in GEOMETRIES:
+        for tie in TIES:
+            hold(f"{H}x{W} quantized' [{lo}, {W - 131}), C={c} Wt={wt} "
+                 f"K={k}", e_q, W - 131 - lo, lo, tie, tile=wt, K=k, chunk=c)
+    del e_q
+    got = TILED_KERNEL.split_forwards - before
+    chk.require(got == calls[0], f"split_forwards counted {got} of "
+                f"{calls[0]} split calls")
+
+
+def forward_turns(dev, chk: Checks, card: str, rng) -> None:
+    """The tiled forward's ns a DP row, one warp a tile against the split
+    schedule, in turns (old, new, new, old), FORWARD_TURNS rounds: alone at
+    the benchmark's planes (`tile_rows` device ms a call over H - 1 rows),
+    then inside graphed seam steps (64-seam `carve_n_seams` of a 1080p and
+    a 4K luma, the profiled carve replaying every seam; the schedule set by
+    SPLIT_MAX_TILES, the step cache cleared between), with
+    `split_forwards` against the seams carved."""
+    import statistics
+
+    import torch
+
+    from dct_carver_tpu_torch.kernels import dp_kernel
+    from dct_carver_tpu_torch.ops.carve import carve_n_seams, clear_step_cache
+
+    def on_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    order = (False, True, True, False) * FORWARD_TURNS
+
+    def report(what, ns):
+        log(f"  forward {what}: ns a DP row, one warp {ns[False]!r}, split "
+            f"{ns[True]!r}; medians {statistics.median(ns[False])!r} / "
+            f"{statistics.median(ns[True])!r} ({card})")
+
+    log("phase 1c: the forward's ns a DP row, one warp a tile vs split, in "
+        "turns")
+    for h, w in ((H, W), (H4, W4), (W_BIDIR, H4)):
+        e = on_dev(rng.random((1, h, w), dtype=np.float32))
+        ns = {False: [], True: []}
+        for split in order:
+            ms = device_ms(lambda: dp_kernel._find_seams_tiled(
+                e, w, 0, "leftmost", split=split), 20, only="tile_rows")
+            if ms is not None:
+                ns[split].append(ms * 1e6 / (h - 1))
+        if ns[False] and ns[True]:
+            report(f"alone {h}x{w}", ns)
+        del e
+    limit = dp_kernel.SPLIT_MAX_TILES
+    for h, w in ((H, W), (H4, W4)):
+        luma = on_dev(rng.random((h, w), dtype=np.float32))
+        ns = {False: [], True: []}
+        for split in order:
+            # no stack takes the split schedule below 0 tiles
+            dp_kernel.SPLIT_MAX_TILES = limit if split else -1
+            clear_step_cache()
+            before = dp_kernel.TILED_KERNEL.split_forwards
+            try:  # a warm carve that captures, then one that replays
+                _, _, top, _ = device_profile(lambda: carve_n_seams(
+                    luma, SEAMS, 8, 0.0, 1.0), top=64, host=False)
+            finally:
+                dp_kernel.SPLIT_MAX_TILES = limit
+            counted = dp_kernel.TILED_KERNEL.split_forwards - before
+            chk.require(counted == (2 * SEAMS if split else 0),
+                        f"graphed {h}x{w} carves, split={split}: "
+                        f"split_forwards {counted}")
+            us = sum(t for name, t, _ in top if "tile_rows" in name)
+            ns[split].append(us * 1e3 / (SEAMS * (h - 1)))
+        report(f"in graphed seam steps {h}x{w}", ns)
+        del luma
+    clear_step_cache()
+
+
+def sweeps_1c(dev, card: str, rng) -> None:
+    """Phase 1c's sweeps: the tiled kernel's geometry and forward schedule
+    (device ms summed over GEOMETRY_SHAPES, and over the benchmark's three
+    planes alone; the constants TILE_* are the least), the split schedule
+    against one warp a tile over stacks and long rows (SPLIT_MAX_TILES),
+    and the width sweep of find_seam.cu against the tiled kernel
+    (`seam_route`'s thresholds)."""
+    import torch
+
+    from dct_carver_tpu_torch.kernels.dp_kernel import (
+        BATCH_KERNEL, KERNEL, MAX_WIDTH, TILE_C, TILE_K, TILE_W, TILE_WARPS,
+        _find_seams_one_cta, _find_seams_tiled, seam_route, split_forward)
+
+    def on_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def tiled(e, width, lo=0, tie="leftmost", **kw):
+        return _find_seams_tiled(e, width, lo, tie, **kw)
+
+    log("phase 1c: geometry sweep of the tiled kernel, device ms under "
+        "torch.profiler (columns a lane C, owned columns Wt, rows a block K, "
+        "warp-tiles a CTA, split schedule)")
+    totals, planes = {}, {}
+    for i, (b, h, w) in enumerate(GEOMETRY_SHAPES):
+        e = on_dev(rng.random((b, h, w), dtype=np.float32))
+        for c, wt, k in GEOMETRIES:
+            for warps, split in GEOMETRY_SCHEDULES:
+                ms = device_ms(lambda: tiled(e, w, tile=wt, K=k, chunk=c,
+                                             warps=warps, split=split), 5)
+                key = (c, wt, k, warps, split)
+                totals[key] = totals.get(key, 0.0) + ms
+                if i < 3:
+                    planes[key] = planes.get(key, 0.0) + ms
+                log(f"  geometry B={b} {h}x{w} C={c} Wt={wt} K={k} "
+                    f"warps={warps} split={split}: {ms!r} ms ({card})")
+        del e
+    for what, sums in (("the shapes", totals),
+                       ("the benchmark's planes", planes)):
+        log(f"  geometry sums over {what}: "
+            + ", ".join(f"{k}: {v!r}" for k, v in sorted(
+                sums.items(), key=lambda kv: kv[1]))
+            + f"; least {min(sums, key=sums.get)}, the default is "
+            f"{(TILE_C, TILE_W, TILE_K, TILE_WARPS)}, split where "
+            f"split_forward says ({card})")
+
+    log("phase 1c: split sweep, the forward's device ms under "
+        "torch.profiler, one warp a tile against the split schedule")
+    table = []
+    shapes = [(b, HB, w) for b, w in SPLIT_BATCHES] + list(SPLIT_LONG)
+    for b, h, w in shapes:
+        e = on_dev(rng.random((b, h, w), dtype=np.float32))
+        reps = 5 if b * w >= 65536 else 10
+        one = device_ms(lambda: tiled(e, w, split=False), reps,
+                        only="tile_rows")
+        two = device_ms(lambda: tiled(e, w, split=True), reps,
+                        only="tile_rows")
+        tiles = b * -(-w // TILE_W)
+        chosen = split_forward(b, w)
+        faster = None if one is None or two is None else two < one
+        table.append([b, h, w, tiles, one, two, chosen])
+        log(f"  split B={b} {h}x{w} tiles={tiles}: one warp {one!r} ms, "
+            f"split {two!r} ms; faster: split={faster}, split_forward: "
+            f"{chosen}{'' if faster in (None, chosen) else ' (DIFFERS)'} "
+            f"({card})")
+        del e
+    log("  split table (B, H, W, tiles, one-warp ms, split ms, split "
+        "chosen): " + json.dumps(table))
+
+    log("phase 1c: width sweep, find_seam.cu (its C entry, whatever the "
+        "route) against the tiled kernel, device ms under torch.profiler")
+    table = []
+    shapes = [(1, H8 if w == W8 else SWEEP_ROWS, w) for w in SWEEP_WIDTHS]
+    shapes += [(b, HB, w) for b, w in SWEEP_BATCHES]
+    for b, h, w in shapes:
+        e = on_dev(rng.random((b, h, w), dtype=np.float32))
+        reps = 5 if b * w >= 65536 else 10
+        one = (device_ms(lambda: _find_seams_one_cta(
+            KERNEL if b == 1 else BATCH_KERNEL, e, w, 0, "leftmost"), reps)
+            if w <= MAX_WIDTH else None)
+        til = device_ms(lambda: tiled(e, w), reps)
+        fwd = device_ms(lambda: tiled(e, w), reps, only="tile_rows")
+        route = seam_route(b, w)
+        row = {"B": b, "H": h, "W": w, "find_seam_ms": one,
+               "tiled_ms": til, "tiled_forward_ms": fwd,
+               "find_seam_us_a_row": None if one is None
+               else one * 1e3 / h, "tiled_us_a_row": til * 1e3 / h,
+               "ratio": None if one is None else one / til, "route": route}
+        table.append(row)
+        faster = "tiled" if one is None or til < one else "find_seam"
+        log(f"  sweep B={b} {h}x{w}: find_seam.cu {one!r} ms, tiled {til!r} "
+            f"ms (forward {fwd!r}, split {split_forward(b, w)}), us a row "
+            f"{row['find_seam_us_a_row']!r} / {row['tiled_us_a_row']!r}, "
+            f"find_seam/tiled {row['ratio']!r}; faster: {faster}, "
+            f"seam_route: {route}"
+            f"{'' if faster == route else ' (DIFFERS)'} ({card})")
+        del e
+    log("  sweep table (B, H, W, find_seam.cu ms, tiled ms, ratio, route): "
+        + json.dumps([[r["B"], r["H"], r["W"], r["find_seam_ms"],
+                       r["tiled_ms"], r["ratio"], r["route"]]
+                      for r in table]))
 
 
 def phase_3(dev, chk: Checks, card: str, rng, times: dict) -> list:
@@ -3454,7 +3682,8 @@ def main() -> int:
     from dct_carver_tpu_torch.kernels import build
     from dct_carver_tpu_torch.kernels.apply_kernel import apply_seam
     from dct_carver_tpu_torch.kernels.dp_kernel import (
-        KERNEL, MAX_WIDTH, _find_seams_one_cta, find_seam, seam_route)
+        KERNEL, MAX_WIDTH, TILED_KERNEL, _find_seams_one_cta, find_seam,
+        seam_route)
     from dct_carver_tpu_torch.kernels.energy_kernel import dct_energy
     from dct_carver_tpu_torch.kernels.strip_kernel import strip_update
     from dct_carver_tpu_torch.models.carver import Carver
@@ -3681,6 +3910,9 @@ def main() -> int:
         for name, n in want.items():
             chk.require(got[name] == n,
                         f"{run} carve: {name} kernel launched {n} times")
+        chk.require(TILED_KERNEL.split_forwards == SEAMS,
+                    f"{run} carve: split_forwards "
+                    f"{TILED_KERNEL.split_forwards} of {SEAMS} tiled calls")
         need = SEAMS - 1 if run == "first" else SEAMS
         chk.require(replays[0] == need,
                     f"{run} headline api.carve: {replays[0]} graph replays "
@@ -3780,6 +4012,7 @@ def main() -> int:
                 and np.array_equal(ka.visibility_map, pa.visibility_map),
                 f"4K bidirectional {few}+{few} seams == plain path")
     torch.cuda.synchronize()
+    kernels.reset_launches()
     t = time.perf_counter()
     big = Carver(img4, blocksize=16, device="cuda").resize(
         W4 - SEAMS, H4 - SEAMS)
@@ -3787,6 +4020,10 @@ def main() -> int:
     sec = time.perf_counter() - t
     chk.require(big.image.shape == (H4 - SEAMS, W4 - SEAMS, 3),
                 "4K bidirectional output shape")
+    chk.require(TILED_KERNEL.split_forwards == 2 * SEAMS,
+                f"4K bidirectional: split_forwards "
+                f"{TILED_KERNEL.split_forwards} of {2 * SEAMS} tiled calls "
+                f"(both passes)")
     px = H4 * W4 * SEAMS + (W4 - SEAMS) * H4 * SEAMS
     log(f"  4K bidirectional {SEAMS}+{SEAMS} seams: {sec!r} s, "
         f"{px / sec / 1e6!r} Mpix/s (kernel path, host round trip "
@@ -4002,6 +4239,39 @@ extern "C" int sl_scatter(int layout, float* energy, const float* strip,
 """
 STRIP_LAYOUT_SHAPES = ((1, H, W), (NB, HB, WB), (NB_TIMED, HB, WB))
 STRIP_LAYOUT_NS = (2, 4, 8, 16)
+
+
+def tiled_forward() -> int:
+    """Phase 0's build, then phase 1c's tiled forward alone: the split
+    schedule's bitwise cases and `split_forwards` count (`split_1c`), its
+    ns a DP row against one warp a tile in turns (`forward_turns`) and the
+    sweeps that set its constants (`sweeps_1c`), on card 0."""
+    import torch
+
+    from dct_carver_tpu_torch.kernels import build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    card = card_line()
+    dev = torch.device("cuda", 0)
+    log(f"tiled forward: {torch.cuda.get_device_name(0)} | nvidia-smi: "
+        f"{card} | torch {torch.__version__} cuda {torch.version.cuda}")
+    build.load()
+    info = build.build_info()
+    log(f"  kernels built in {info.seconds:.1f} s: {info.path}")
+    for line in info.log.splitlines():
+        if any(w in line for w in ("entry function", "registers", "spill")):
+            log(f"  ptxas: {line.strip()}")
+    rng = np.random.default_rng(SEED)
+    chk = Checks()
+    split_1c(dev, chk, card, rng)
+    forward_turns(dev, chk, card, rng)
+    sweeps_1c(dev, card, rng)
+    for f in chk.failures:
+        log(f"FAILED: {f}")
+    log(f"tiled forward: {len(chk.failures)} failures ({card})")
+    return 1 if chk.failures else 0
 
 
 def strip_layouts() -> int:
@@ -4307,6 +4577,8 @@ if __name__ == "__main__":
         sys.exit(band_times_of(sys.argv[2]))
     if sys.argv[1:2] == ["--multi-card"] and len(sys.argv) == 2:
         sys.exit(multi_card())
+    if sys.argv[1:2] == ["--tiled-forward"] and len(sys.argv) == 2:
+        sys.exit(tiled_forward())
     if sys.argv[1:2] == ["--multiproc-worker"] and len(sys.argv) == 7:
         # exit without the distributed shutdown, which can hang after a
         # peer failed; what matters is flushed first
@@ -4326,7 +4598,8 @@ if __name__ == "__main__":
     if len(sys.argv) > 1:
         print("usage: chip_smoke.py [--first-carve ROOT | --strip-layouts | "
               "--band-variants | --band-times ROOT | --multi-card | "
-              "--multiproc-worker RANK NPROC PORT BACKEND DIR]",
+              "--tiled-forward | --multiproc-worker RANK NPROC PORT BACKEND "
+              "DIR]",
               file=sys.stderr)
         sys.exit(2)
     sys.exit(main())

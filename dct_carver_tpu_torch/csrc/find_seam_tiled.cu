@@ -1,6 +1,6 @@
 // Find one vertical seam in each of B images by the masked min-plus DP over
-// column tiles, one warp a tile: the forward in K-row blocks, then the
-// argmin of the last row and the backtrack.
+// column tiles: the forward in K-row blocks, then the argmin of the last row
+// and the backtrack.
 //
 // Replaces dct_carver_tpu/pallas/dp_kernel.py's streamed route, which takes
 // any width: dp_forward (the pl.pallas_call at :124, kernel
@@ -10,37 +10,84 @@
 //
 // What bounds it on an H100: latency, twice over.  Row r depends on row
 // r-1, so a tile's rows run one after the other; one CTA a row
-// (find_seam.cu) pays a barrier over all its warps every row.  Here a tile
-// is one warp and a row needs no barrier, only two shuffles, so a row costs
-// the cycles one warp takes to send out its instructions (edges, minimums,
-// adds, parent bytes, the staging and the stores).  Then a block costs a round trip
-// between warps: a tile's halo columns come from its neighbours' last row
-// of the block before, so each block ends with stores that the neighbours
-// wait to see through the L2.  K rows a block amortise it; the halo of
-// Hh >= K columns a side that keeps a block's owned values exact costs
-// compute, which a latency-bound row has to spare.
+// (find_seam.cu) pays a barrier over all its warps every row.  Here a tile's
+// DP runs in one warp and a row needs no barrier, only two shuffles, so a
+// row costs the cycles that warp takes to send out its instructions.  Then
+// a block costs a round trip between warps: a tile's halo columns come from
+// its neighbours' last row of the block before, so each block ends with
+// stores that the neighbours wait to see through the L2.  K rows a block
+// amortise it; the halo of Hh >= K columns a side that keeps a block's
+// owned values exact costs compute, which a latency-bound row has to spare.
 //
-// Design.  Lane l owns the C contiguous columns [l*C, l*C + C) of an
-// extended row of at most 32*C columns: Wt owned columns and Hh = K rounded
-// up to 4 halo columns a side (Hh <= Wt, so the halo reaches only the two
-// neighbouring tiles; lanes past Wt + 2*Hh hold +inf).  Each row the lane
-// takes its neighbours' edge cells with __shfl_up_sync/__shfl_down_sync
-// (+inf beyond lanes 0 and 31) and runs chunk_row (dp_rows.cuh), the op
-// order m = e + min(min(left, centre), right) with __fadd_rn and the
-// tie-most parent_byte; a tile whose lanes all lie in the image's column
-// window skips the window's test.  A value |dc| columns from the extended
-// row's ends is exact for |dc| rows (parallel/spatial.py :15-19's
-// argument), so the owned columns are exact for all K rows of a block that
-// starts from exact values on the whole extended row.  Each lane stages its
-// own energy columns by cp.async into a per-lane ring of shared memory,
-// kStages - 1 rows ahead (16 bytes a lane a row at C = 4); a lane reads
-// only what it copied, so the ring needs cp.async.wait_group and no
-// barrier.  The rows are unrolled kStages at a time, so every ring slot is
-// a constant; the staging's addresses advance by a pointer a row, and the
-// tile's column, window and owned words are worked out once a block.
-// Parents go out as one packed 32-bit word per 4 owned columns a row (128 B
-// a warp a row at C = 4), into the same (B, H, Wp) int8 scratch as
+// Geometry.  Lane l of the DP warp owns the C contiguous columns [l*C,
+// l*C + C) of an extended row of at most 32*C columns: Wt owned columns and
+// Hh = K rounded up to 4 halo columns a side (Hh <= Wt, so the halo reaches
+// only the two neighbouring tiles; lanes past Wt + 2*Hh hold +inf).  Each
+// row the lane takes its neighbours' edge cells with __shfl_up_sync/
+// __shfl_down_sync (+inf beyond lanes 0 and 31) and runs chunk_row
+// (dp_rows.cuh), the op order m = e + min(min(left, centre), right) with
+// __fadd_rn; a tile whose lanes all lie in the image's column window skips
+// the window's test.  A value |dc| columns from the extended row's ends is
+// exact for |dc| rows (parallel/spatial.py :15-19's argument), so the owned
+// columns are exact for all K rows of a block that starts from exact values
+// on the whole extended row.  Parents go out as one packed 32-bit word per
+// 4 owned columns a row, into the same (B, H, Wp) int8 scratch as
 // find_seam.cu; the parents of halo columns are never stored.
+//
+// Two schedules of the same rows, chosen by SPLIT
+// (kernels/dp_kernel.py::split_forward picks it by the tile count):
+//
+// One warp a tile (SPLIT false; up to 8 tiles a CTA, one warp each).  The
+// warp also stages its energy and writes its parents: each lane copies its
+// own columns by cp.async into a per-lane ring of shared memory, kStages - 1
+// rows ahead (16 bytes a lane a row at C = 4); a lane reads only what it
+// copied, so the ring needs cp.async.wait_group and no barrier.  The rows
+// are unrolled kStages at a time, so every ring slot is a constant; each
+// row the lane also works out the tie-most parent_byte of its columns and
+// stores its owned words (128 B a warp a row at C = 4).  It fills the card
+// best when there are many tiles.
+//
+// Split (SPLIT true): a tile is one CTA of 1 + kHelpers warps, and the
+// warp that carries the dependent chain does nothing else.
+//   - The DP warp, each row: the two shuffles, one ld.shared.v4 (C / 4 of
+//     them) of the energy, fminf(fminf(l, c), r) and __fadd_rn a column,
+//     and one st.shared.v4 of the row it starts from into the rows ring;
+//     the frontier's loads and stores at the ends of a block, as below.
+//   - The helper warps stage the energy of every group of kGroup rows
+//     kDepth - 1 groups ahead with cp.async (16-byte copies where rows are
+//     16-byte aligned, else 4-byte ones), across the ends of blocks, so a
+//     block's first rows are in shared memory before its frontier is; and
+//     for each group the DP warp has left, they read its rows back,
+//     recompute mn = fminf(fminf(l, c), r) from the same three values and
+//     store parent_byte's packed words for the owned columns.  A parent
+//     depends only on the row before, so each is bitwise the one-warp
+//     schedule's.
+//   Two rings of kDepth = 3 slots of one group each: energy (helpers write,
+//   DP warp reads) and rows (the reverse).  Group j (numbered over the
+//   CTA's whole run of blocks and tiles, the same on both sides) uses slot
+//   j % 3 of both.  Named barriers, each with all 32 (1 + kHelpers)
+//   threads, two IDs a direction used by group parity:
+//     E(j) (IDs 1-2): the helpers arrive once group j's energy has landed
+//       (cp.async.wait_group in each thread first); the DP warp syncs on it
+//       before group j.
+//     R(j) (IDs 3-4): the DP warp arrives after group j, when its rows are
+//       in the rows ring and its energy has been read; the helpers sync on
+//       it, arrive at E(j + 2) (staged a group earlier), stage group j + 3
+//       into slot j % 3 and then write group j's parents.
+//   A barrier's arrivals order the arriving threads' earlier shared-memory
+//   accesses before the syncing threads' later ones.  No race:
+//     - Energy, read after write: group j is read after E(j), which follows
+//       every copy of it.  Write after read: group j + 3 is staged into
+//       slot j % 3 after R(j), when the DP warp is done with group j; by
+//       E(j + 3)'s absence the DP warp is at most in group j + 2.
+//     - Rows, read after write: group j is read after R(j).  Write after
+//       read: the DP warp writes group j + 3 into slot j % 3 after E(j + 3),
+//       to which the helpers arrive only after group j's parents.
+//     - The IDs: the helpers arrive at E(j + 2) after R(j), so the DP warp
+//       has passed E(j), the last use of that ID; the DP warp arrives at
+//       R(j + 2) after E(j + 2), so the helpers have passed R(j).
+//   So the DP warp waits on a helper only when the helpers fall two groups
+//   behind, and a group costs it one bar.sync and one bar.arrive.
 //
 // One launch runs every block of every tile.  The grid is cooperative
 // (cudaLaunchCooperativeKernel) and at most as large as the occupancy API
@@ -50,8 +97,8 @@
 // launch becomes a cooperative kernel node and the frontier's memset a
 // memset node; CUDA 12.8 accepts both (chip_smoke.py phase 2 replays such
 // graphs and holds their seams against the plain DP).  Where
-// there are more tiles (B x ceil(W / Wt)) than resident warps, each warp
-// owns a run of adjacent tiles and does block k of all of them before
+// there are more tiles (B x ceil(W / Wt)) than resident DP warps, each DP
+// warp owns a run of adjacent tiles and does block k of all of them before
 // block k + 1.
 //
 // The frontier has one slice a block, front[k] (B, W): after block k a
@@ -88,11 +135,14 @@ namespace dct_carver {
 
 constexpr int kFinishThreads = 1024;
 constexpr int kMaxTileWarps = 8;  // warp-tiles a CTA at most
+// helper warps a split tile: with one the helpers set the pace, three are
+// no faster than two (an NVIDIA H100 80GB HBM3; PERF.md §6)
+constexpr int kHelpers = 2;
 constexpr int kMaxDevices = 64;   // cards whose occupancy is kept
 
-// A warp-tile's staging ring: kStages rows of 32 lanes, each lane's C
-// columns kPitch floats apart (dp_rows.cuh's bank-conflict-free pitch):
-// 8 KB (C = 4) or 24 KB (C = 8) a warp.
+// A warp-tile's staging ring (one warp a tile): kStages rows of 32 lanes,
+// each lane's C columns kPitch floats apart (dp_rows.cuh's
+// bank-conflict-free pitch): 8 KB (C = 4) or 24 KB (C = 8) a warp.
 template <int C>
 struct WarpRing {
   static_assert(C == 4 || C == 8, "a warp-tile has 4 or 8 columns a lane");
@@ -101,6 +151,39 @@ struct WarpRing {
   static constexpr int kSlot = 32 * kPitch;  // floats a slot
   static constexpr size_t kBytes = sizeof(float) * kStages * kSlot;
 };
+
+// The split schedule's two rings, energy then rows: kDepth slots of a group
+// of kGroup rows each, a row's 32 chunks kPitch floats apart, as the DP
+// warp's lanes hold them: 48 KB (C = 4) or 72 KB (C = 8) a CTA.
+template <int C>
+struct SplitRing {
+  static_assert(C == 4 || C == 8, "a warp-tile has 4 or 8 columns a lane");
+  static constexpr int kPitch = Chunk<C>::kPitch;
+  static constexpr int kRow = 32 * kPitch;        // floats a row
+  static constexpr int kGroup = C == 4 ? 16 : 8;  // rows a group
+  static constexpr int kDepth = 3;                // groups a ring
+  static constexpr int kSlot = kGroup * kRow;     // floats a group
+  static constexpr size_t kBytes = 2 * sizeof(float) * kDepth * kSlot;
+  // where extended column c >= 0 sits in a row
+  __device__ static constexpr int at(int c) {
+    const unsigned u = c;
+    return u / C * kPitch + u % C;
+  }
+};
+constexpr int kEnergyBar = 1;  // E(j): named barrier kEnergyBar + j % 2
+constexpr int kRowsBar = 3;    // R(j): named barrier kRowsBar + j % 2
+
+// Named barriers in their non-.aligned form: a warp's threads may reach
+// them apart (after the helpers' uneven parent loops, or the DP warp's
+// frontier wait).
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("barrier.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("barrier.arrive %0, %1;\n" ::"r"(id), "r"(threads)
+               : "memory");
+}
 
 // A frontier cell: a DP value and the number of the block whose last row
 // it is, in one 64-bit word, so that one relaxed access moves both.
@@ -131,7 +214,8 @@ struct Tiling {
   int Hh;      // halo columns a side
   int K;       // rows a block
   int blocks;  // ceil((H - 1) / K)
-  int run;     // tiles a warp
+  int run;     // tiles a DP warp
+  __device__ int rows(int k) const { return min(K, H - 1 - k * K); }
 };
 
 // One lane's staging of a segment (block k of tile g): its columns of the
@@ -169,25 +253,79 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int c0,
   }
 }
 
-// The forward: every block of every tile of warp (blockIdx.x * warps a CTA
-// + warp in the CTA)'s run [g_lo, g_hi) of the B * tiles tiles.  Rows are
-// staged D - 1 ahead within a segment (block k of tile g); a segment's
-// first D - 1 rows are staged as the segment before it ends, after its
-// frontier cells are out, so that they land while the next block waits
-// for its neighbours' cells.  Every row commits one cp.async group (empty
-// past the segment's end), and a segment's first D - 1 rows are D - 1
-// groups: row n of a segment is then its n-th group, in ring slot
-// (n - 1) % D, a constant once the rows are unrolled D at a time.
+// A lane's row 0 of block k of a tile of image b (its first column c0):
+// the energy's row 0 at k = 0, then block k - 1's last row, each cell once
+// its tag says block k - 1 wrote it; +inf outside `win`.
+template <int C>
+__device__ __forceinline__ void block_row0(float (&m)[C], const float* E_all,
+                                           const unsigned long long* front,
+                                           const Tiling& t, int k, int b,
+                                           int c0, const Window& win) {
+  const float inf = INFINITY;
+  if (k == 0) {
+    const float* f = E_all + static_cast<long long>(b) * t.H * t.W + c0;
+#pragma unroll
+    for (int i = 0; i < C; ++i) m[i] = win.has(i) ? __ldcg(f + i) : inf;
+    return;
+  }
+  const unsigned long long* f =
+      front + (k - 1) * static_cast<size_t>(t.B) * t.W +
+      static_cast<long long>(b) * t.W + c0;
+  unsigned need = 0;
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    m[i] = inf;
+    if (win.has(i)) need |= 1u << i;
+  }
+  while (need) {  // all of the lane's loads in flight at once
+    unsigned long long w[C];
+#pragma unroll
+    for (int i = 0; i < C; ++i)
+      w[i] = need >> i & 1u ? load_cell(f + i) : 0ull;
+#pragma unroll
+    for (int i = 0; i < C; ++i)
+      if (need >> i & 1u && static_cast<int>(w[i] >> 32) == k) {
+        m[i] = __uint_as_float(static_cast<unsigned>(w[i]));
+        need &= ~(1u << i);
+      }
+  }
+}
+
+// The owned part of block k's last row (the lane's columns j0.. of a tile
+// whose extended row starts at column col0), tagged k + 1: the next block's
+// row 0, or the finish's last row.
+template <int C>
+__device__ __forceinline__ void store_row(unsigned long long* front,
+                                          const float (&m)[C], const Tiling& t,
+                                          int k, int b, int col0, int j0) {
+  unsigned long long* fn = front + k * static_cast<size_t>(t.B) * t.W +
+                           static_cast<long long>(b) * t.W + col0 + j0;
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    const int c = j0 + i;
+    if (c >= t.Hh && c < t.Hh + t.Wt && col0 + c < t.W)
+      store_cell(fn + i, m[i], k + 1);
+  }
+}
+
+// The one-warp schedule: every block of every tile of warp (blockIdx.x *
+// warps a CTA + warp in the CTA)'s run [g_lo, g_hi) of the B * tiles tiles.
+// Rows are staged D - 1 ahead within a segment (block k of tile g); a
+// segment's first D - 1 rows are staged as the segment before it ends,
+// after its frontier cells are out, so that they land while the next block
+// waits for its neighbours' cells.  Every row commits one cp.async group
+// (empty past the segment's end), and a segment's first D - 1 rows are D -
+// 1 groups: row n of a segment is then its n-th group, in ring slot (n - 1)
+// % D, a constant once the rows are unrolled D at a time.
 template <int C, bool VEC, bool RIGHTMOST>
-__global__ void __launch_bounds__(32 * kMaxTileWarps)
-tile_rows_kernel(const float* __restrict__ E_all, unsigned long long* front,
-                 int8_t* __restrict__ parents_all, Tiling t,
-                 const int* __restrict__ lo_arr,
-                 const int* __restrict__ width_arr, int lo0, int width0) {
+__device__ __forceinline__ void warp_rows(
+    const float* __restrict__ E_all, unsigned long long* front,
+    int8_t* __restrict__ parents_all, const Tiling& t,
+    const int* __restrict__ lo_arr, const int* __restrict__ width_arr,
+    int lo0, int width0, unsigned char* smem) {
   using Ring = WarpRing<C>;
   constexpr int D = Ring::kStages;
   constexpr int SL = Ring::kSlot;
-  extern __shared__ __align__(16) unsigned char smem[];
   const unsigned all = 0xffffffffu;
   const float inf = INFINITY;
   const int lane = threadIdx.x & 31;
@@ -202,7 +340,6 @@ tile_rows_kernel(const float* __restrict__ E_all, unsigned long long* front,
   const int Wp = parent_pitch(W);
   const int j0 = lane * C;
   const bool lane_in = j0 < We;
-  const size_t BW = static_cast<size_t>(t.B) * W;
   float* const ring = reinterpret_cast<float*>(smem) +
                       warp_in_cta * D * SL + lane * Ring::kPitch;
 
@@ -217,46 +354,18 @@ tile_rows_kernel(const float* __restrict__ E_all, unsigned long long* front,
   };
 
   Segment seg(E_all, t, 0, g_lo, j0);
-  prologue(seg, min(t.K, t.H - 1));
+  prologue(seg, t.rows(0));
   for (int k = 0; k < t.blocks; ++k) {
     const int r0 = k * t.K;
-    const int N = min(t.K, t.H - 1 - r0);
+    const int N = t.rows(k);
     for (int g = g_lo; g < g_hi; ++g) {
       const int b = g / t.tiles;
       const int col0 = seg.c0 - j0;
       const int lo = lo_arr ? lo_arr[b] : lo0;
       const int hi = min(lo + (width_arr ? width_arr[b] : width0), W);
       const Window win(lo - col0, min(hi - col0, We), j0, C);
-      // the block's row 0: the energy's row 0, then block k - 1's last row,
-      // each cell once its tag says block k - 1 wrote it
       float m[C];
-      if (k == 0) {
-        const float* f =
-            E_all + static_cast<long long>(b) * t.H * W + seg.c0;
-#pragma unroll
-        for (int i = 0; i < C; ++i) m[i] = win.has(i) ? __ldcg(f + i) : inf;
-      } else {
-        const unsigned long long* f =
-            front + (k - 1) * BW + static_cast<long long>(b) * W + seg.c0;
-        unsigned need = 0;
-#pragma unroll
-        for (int i = 0; i < C; ++i) {
-          m[i] = inf;
-          if (win.has(i)) need |= 1u << i;
-        }
-        while (need) {  // all of the lane's loads in flight at once
-          unsigned long long w[C];
-#pragma unroll
-          for (int i = 0; i < C; ++i)
-            w[i] = need >> i & 1u ? load_cell(f + i) : 0ull;
-#pragma unroll
-          for (int i = 0; i < C; ++i)
-            if (need >> i & 1u && static_cast<int>(w[i] >> 32) == k) {
-              m[i] = __uint_as_float(static_cast<unsigned>(w[i]));
-              need &= ~(1u << i);
-            }
-        }
-      }
+      block_row0<C>(m, E_all, front, t, k, b, seg.c0, win);
       bool own[C / 4];  // which of the lane's words of parents it stores
 #pragma unroll
       for (int q = 0; q < C / 4; ++q) {
@@ -299,26 +408,248 @@ tile_rows_kernel(const float* __restrict__ E_all, unsigned long long* front,
         rows(std::false_type{});
       else
         rows(std::true_type{});
-      // the owned part of the block's last row, tagged k + 1: the next
-      // block's row 0, or the finish's last row
-      unsigned long long* fn =
-          front + k * BW + static_cast<long long>(b) * W + seg.c0;
-#pragma unroll
-      for (int i = 0; i < C; ++i) {
-        const int c = j0 + i;
-        if (c >= t.Hh && c < t.Hh + t.Wt && col0 + c < W)
-          store_cell(fn + i, m[i], k + 1);
-      }
+      store_row<C>(front, m, t, k, b, col0, j0);
       // stage the next segment's first rows
       const bool last = g + 1 == g_hi;
       const int kn = last ? k + 1 : k;
       if (kn < t.blocks) {
         seg = Segment(E_all, t, kn, last ? g_lo : g + 1, j0);
-        prologue(seg, min(t.K, t.H - 1 - kn * t.K));
+        prologue(seg, t.rows(kn));
       }
     }
   }
   cp_async_wait<0>();
+}
+
+// The split schedule's DP warp (warp 0 of CTA blockIdx.x, whose run is
+// tiles [g_lo, g_hi)): rows 1 .. N of each segment, a group of G rows
+// between E(j) and R(j); the energy of group j from slot j % 3 of the
+// energy ring, and the row each step starts from into slot j % 3 of the
+// rows ring.
+template <int C, bool RIGHTMOST>
+__device__ __forceinline__ void split_dp(
+    const float* __restrict__ E_all, unsigned long long* front,
+    const Tiling& t, const int* __restrict__ lo_arr,
+    const int* __restrict__ width_arr, int lo0, int width0, int g_lo,
+    int g_hi, const float* ering, float* rring) {
+  using Ring = SplitRing<C>;
+  constexpr int G = Ring::kGroup;
+  constexpr int kThreads = 32 * (1 + kHelpers);
+  const unsigned all = 0xffffffffu;
+  const float inf = INFINITY;
+  const int lane = threadIdx.x;
+  const int We = t.Wt + 2 * t.Hh;
+  const int j0 = lane * C;
+  const float* const e_lane = ering + lane * Ring::kPitch;
+  float* const r_lane = rring + lane * Ring::kPitch;
+  int j = 0;  // the run's group
+  for (int k = 0; k < t.blocks; ++k) {
+    const int N = t.rows(k);
+    for (int g = g_lo; g < g_hi; ++g) {
+      const int b = g / t.tiles;
+      const int col0 = (g - b * t.tiles) * t.Wt - t.Hh;
+      const int lo = lo_arr ? lo_arr[b] : lo0;
+      const int hi = min(lo + (width_arr ? width_arr[b] : width0), t.W);
+      const Window win(lo - col0, min(hi - col0, We), j0, C);
+      float m[C];
+      block_row0<C>(m, E_all, front, t, k, b, col0 + j0, win);
+      const auto rows = [&](auto masked) {
+        constexpr bool MASKED = decltype(masked)::value;
+        for (int n0 = 0; n0 < N; n0 += G, ++j) {
+          const int slot = j % Ring::kDepth * Ring::kSlot;
+          bar_sync(kEnergyBar + j % 2, kThreads);  // the group has landed
+          alignas(16) float e[G][C];  // rows past N read stale slots: unused
+#pragma unroll
+          for (int s = 0; s < G; ++s)
+#pragma unroll
+            for (int q = 0; q < C / 4; ++q)
+              *reinterpret_cast<float4*>(&e[s][4 * q]) =
+                  *reinterpret_cast<const float4*>(e_lane + slot +
+                                                   s * Ring::kRow + 4 * q);
+#pragma unroll
+          for (int s = 0; s < G; ++s) {
+            if (n0 + s >= N) break;
+            float left = __shfl_up_sync(all, m[C - 1], 1);
+            float right = __shfl_down_sync(all, m[0], 1);
+            if (lane == 0) left = inf;
+            if (lane == 31) right = inf;
+            float* out = r_lane + slot + s * Ring::kRow;
+#pragma unroll
+            for (int q = 0; q < C / 4; ++q)
+              *reinterpret_cast<float4*>(out + 4 * q) = make_float4(
+                  m[4 * q], m[4 * q + 1], m[4 * q + 2], m[4 * q + 3]);
+            float4 unused[C / 4];
+            chunk_row<C, false, RIGHTMOST, MASKED>(m, e[s], win, left, right,
+                                                   unused);
+          }
+          bar_arrive(kRowsBar + j % 2, kThreads);  // rows out, energy read
+        }
+      };
+      if (__all_sync(all, win.a == 0 && win.b == C))
+        rows(std::false_type{});
+      else
+        rows(std::true_type{});
+      store_row<C>(front, m, t, k, b, col0, j0);
+    }
+  }
+}
+
+// The split schedule's helper warps (warps 1 .. kHelpers of the CTA): the
+// energy of group j + 2 announced and group j + 3 staged after R(j), then
+// group j's parents.  Thread h of the helpers takes the 4-column units h,
+// h + 32 kHelpers, ... of a group, row by row.
+template <int C, bool VEC, bool RIGHTMOST>
+__device__ __forceinline__ void split_helpers(
+    const float* __restrict__ E_all, int8_t* __restrict__ parents_all,
+    const Tiling& t, int g_lo, int g_hi, float* ering, const float* rring) {
+  using Ring = SplitRing<C>;
+  constexpr int G = Ring::kGroup;
+  constexpr int D = Ring::kDepth;
+  static_assert(D == 3, "E(j + 2) is announced and j + 3 staged after R(j)");
+  constexpr int HT = 32 * kHelpers;
+  constexpr int kThreads = HT + 32;
+  constexpr int U = 8 * C;  // 4-column units of an extended row
+  const int h = threadIdx.x - 32;
+  const int We = t.Wt + 2 * t.Hh;
+  const int W = t.W;
+  const int Wp = parent_pitch(W);
+  int J = 0;  // the run's groups
+  for (int k = 0; k < t.blocks; ++k) J += (t.rows(k) + G - 1) / G;
+  J *= g_hi - g_lo;
+
+  // the next group to stage: rows sn0 + 1 .. of block sk of tile sg
+  int sk = 0, sg = g_lo, sn0 = 0;
+  const auto stage_next = [&](int slot) {
+    const int N = t.rows(sk);
+    const int n = min(G, N - sn0);
+    const int b = sg / t.tiles;
+    const int col0 = (sg - b * t.tiles) * t.Wt - t.Hh;
+    const float* src =
+        E_all + (static_cast<long long>(b) * t.H + sk * t.K + sn0 + 1) * W +
+        col0;
+    float* dst = ering + slot * Ring::kSlot;
+    if constexpr (VEC) {  // 16 bytes a copy
+#pragma unroll
+      for (int i = 0; i < (G * U + HT - 1) / HT; ++i) {
+        const unsigned e = h + i * HT;
+        const int s = e / U, c = 4 * (e % U);
+        if (s < n && c < We)
+          stage<4, true>(dst + s * Ring::kRow + Ring::at(c),
+                         src + static_cast<long long>(s) * W + c, col0 + c,
+                         W, true);
+      }
+    } else {  // 4 bytes a copy, a warp's on 32 adjacent columns
+#pragma unroll 4
+      for (int i = 0; i < (G * 4 * U + HT - 1) / HT; ++i) {
+        const unsigned e = h + i * HT;
+        const int s = e / (4 * U), c = e % (4 * U);
+        if (s < n && c < We && col0 + c >= 0 && col0 + c < W)
+          cp_async4(dst + s * Ring::kRow + Ring::at(c),
+                    src + static_cast<long long>(s) * W + c);
+      }
+    }
+    sn0 += G;
+    if (sn0 >= N) {
+      sn0 = 0;
+      if (++sg == g_hi) {
+        sg = g_lo;
+        ++sk;
+      }
+    }
+  };
+
+  // each thread's parent words: (row s, word q) from (s0, q0), on by
+  // (ds, dq) with q < nq = Wt / 4
+  const int nq = t.Wt / 4;
+  const int s0 = h / nq, q0 = h % nq, ds = HT / nq, dq = HT % nq;
+  const auto parents = [&](int k, int g, int n0, int n, int slot) {
+    const int b = g / t.tiles;
+    const int col0 = (g - b * t.tiles) * t.Wt - t.Hh;
+    int8_t* P = parents_all +
+                (static_cast<long long>(b) * t.H + k * t.K + n0 + 1) * Wp +
+                col0;
+    const float* rows = rring + slot * Ring::kSlot;
+    for (int s = s0, q = q0; s < n;) {
+      const int c = t.Hh + 4 * q;
+      if (col0 + c < W) {
+        const float* pv = rows + s * Ring::kRow;
+        const float4 x =
+            *reinterpret_cast<const float4*>(pv + Ring::at(c));
+        const float v[6] = {pv[Ring::at(c - 1)], x.x, x.y, x.z, x.w,
+                            pv[Ring::at(c + 4)]};
+        uint32_t word = 0;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float mn = fminf(fminf(v[i], v[i + 1]), v[i + 2]);
+          word |= parent_byte<RIGHTMOST>(v[i], v[i + 1], v[i + 2], mn)
+                  << (8 * i);
+        }
+        *reinterpret_cast<uint32_t*>(P + static_cast<long long>(s) * Wp + c) =
+            word;
+      }
+      s += ds;
+      q += dq;
+      if (q >= nq) {
+        q -= nq;
+        ++s;
+      }
+    }
+  };
+
+  // groups 0 .. 2 into slots 0 .. 2; E(0) and E(1) once 0 and 1 landed
+  for (int i = 0; i < D; ++i) {
+    if (i < J) stage_next(i);
+    cp_async_commit();
+  }
+  cp_async_wait<1>();
+  if (J > 0) bar_arrive(kEnergyBar, kThreads);
+  if (J > 1) bar_arrive(kEnergyBar + 1, kThreads);
+  int j = 0;
+  for (int k = 0; k < t.blocks; ++k) {
+    const int N = t.rows(k);
+    for (int g = g_lo; g < g_hi; ++g) {
+      for (int n0 = 0; n0 < N; n0 += G, ++j) {
+        const int slot = j % D;
+        bar_sync(kRowsBar + j % 2, kThreads);  // the DP warp is past group j
+        if (j + 2 < J) {
+          cp_async_wait<0>();  // group j + 2, staged a group ago
+          bar_arrive(kEnergyBar + j % 2, kThreads);
+        }
+        if (j + 3 < J) {
+          stage_next(slot);
+          cp_async_commit();
+        }
+        parents(k, g, n0, min(G, N - n0), slot);
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// The forward, in the schedule SPLIT names (see the header).
+template <int C, bool VEC, bool RIGHTMOST, bool SPLIT>
+__global__ void __launch_bounds__(32 * kMaxTileWarps)
+tile_rows_kernel(const float* __restrict__ E_all, unsigned long long* front,
+                 int8_t* __restrict__ parents_all, Tiling t,
+                 const int* __restrict__ lo_arr,
+                 const int* __restrict__ width_arr, int lo0, int width0) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  if constexpr (!SPLIT) {
+    warp_rows<C, VEC, RIGHTMOST>(E_all, front, parents_all, t, lo_arr,
+                                 width_arr, lo0, width0, smem);
+  } else {
+    const int g_lo = blockIdx.x * t.run;
+    if (g_lo >= t.B * t.tiles) return;  // the whole CTA: no tile
+    const int g_hi = min(g_lo + t.run, t.B * t.tiles);
+    float* ering = reinterpret_cast<float*>(smem);
+    float* rring = ering + SplitRing<C>::kDepth * SplitRing<C>::kSlot;
+    if (threadIdx.x < 32)
+      split_dp<C, RIGHTMOST>(E_all, front, t, lo_arr, width_arr, lo0, width0,
+                             g_lo, g_hi, ering, rring);
+    else
+      split_helpers<C, VEC, RIGHTMOST>(E_all, parents_all, t, g_lo, g_hi,
+                                       ering, rring);
+  }
 }
 
 // The finish: the tie-most argmin of each image's last DP row and the walk
@@ -746,14 +1077,17 @@ int launch_finish(Finish f, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int C, bool VEC, bool RIGHTMOST>
+template <int C, bool VEC, bool RIGHTMOST, bool SPLIT>
 int launch_forward(const float* E, unsigned long long* front,
                    int8_t* parents, Tiling t, const int* lo, const int* width,
                    int lo0, int width0, int warps, int max_warps,
                    cudaStream_t s) {
-  const auto kernel = tile_rows_kernel<C, VEC, RIGHTMOST>;
-  const int threads = 32 * warps;
-  const size_t smem = warps * WarpRing<C>::kBytes;
+  const auto kernel = tile_rows_kernel<C, VEC, RIGHTMOST, SPLIT>;
+  // the tiles' DP warps a CTA: `warps` one-warp tiles, or one split tile
+  const int runners = SPLIT ? 1 : warps;
+  const int threads = 32 * (SPLIT ? 1 + kHelpers : warps);
+  const size_t smem =
+      SPLIT ? SplitRing<C>::kBytes : warps * WarpRing<C>::kBytes;
   // every warp whose cells another waits for must be resident.  The count
   // (and the shared-memory limit it needs) is asked of the runtime once a
   // (device, warps) and kept, so a call makes no host queries.
@@ -771,7 +1105,7 @@ int launch_forward(const float* E, unsigned long long* front,
             cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                           threads, smem)))
       return e;
-    resident = static_cast<long long>(per_sm) * sms * warps;
+    resident = static_cast<long long>(per_sm) * sms * runners;
     if (dev < kMaxDevices) resident_by[dev][warps] = resident;
   }
   if (max_warps > 0) resident = std::min<long long>(resident, max_warps);
@@ -779,7 +1113,7 @@ int launch_forward(const float* E, unsigned long long* front,
   const long long G = static_cast<long long>(t.B) * t.tiles;
   t.run = static_cast<int>((G + resident - 1) / resident);
   const long long used = (G + t.run - 1) / t.run;
-  const int ctas = static_cast<int>((used + warps - 1) / warps);
+  const int ctas = static_cast<int>((used + runners - 1) / runners);
   void* args[] = {&E, &front, &parents, &t, &lo, &width, &lo0, &width0};
   if (const int e = static_cast<int>(cudaLaunchCooperativeKernel(
           reinterpret_cast<const void*>(kernel), dim3(ctas), dim3(threads),
@@ -799,21 +1133,26 @@ int launch_forward(const float* E, unsigned long long* front,
 // (int32 arrays on the device), or lo0 and width0 for every image where
 // the pointer is null.  C: columns a lane (4 or 8); Wt: owned columns a
 // tile (a multiple of 4); K: rows a block, with Hh = K rounded up to 4,
-// Hh <= Wt and Wt + 2 * Hh <= 32 * C; warps: warp-tiles a CTA (1..8);
-// max_warps: a cap on the warps launched (0: as many as are resident).
-// Launches, on `stream`, the memset of the frontier and the counters, the
-// forward and the finish when H >= 2, else only the finish.  Returns the
-// first cudaError_t of a call or launch.
+// Hh <= Wt and Wt + 2 * Hh <= 32 * C; split: the forward's schedule (0:
+// one warp a tile, 1: a CTA a tile, its DP warp and kHelpers helper
+// warps); warps: warp-tiles a CTA (1..8; 1 when split); max_warps: a cap
+// on the tiles' DP warps
+// launched (0: as many as are resident).  Launches, on `stream`, the
+// memset of the frontier and the counters, the forward and the finish when
+// H >= 2, else only the finish.  Returns the first cudaError_t of a call
+// or launch.
 extern "C" int dc_find_seams_tiled(const float* E, int8_t* parents,
                                    int* seams, unsigned long long* front,
                                    int B, int H, int W, const int* lo,
                                    const int* width, int lo0, int width0,
                                    int rightmost, int C, int Wt, int K,
-                                   int warps, int max_warps, void* stream) {
+                                   int warps, int split, int max_warps,
+                                   void* stream) {
   using namespace dct_carver;
   const int Hh = (K + 3) & ~3;
   if ((C != 4 && C != 8) || Wt < 4 || Wt % 4 != 0 || K < 1 || Hh > Wt ||
       Wt + 2 * Hh > 32 * C || warps < 1 || warps > kMaxTileWarps ||
+      (split && warps != 1) ||
       B < 1 || H < 1 || W < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = (W + Wt - 1) / Wt;
@@ -837,26 +1176,25 @@ extern "C" int dc_find_seams_tiled(const float* E, int8_t* parents,
       return e;
     // 16-byte energy copies when every row starts 16-byte aligned
     const bool vec = W % 4 == 0 && reinterpret_cast<uintptr_t>(E) % 16 == 0;
-    const auto go = [&](auto c) {
-      constexpr int CC = decltype(c)::value;
-      if (vec)
-        return rightmost
-                   ? launch_forward<CC, true, true>(E, front, parents, t, lo,
-                                                    width, lo0, width0, warps,
-                                                    max_warps, s)
-                   : launch_forward<CC, true, false>(E, front, parents, t, lo,
-                                                     width, lo0, width0,
-                                                     warps, max_warps, s);
-      return rightmost
-                 ? launch_forward<CC, false, true>(E, front, parents, t, lo,
-                                                   width, lo0, width0, warps,
-                                                   max_warps, s)
-                 : launch_forward<CC, false, false>(E, front, parents, t, lo,
-                                                    width, lo0, width0,
-                                                    warps, max_warps, s);
+    // each runtime choice as a compile-time constant
+    const auto go = [&](auto c, auto v, auto r, auto h) {
+      return launch_forward<decltype(c)::value, decltype(v)::value,
+                            decltype(r)::value, decltype(h)::value>(
+          E, front, parents, t, lo, width, lo0, width0, warps, max_warps, s);
     };
-    const int err = C == 4 ? go(std::integral_constant<int, 4>{})
-                           : go(std::integral_constant<int, 8>{});
+    const auto by_split = [&](auto c, auto v, auto r) {
+      return split ? go(c, v, r, std::true_type{})
+                   : go(c, v, r, std::false_type{});
+    };
+    const auto by_tie = [&](auto c, auto v) {
+      return rightmost ? by_split(c, v, std::true_type{})
+                       : by_split(c, v, std::false_type{});
+    };
+    const auto by_vec = [&](auto c) {
+      return vec ? by_tie(c, std::true_type{}) : by_tie(c, std::false_type{});
+    };
+    const int err = C == 4 ? by_vec(std::integral_constant<int, 4>{})
+                           : by_vec(std::integral_constant<int, 8>{});
     if (err) return err;
     f.F = reinterpret_cast<const float*>(
         front + static_cast<size_t>(t.blocks - 1) * B * W);

@@ -8,7 +8,8 @@ module's `KERNEL`; `dp_kernel.find_seams`, the batch route's DP, counts on
 `dp_kernel.BATCH_KERNEL`, the tiled find-seam (where `dp_kernel.seam_route`
 sends a shape; three launches a call) on `dp_kernel.TILED_KERNEL`, which
 also counts the calls whose finish walked composed blocks of rows
-(`blocked_finishes`; `reset_launches` clears it too),
+(`blocked_finishes`) and those whose forward took the split schedule
+(`split_forwards`; `reset_launches` clears both too),
 `strip_kernel`'s plugged-energy strip kernels
 on `GATHER_KERNEL`, `SCATTER_KERNEL` and `BAND_KERNEL`, and the spatial
 route's four on `spatial_kernel`'s records.  Every wrapper takes a (H, W)
@@ -34,6 +35,7 @@ def reset_launches() -> None:
     for k in KERNELS:
         k.launches = 0
     dp_kernel.TILED_KERNEL.blocked_finishes = 0
+    dp_kernel.TILED_KERNEL.split_forwards = 0
 
 
 def launch_counts() -> dict[str, int]:

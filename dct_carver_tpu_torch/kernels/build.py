@@ -44,9 +44,9 @@ SIGNATURES = {
     # stream
     "dc_find_seams": (_P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _P),
     # E, parents, seams, front, B, H, W, lo[B], width[B], lo0, width0,
-    # rightmost, C, Wt, K, warps, max_warps, stream
+    # rightmost, C, Wt, K, warps, split, max_warps, stream
     "dc_find_seams_tiled": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I,
-                            _I, _I, _I, _I, _I, _P),
+                            _I, _I, _I, _I, _I, _I, _P),
     # luma, origcol, energy, seam, luma', origcol', energy', B, H, W, width,
     # widths[B], stream
     "dc_apply": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),

@@ -15,7 +15,9 @@ entry makes: `KERNEL` and `BATCH_KERNEL` one a call, `TILED_KERNEL` three
 (the memset of the frontier and the finish's counters, the forward, the
 finish; one for a one-row plane).  `TILED_KERNEL.blocked_finishes` counts
 the tiled calls whose finish walked composed blocks of `FINISH_ROWS` rows
-(`composes_blocks`).
+(`composes_blocks`), and `TILED_KERNEL.split_forwards` those whose forward
+took the split schedule (`split_forward`: two helper warps beside each
+tile's DP warp).
 """
 
 from __future__ import annotations
@@ -26,8 +28,9 @@ from ..ops.dp import (check_tie, find_seam as find_seam_plain,
                       find_seam_tiled, mask_energy)
 from .build import Kernel, check_plane, launch
 
-__all__ = ["find_seam", "find_seams", "seam_route", "KERNEL", "BATCH_KERNEL",
-           "TILED_KERNEL", "MAX_WIDTH", "FINISH_ROWS", "composes_blocks"]
+__all__ = ["find_seam", "find_seams", "seam_route", "split_forward",
+           "KERNEL", "BATCH_KERNEL", "TILED_KERNEL", "MAX_WIDTH",
+           "FINISH_ROWS", "composes_blocks"]
 
 KERNEL = Kernel(name="find_seam",
                 source="dct_carver_tpu_torch/csrc/find_seam.cu",
@@ -40,6 +43,7 @@ TILED_KERNEL = Kernel(name="find_seam_tiled",
                       source="dct_carver_tpu_torch/csrc/find_seam_tiled.cu",
                       replaces="dct_carver_tpu/pallas/dp_kernel.py:124,184")
 TILED_KERNEL.blocked_finishes = 0
+TILED_KERNEL.split_forwards = 0
 
 # one CTA covers a row of at most 1024 threads of 32 columns each
 # (csrc/dp_rows.cuh::chunk_for); wider rows take the tiled kernel
@@ -47,21 +51,32 @@ MAX_WIDTH = 32768
 # The tiled kernel's geometry: TILE_C columns a lane, so a warp-tile's
 # extended row of TILE_W owned columns and a halo of TILE_K (rounded up to
 # 4) columns a side fits 32 * TILE_C columns; TILE_K rows a block;
-# TILE_WARPS warp-tiles a CTA.  From chip_smoke.py's geometry sweep (phase
-# 1c) on an NVIDIA H100 80GB HBM3 at 700.00 W: (4, 64, 32) takes the least
-# device time summed over its shapes; one and four tiles a CTA are within
-# 3 % of each other there.  PERF.md §6 holds the table.
+# TILE_WARPS warp-tiles a CTA in the one-warp schedule (`csrc/
+# find_seam_tiled.cu`: one warp a tile stages its energy and writes its
+# parents itself; in the split schedule a CTA a tile, whose DP warp keeps
+# only the recurrence while two helper warps do the rest).  From
+# chip_smoke.py's geometry sweep (phase 1c) on an NVIDIA H100 80GB HBM3 at
+# 700.00 W: (4, 64, 32), split, takes the least device time summed over
+# its shapes, and over the benchmark's three planes alone, 43-44 % less
+# than one warp a tile.  PERF.md §6 holds the table.
 TILE_C = 4
 TILE_K = 32
 TILE_W = 64
 TILE_WARPS = 1
+# The split schedule serves stacks of at most SPLIT_MAX_TILES tiles (B *
+# ceil(W / TILE_W)): as many of its CTAs as are resident at once on that
+# card (132 SMs, four of 48 KB each).  Past it a CTA runs several tiles one
+# after the other, and one warp a tile wins: the split sweep (phase 1c)
+# timed the split forward 20 % faster at 528 tiles and 22 % slower at 529.
+SPLIT_MAX_TILES = 528
 # seam_route's thresholds, from chip_smoke.py's width sweep (phase 1c) on
 # the same card.  One image: the tiled kernel beats find_seam.cu at every
 # width swept, ROUTE_MIN_WIDTH (64) to 32768 columns (narrower rows were not
 # measured).  A stack: at 1024, 1920 and 4096 columns it wins up to
-# ROUTE_MAX_BATCH (32) images and loses from 64 on, where its warps fill
-# the card and its halos cost more than find_seam.cu's barriers.  PERF.md
-# §6 holds the sweep, with the run it comes from.
+# ROUTE_MAX_BATCH (32) images; at 64 images (one warp a tile there) it won
+# at 1024 and 1920 columns by 16 % and 2 % and lost at 4096 by 22 %, within
+# the 2x that find_seam.cu's times move between processes, and from 128 on
+# it loses.  PERF.md §6 holds the sweep, with the run it comes from.
 ROUTE_MIN_WIDTH = 64
 ROUTE_MAX_BATCH = 32
 # the tiled kernel's finish walks the parents in blocks of FINISH_ROWS
@@ -84,6 +99,13 @@ def seam_route(B: int, W: int) -> str:
     return "find_seam"
 
 
+def split_forward(B: int, W: int, tile: int = TILE_W) -> bool:
+    """Whether the tiled forward of a (B, H, W) stack with `tile` owned
+    columns a tile takes the split schedule: at most SPLIT_MAX_TILES
+    tiles.  Past that, one warp a tile."""
+    return B * -(-W // tile) <= SPLIT_MAX_TILES
+
+
 def tile_halo(K: int) -> int:
     """The tiled kernel's halo columns a side for K rows a block: K
     rounded up to 4, so every tile starts on a 16-byte boundary."""
@@ -91,20 +113,22 @@ def tile_halo(K: int) -> int:
 
 
 def check_tile_geometry(tile: int, K: int, chunk: int = TILE_C,
-                        warps: int = TILE_WARPS) -> None:
+                        warps: int = TILE_WARPS, split: bool = False) -> None:
     """Raise ValueError unless the tiled kernel runs this geometry: `tile`
     owned columns (a multiple of 4), K >= 1 rows a block whose halo
     (`tile_halo(K)`) reaches no further than the neighbouring tiles (halo
     <= tile), an extended row of tile + 2 * halo within one warp's 32 *
-    `chunk` columns (chunk 4 or 8), and 1..8 warp-tiles a CTA."""
+    `chunk` columns (chunk 4 or 8), and 1..8 warp-tiles a CTA, one in the
+    split schedule (a CTA a tile)."""
     halo = tile_halo(K)
     if chunk not in (4, 8) or tile < 4 or tile % 4 or K < 1 \
             or halo > tile or tile + 2 * halo > 32 * chunk \
-            or not 1 <= warps <= 8:
+            or not 1 <= warps <= (1 if split else 8):
         raise ValueError(
             f"tiled find_seam: tile={tile} (a multiple of 4), K={K} >= 1 "
             f"(halo {halo} <= tile), chunk={chunk} (4 or 8) with tile + "
-            f"2 * halo <= 32 * chunk, and warps={warps} in 1..8")
+            f"2 * halo <= 32 * chunk, and warps={warps} in 1..8, 1 for "
+            f"the split schedule (split={split})")
 
 
 def parent_pitch(W: int) -> int:
@@ -186,19 +210,25 @@ def _find_seams_one_cta(kernel: Kernel, E: torch.Tensor, width, lo,
 def _find_seams_tiled(E: torch.Tensor, width, lo, tie: str, *,
                       tile: int = TILE_W, K: int = TILE_K,
                       chunk: int = TILE_C, warps: int = TILE_WARPS,
+                      split: bool | None = None,
                       max_warps: int = 0) -> torch.Tensor:
     """(B, H, W) -> (B, H) int32 seams through the tiled kernel at any
     width (`width`/`lo` as `_find_seams_cuda`), with the geometry of
     `check_tile_geometry`; on a CPU tensor its plain algorithm
-    (`ops/dp.py::find_seam_tiled`).  `max_warps` caps the warps launched
-    (0: as many as are resident), so that tests can force several tiles a
+    (`ops/dp.py::find_seam_tiled`).  `split` None takes the forward's
+    schedule from `split_forward` (then `warps` counts only for the
+    one-warp schedule).  `max_warps` caps the tiles' DP warps launched (0:
+    as many as are resident), so that tests can force several tiles a
     warp; the plain algorithm then groups the tiles as the kernel's warps
     do.  The route picks the default geometry; the rest is for tests and
     measurements."""
-    check_tile_geometry(tile, K, chunk, warps)
+    B, H, W = E.shape
+    check_tile_geometry(tile, K, chunk, warps, bool(split))
+    if split is None:
+        split = split_forward(B, W, tile)
+        warps = 1 if split else warps
     if max_warps < 0:
         raise ValueError(f"max_warps must be >= 0, got {max_warps}")
-    B, H, W = E.shape
     if not E.is_cuda:
         group = -(-B * -(-W // tile) // max_warps) if max_warps else 1
         return find_seam_tiled(E, width, lo, tie, tile=tile, K=K,
@@ -217,11 +247,20 @@ def _find_seams_tiled(E: torch.Tensor, width, lo, tie: str, *,
         launch(TILED_KERNEL, "dc_find_seams_tiled", E.data_ptr(),
                parents.data_ptr(), seams.data_ptr(), front.data_ptr(),
                B, H, W, *ptrs, *scalars,
-               int(tie == "rightmost"), chunk, tile, K, warps, max_warps,
-               torch.cuda.current_stream().cuda_stream,
+               int(tie == "rightmost"), chunk, tile, K, warps, int(split),
+               max_warps, torch.cuda.current_stream().cuda_stream,
                launches=3 if H > 1 else 1)
-    TILED_KERNEL.blocked_finishes += composes_blocks(B, H, W)
+    count_tiled_call(B, H, W, split)
     return seams
+
+
+def count_tiled_call(B: int, H: int, W: int, split: bool) -> None:
+    """Count a tiled call of a (B, H, W) stack on TILED_KERNEL's counters
+    beside its launches: `blocked_finishes` where its finish composes
+    blocks, `split_forwards` where a forward ran (H > 1) on the split
+    schedule."""
+    TILED_KERNEL.blocked_finishes += composes_blocks(B, H, W)
+    TILED_KERNEL.split_forwards += H > 1 and split
 
 
 def find_seam(E: torch.Tensor, width: int, *, tie: str = "leftmost",

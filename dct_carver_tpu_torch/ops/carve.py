@@ -330,7 +330,8 @@ class SeamSteps:
         self.graphs = StepGraphs(
             [dev], f"seam step (energy {name!r})",
             [*((k, "launches") for k in KERNELS),
-             (TILED_KERNEL, "blocked_finishes")]) if graphed(dev, p) else None
+             (TILED_KERNEL, "blocked_finishes"),
+             (TILED_KERNEL, "split_forwards")]) if graphed(dev, p) else None
         # the vmap record's stream: in the graph, a branch beside the apply
         # and the strip, which neither read nor write what it touches
         self.side = torch.cuda.Stream(dev) if self.graphs is not None \

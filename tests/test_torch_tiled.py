@@ -9,8 +9,13 @@ give the seams of the JAX scan DP and of the Pallas kernels (interpret
 mode), bit for bit, with small tiles and tiles of one warp's width, on
 ragged last tiles, with K not dividing H and halos as wide as the tiles,
 in column windows, along tile edges and borders, per image of a stack and
-with the tiles grouped as the kernel's warps take them.  `seam_route`
-and the kernel's geometry check are held here too.
+with the tiles grouped as the kernel's warps take them.  The forward's
+two schedules (one warp a tile, or the split one: two helper warps
+beside each tile's DP warp) compute the same values, so the plain
+algorithm holds both; `split_forward`, which picks the schedule,
+`seam_route`,
+the kernel's geometry check and the `split_forwards` count are held here
+too.
 """
 
 import numpy as np
@@ -25,8 +30,9 @@ from dct_carver_tpu.pallas.dp_kernel import find_seam_pallas
 from dct_carver_tpu_torch import kernels
 from dct_carver_tpu_torch.kernels import dp_kernel
 from dct_carver_tpu_torch.kernels.dp_kernel import (
-    FINISH_ROWS, MAX_WIDTH, TILE_C, TILE_K, TILE_W, TILE_WARPS,
-    _find_seams_tiled, check_tile_geometry, find_seam, find_seams, seam_route,
+    FINISH_ROWS, MAX_WIDTH, SPLIT_MAX_TILES, TILE_C, TILE_K, TILE_W,
+    TILE_WARPS, TILED_KERNEL, _find_seams_tiled, check_tile_geometry,
+    count_tiled_call, find_seam, find_seams, seam_route, split_forward,
     tile_halo)
 from dct_carver_tpu_torch.ops import dp as tdp
 
@@ -140,6 +146,7 @@ def test_tiled_record_and_default_tile():
     # the default extended row fits one warp of TILE_C columns a lane, and
     # its halo reaches only the neighbouring tiles
     check_tile_geometry(TILE_W, TILE_K, TILE_C, TILE_WARPS)
+    check_tile_geometry(TILE_W, TILE_K, TILE_C, 1, split=True)
     assert TILE_W + 2 * tile_halo(TILE_K) <= 32 * TILE_C
     assert TILE_K <= tile_halo(TILE_K) <= TILE_W
 
@@ -224,6 +231,95 @@ def test_geometry_rejects_what_no_warp_runs(tile, K, chunk, warps):
     # of no warp or more than 8
     with pytest.raises(ValueError):
         check_tile_geometry(tile, K, chunk, warps)
+
+
+# the split schedule: a tile a CTA (its DP warp and two helper warps), at
+# every geometry the one-warp schedule takes
+@pytest.mark.parametrize("tile,K,chunk", WARP_GEOMETRIES)
+def test_geometry_takes_the_split_schedule(tile, K, chunk):
+    check_tile_geometry(tile, K, chunk, 1, split=True)
+
+
+# a split CTA holds one tile; a one-warp CTA up to 8
+@pytest.mark.parametrize("warps,split", [(2, True), (8, True), (0, True),
+                                         (9, False)])
+def test_geometry_rejects_what_no_split_cta_runs(warps, split):
+    with pytest.raises(ValueError):
+        check_tile_geometry(TILE_W, TILE_K, TILE_C, warps, split)
+    with pytest.raises(ValueError):
+        _find_seams_tiled(torch.zeros((1, 4, 64)), 64, 0, "leftmost",
+                          warps=warps, split=split)
+
+
+# split_forward: the split schedule up to SPLIT_MAX_TILES tiles of TILE_W
+# columns (528: an H100's 132 SMs, four split CTAs each), one warp a tile
+# past it (chip_smoke.py's split sweep: 528 tiles split, 529 one warp)
+@pytest.mark.parametrize("B,W,tile,split", [
+    (1, 1, TILE_W, True), (1, 1920, TILE_W, True), (1, 3840, TILE_W, True),
+    (1, 2160, TILE_W, True), (1, 7680, TILE_W, True),
+    (8, 1920, TILE_W, True), (16, 1920, TILE_W, True),
+    (32, 1024, TILE_W, True), (8, 4096, TILE_W, True),
+    (1, SPLIT_MAX_TILES * TILE_W, TILE_W, True),
+    (1, SPLIT_MAX_TILES * TILE_W + 1, TILE_W, False),
+    (2, SPLIT_MAX_TILES // 2 * TILE_W, TILE_W, True),
+    (2, SPLIT_MAX_TILES // 2 * TILE_W + 1, TILE_W, False),
+    (1, 40000, TILE_W, False), (16, 4096, TILE_W, False),
+    (32, 1920, TILE_W, False), (32, 4096, TILE_W, False),
+    (1, 40000, 96, True), (1, 60000, 96, False),
+])
+def test_split_forward(B, W, tile, split):
+    assert SPLIT_MAX_TILES == 528
+    assert split_forward(B, W, tile) is split
+
+
+# the schedule changes no value: the plain algorithm with either holds the
+# JAX scan, on a CPU tensor as on the card
+@pytest.mark.parametrize("split", [None, False, True])
+@pytest.mark.parametrize("tie", TIES)
+def test_tiled_schedules_equal_jax_scan(tie, split):
+    E = _energy("tie-heavy", (40, 256), 25)
+    got = _find_seams_tiled(torch.from_numpy(E)[None], 150, 70, tie,
+                            split=split)[0].numpy()
+    np.testing.assert_array_equal(got, _scan(E, 150, 70, tie))
+
+
+# split_forwards: a tiled call counts once where its forward ran (H > 1)
+# on the split schedule, beside blocked_finishes; reset_launches clears
+# both
+def test_split_forwards_counted_once_a_call_and_reset():
+    kernels.reset_launches()
+    assert TILED_KERNEL.split_forwards == TILED_KERNEL.blocked_finishes == 0
+    for h in (2, 1080):
+        count_tiled_call(1, h, 1920, True)
+    count_tiled_call(1, 1080, 1920, False)  # one warp a tile
+    count_tiled_call(1, 1, 1920, True)  # no forward at H = 1
+    count_tiled_call(32, 1080, 1920, False)
+    assert TILED_KERNEL.split_forwards == 2
+    assert TILED_KERNEL.blocked_finishes == 2  # the two 1080 x 1920 planes
+    kernels.reset_launches()
+    assert TILED_KERNEL.split_forwards == TILED_KERNEL.blocked_finishes == 0
+
+
+def test_split_forwards_credited_by_graph_replays(monkeypatch):
+    """The seam step's graphs credit `split_forwards` on every replay, as
+    they credit the launches and `blocked_finishes`."""
+    from dct_carver_tpu_torch.ops import carve as tcarve
+    from dct_carver_tpu_torch.utils import graphs as tgraphs
+
+    seen = []
+
+    class Recorder:
+        def __init__(self, devices, what, counters):
+            seen.extend(counters)
+
+    monkeypatch.setattr(tcarve, "graphed", lambda dev, p: True)
+    monkeypatch.setattr(tgraphs, "StepGraphs", Recorder)
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device=None: None)
+    state = tcarve.make_state(torch.zeros((8, 16)))
+    p = tcarve.StepParams(8, 0.0, 1.0, True, True, 1, 0.0, "leftmost", None)
+    tcarve.SeamSteps(state, p)
+    assert (TILED_KERNEL, "split_forwards") in seen
+    assert (TILED_KERNEL, "blocked_finishes") in seen
 
 
 # seam_route: rows wider than one thread block always take the tiled
