@@ -110,18 +110,16 @@ torch's sync debug mode, times it in turns beside one card's share carved
 alone, and reads each card's busy share and the join between CUDA events.
 `python3 chip_smoke.py --multi-card` runs phase 7 alone;
 `--tiled-forward` builds the kernels and runs phase 1c's split-forward
-checks, its timing in turns and its sweeps alone;
-`--band-variants` builds variants of the band-energy kernel's block shape
-and times them against each other, and `--band-times ROOT` times the band
-energy (and strip.cu) with the package found under ROOT, so that two
-commits compare in turns on one card.
+checks, its timing in turns and its sweeps alone; `--first-carve ROOT`
+times one process's first and second carves with the package found under
+ROOT, so that two commits compare in turns on one card.
 
 Every kernel's line gives its time, its plain version's, the least time
-the card could take for the same work (`bound_ms`: bytes over 3.35 TB/s
-or float32 operations over 33.5 T a second, half the 67 TFLOP/s
-multiply-add rate since none of them fuses, whichever is larger) and,
-where one
-PyTorch call computes the same function, that call's time (`library_ms`).
+the card could take for the same work (`bound_ms`, the benchmark's own
+`benchmark/benchlib/work.py::least_seconds`: the bytes at the memory's
+peak or the float32 operations at the unfused peak, whichever is longer)
+and, where one PyTorch call computes the same function, that call's time
+(`library_ms`).
 `ms` and `library_ms` time back-to-back calls between CUDA events, so for
 the shortest kernels they time the host's launches; `device_ms` and
 `library_device_ms` are the same calls' device time per call under
@@ -143,6 +141,10 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+# the benchmark's library (benchmark/benchlib): the card's peaks, the least
+# work of a kernel's function and the busy time of a trace, as the
+# benchmark's metrics read them
+sys.path.append(str(ROOT / "benchmark"))
 SEED = 20261016
 H, W = 1080, 1920          # the headline shape (BASELINE config 1)
 H4, W4 = 2160, 3840        # BASELINE config 3
@@ -222,16 +224,6 @@ SPLIT_LONG = ((1, H_WIDE, W_WIDE), (1, H_WIDE, 32768), (1, H8, W8),
               (2, H_WIDE, W_WIDE), (1, H_WIDE, 528 * 64),
               (1, H_WIDE, 529 * 64), (1, H, W - 3), (8, HB, WB - 3))
 FORWARD_TURNS = 2          # (old, new, new, old) rounds of the ns a row
-# an H100 SXM's peaks (NVIDIA's data sheet): device memory, and float32
-# outside the tensor cores (a fused multiply-add counted as two operations)
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-# the kernels' operations never fuse (the DCT chains round each multiply
-# and add on their own; the DP's adds and minimums have nothing to fuse
-# with), so each takes one issue slot: half the multiply-add rate
-F32_UNFUSED_OPS_PER_S = F32_OPS_PER_S / 2
-
-
 # device_ms calls whose four traces all came back empty, and where the
 # last reading came from: "profiler", or "cuda_events" after such a call
 PROFILER_EMPTY = [0]
@@ -242,28 +234,16 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def dct_ops(n: int, rows: int, cols: int, in_cols: int) -> int:
-    """The f32 multiplies and adds that `cols` DCT energies on each of `rows`
-    rows need, each chain being n multiplies and n - 1 adds: n vertical
-    chains of each of the row's `in_cols` window columns, shared by the
-    energies whose windows hold that column, and n*n - 1 atom chains of
-    each energy."""
-    return rows * (in_cols * n + cols * (n * n - 1)) * (2 * n - 1)
-
-
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    """The least time in ms the card could take: every input byte read and
-    every output byte written once at the memory's rate, or the float32
-    operations at the peak rate, whichever is longer.  The peak rate is
-    the unfused one, F32_UNFUSED_OPS_PER_S: no operation of these kernels
-    may fuse into a multiply-add (`dct_ops`' chains round every multiply
-    and add on its own), so each multiply, add or minimum takes an issue
-    slot of its own, and 67 TFLOP/s, which counts a fused multiply-add as
-    two operations, would halve every bound."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_UNFUSED_OPS_PER_S * 1e3
-    return ((t_bytes, "bytes") if t_bytes >= t_ops
-            else (t_ops, "operations"))
+    """The least time in ms the card could take for `nbytes` read or
+    written and `ops` float32 operations, as the benchmark's rooflines
+    take it (`benchmark/benchlib/work.py::least_seconds`), and which side
+    sets it: "bytes" or "operations"."""
+    from benchlib.work import least_seconds
+
+    by = ("bytes" if least_seconds(nbytes, 0) >= least_seconds(0, ops)
+          else "operations")
+    return least_seconds(nbytes, ops) * 1e3, by
 
 
 def batch_chunks(B: int) -> list:
@@ -432,6 +412,8 @@ def device_profile(fn, top: int = 8, host: bool = True,
     else the device alone.  `gaps`: log where the device idled in the
     trace, under this name (`log_gaps`)."""
     import torch
+    from benchlib.trace import busy_union
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -452,30 +434,17 @@ def device_profile(fn, top: int = 8, host: bool = True,
     rows.sort(key=lambda r: -r[1])
     if gaps is not None:
         log_gaps(prof, gaps, wall)
-    return wall, sum(r[1] for r in rows), rows[:top], busy_union(prof)
+    busy = busy_union((e.time_range.start, e.time_range.end)
+                      for e in prof.events()
+                      if e.device_type == DeviceType.CUDA
+                      and e.name != WINDOW)
+    return wall, sum(r[1] for r in rows), rows[:top], busy
 
 
 # the host's range around a profiled call (`device_profile`); the profiler
 # also gives it a device span over the kernels it launched, which is no
 # device work and is left out of every device sum
 WINDOW = "timed window"
-
-
-def busy_union(prof) -> float:
-    """Microseconds in which the device ran at least one kernel, memset or
-    copy of a profile: the union of their intervals, which kernels that
-    overlap (a graph's branches) do not count twice."""
-    from torch.autograd import DeviceType
-
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA and e.name != WINDOW)
-    total, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            total += b - max(a, end)
-            end = b
-    return total
 
 
 def log_gaps(prof, what: str, wall: float, top: int = 5) -> None:
@@ -718,12 +687,13 @@ def eager_kernel_carve(luma, n_seams: int, blocksize: int, edges, textures,
     from dct_carver_tpu_torch.kernels.dp_kernel import find_seam, find_seams
     from dct_carver_tpu_torch.kernels.strip_kernel import strip_update
     from dct_carver_tpu_torch.ops import carve as ops
+    from dct_carver_tpu_torch.ops.strip import strip_fits
 
     W = luma.shape[-1]
     state = ops.make_state(luma.clone())
     energy = ops.full_energy_map(state.luma, blocksize, edges, textures,
                                  energy_fn=energy_fn)
-    strip = ops.strip_fits(W, blocksize, 1, energy_fn)
+    strip = strip_fits(W, blocksize, 1, energy_fn)
     lum, origcol, vmap, width = state.luma, state.origcol, state.vmap, W
     for k in range(1, n_seams + 1):
         find = find_seams if energy.ndim == 3 else find_seam
@@ -736,7 +706,8 @@ def eager_kernel_carve(luma, n_seams: int, blocksize: int, edges, textures,
             energy = ops.full_energy_map(lum, blocksize, edges, textures,
                                          energy_fn=energy_fn)
         elif energy_fn is not None:
-            ops._update_strip_fn(lum, energy, seam, energy_fn, 1, True)
+            ops.update_energy(lum, energy, seam, ops.step_params(
+                blocksize, edges, textures, energy_fn=energy_fn))
         else:
             strip_update(lum, energy, seam, blocksize, edges, textures)
     return lum, vmap, energy
@@ -1363,6 +1334,7 @@ def phase_3(dev, chk: Checks, card: str, rng, times: dict) -> list:
     """The batch route; returns the launch counts of its api.carve run and
     of one carve_batch of NB_TIMED images."""
     import torch
+    from benchlib.work import dct_ops
 
     from dct_carver_tpu_torch import api, kernels
     from dct_carver_tpu_torch.kernels.apply_kernel import apply_seam
@@ -1586,11 +1558,11 @@ def phase_3(dev, chk: Checks, card: str, rng, times: dict) -> list:
     BATCH.update({
         "energy": (device_reading(
             lambda: dct_energy(lumas, 8, edges, textures), 3),
-                   bound(8 * rows * WB, dct_ops(8, rows, WB, WB))),
+                   bound(8 * rows * WB, dct_ops(8, rows * WB, rows * WB))),
         "strip": (device_reading(lambda: strip_update(
             lumas, e_b, seam_b, 8, edges, textures), 10),
                   bound(4 * (rows * (sw + 7) + rows * sw + rows),
-                        dct_ops(8, rows, sw, sw + 7))),
+                        dct_ops(8, rows * sw, rows * (sw + 7)))),
     })
     for name, ((d_ms, src), (b_ms, b_by)) in BATCH.items():
         log(f"  {name} at B={NB_TIMED} x {HB}x{WB} n=8: device {d_ms!r} ms "
@@ -1868,9 +1840,8 @@ def phase_2d(dev, chk: Checks, card: str, rng, img, res, plain) -> list:
     return runs
 
 
-# the band kernel (#13): the planes its times are read on, and its readings
-# at every blocksize there ({"<plane> n=<n>": {...}}, phase 4a)
-BAND_TIMED = (f"{H}x{W}", f"B={NB} {HB}x{WB}", f"B={NB_TIMED} {HB}x{WB}")
+# the band kernel's (#13) readings at every blocksize on the band_lumas
+# planes ({"<plane> n=<n>": {...}}, phase 4a)
 BAND: dict = {}
 
 
@@ -1906,26 +1877,25 @@ def band_bound(n: int, rows: int, C: int) -> tuple[float, str]:
     """The bound of band_energy on (rows, n, C) bands: each band float read
     and each output written once, and the chains with shared vertical
     chains (dct_ops)."""
+    from benchlib.work import dct_ops
+
     cout = C - n + 1
-    return bound(4 * rows * (n * C + cout), dct_ops(n, rows, cout, C))
+    return bound(4 * rows * (n * C + cout), dct_ops(n, rows * cout, rows * C))
 
 
 def band_times(lumas, edges, textures) -> dict:
-    """band_energy at every blocksize on the BAND_TIMED planes (bands
+    """band_energy at every blocksize on the `lumas` planes (bands
     gathered for delta_x = 1), and strip.cu (strip_update) at n=8 on the
     same planes and seams: device ms a call, its source, back-to-back ms
-    between CUDA events, and the bound.  Uses the dct_carver_tpu_torch
-    that is imported (this checkout's, or another commit's under
-    --band-times)."""
+    between CUDA events, and the bound."""
     import torch
+    from benchlib.work import dct_ops
 
     from dct_carver_tpu_torch.kernels.strip_kernel import (
         band_energy, strip_gather, strip_update)
 
     out = {}
     for name, luma in lumas:
-        if name not in BAND_TIMED:
-            continue
         seam = walk_seams(luma, 1)
         reps = 200 if luma.numel() < 2**25 else 10
         calls = {}
@@ -1940,7 +1910,7 @@ def band_times(lumas, edges, textures) -> dict:
         calls[f"{name} strip n=8"] = (  # as phase 3c's bound
             functools.partial(strip_update, luma, energy, seam, 8, edges,
                               textures),
-            bound(4 * rows * (27 + 20 + 1), dct_ops(8, rows, 20, 27)))
+            bound(4 * rows * (27 + 20 + 1), dct_ops(8, rows * 20, rows * 27)))
         for key, (fn, (b_ms, b_by)) in calls.items():
             d_ms, src = device_reading(fn, reps)
             out[key] = {"device_ms": d_ms, "device_ms_source": src,
@@ -1957,15 +1927,16 @@ def phase_4a(dev, chk: Checks, card: str, rng, times: dict) -> None:
     blocksize and delta_x on the band_lumas planes and on full-row bands,
     and its times there (band_times, into BAND and BATCH)."""
     import torch
+    from benchlib.work import dct_ops
 
     from dct_carver_tpu_torch.kernels.apply_kernel import apply_seam
     from dct_carver_tpu_torch.kernels.dp_kernel import find_seam, find_seams
     from dct_carver_tpu_torch.kernels.energy_kernel import dct_energy
     from dct_carver_tpu_torch.kernels.strip_kernel import (
         band_energy, strip_gather, strip_scatter, strip_update)
-    from dct_carver_tpu_torch.ops.carve import _strip_extent
     from dct_carver_tpu_torch.ops.dct import rows_to_bands
     from dct_carver_tpu_torch.ops.energy_fn import GRAD_NORM
+    from dct_carver_tpu_torch.ops.strip import _strip_extent
 
     # the floor, taken beside the strip kernels' own times so that both
     # find the card in the same state (right after the build it read above
@@ -2084,7 +2055,7 @@ def phase_4a(dev, chk: Checks, card: str, rng, times: dict) -> None:
     BOUNDS.update({
         "strip_gather": (4 * (H * (sw2 + 1) + H * 2 * (sw2 + 1) + H), 0),
         "strip_scatter": (4 * (2 * H * sw2 + H), 0),
-        "band_energy": (4 * (H * 8 * 27 + H * 20), dct_ops(8, H, 20, 27)),
+        "band_energy": (4 * (H * 8 * 27 + H * 20), dct_ops(8, H * 20, H * 27)),
     })
     # the gather as one torch.take, the scatter as one scatter_
     band_idx = ((torch.arange(H, device=dev)[:, None, None]
@@ -2391,14 +2362,15 @@ def phase_5a(dev, chk: Checks, card: str, rng, times: dict) -> None:
     """The spatial route's kernels against their plain versions, bitwise,
     at the shapes of its main path, on the views the route hands them."""
     import torch
+    from benchlib.work import dct_ops
 
     from dct_carver_tpu_torch.kernels.spatial_kernel import (
         block_dp, block_dp_parts, seg_walk, sharded_apply)
     from dct_carver_tpu_torch.kernels.strip_kernel import (
         strip_gather, strip_scatter, strip_update)
-    from dct_carver_tpu_torch.ops.carve import (
-        ShardOffset, _shard_origins, _strip_bounds, _strip_extent)
     from dct_carver_tpu_torch.ops.dct import window_offset
+    from dct_carver_tpu_torch.ops.strip import (
+        ShardOffset, _shard_origins, _strip_bounds, _strip_extent)
     from dct_carver_tpu_torch.parallel.shards import ShardMesh
 
     S, Wl, K = SHARDS, W8 // SHARDS, K8
@@ -2659,11 +2631,11 @@ def phase_5a(dev, chk: Checks, card: str, rng, times: dict) -> None:
                     x, e, seam, 8, edges, textures, shard=shard,
                     use_pallas=p),
                 4 * (H8 * (sw + n - 1) + H8 * sw + H8),
-                dct_ops(n, H8, sw, sw + n - 1), None)
+                dct_ops(n, H8 * sw, H8 * (sw + n - 1)), None)
         else:
             # the library calls: one torch.take of the bands and one
             # scatter_ into the shards with a spill column, indices
-            # precomputed as ops/carve.py's plain versions compute them
+            # precomputed as ops/strip.py's plain versions compute them
             Wx = ext.shape[-1]
             co = window_offset(n, "carve")
             start = _strip_bounds(seam, n, W8)[0]
@@ -3666,6 +3638,7 @@ def phase_7b(chk: Checks, card: str, count: int) -> None:
 
 def main() -> int:
     import torch
+    from benchlib.work import dct_ops
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3860,13 +3833,13 @@ def main() -> int:
     for name, (k_ms, p_ms) in times.items():
         log(f"  {name:9s} kernel {k_ms!r} ms, plain {p_ms!r} ms "
             f"(1080x1920 n=8; {card})")
-    sw8 = 20  # the n=8 strip's width (ops/carve.py::_strip_extent)
+    sw8 = 20  # the n=8 strip's width (ops/strip.py::_strip_extent)
     BOUNDS.update({
-        "energy": (8 * H * W, dct_ops(8, H, W, W)),
+        "energy": (8 * H * W, dct_ops(8, H * W, H * W)),
         "find_seam": (4 * H * W + 4 * H, 3 * H * W),
         "apply": (24 * H * W + 4 * H, 0),
         "strip": (4 * (H * (sw8 + 7) + H * sw8 + H),
-                  dct_ops(8, H, sw8, sw8 + 7)),
+                  dct_ops(8, H * sw8, H * (sw8 + 7))),
     })
     # apply as one torch.gather of the three planes' bits
     planes = torch.stack([luma, E, origcol.view(torch.float32)])
@@ -4129,118 +4102,6 @@ def multi_card() -> int:
     return 0
 
 
-# --strip-layouts: two 2-D layouts of the strip gather and scatter (#11-12)
-# timed against the flat ones that csrc/strip_bands.cu ships.  "rows": the
-# grid's y a band row (i, dy), z the image, x the band's columns, as many
-# threads as the band has columns rounded up to a warp; "warps": one warp
-# a band row, 8 band rows a block.  The scatter's rows are the strip rows.
-STRIP_LAYOUTS_CU = r"""
-#include <cuda_runtime.h>
-
-__device__ __forceinline__ int start_of(int seam, int half, int W,
-                                        int strip_w) {
-  return min(max(seam - half, 0), max(W - strip_w, 0));
-}
-
-__global__ void gather_rows(const float* __restrict__ luma,
-                            const int* __restrict__ seam,
-                            float* __restrict__ bands, int H, int W, int n,
-                            int co, int half, int strip_w) {
-  const int cb = strip_w + n - 1;
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= cb) return;
-  const int i = blockIdx.y / n, dy = blockIdx.y - i * n;
-  const size_t b = blockIdx.z;
-  const int start = start_of(seam[b * H + i], half, W, strip_w);
-  const int row = min(max(i + co + dy, 0), H - 1);
-  const int col = min(max(start + co + t, 0), W - 1);
-  bands[(b * H * n + blockIdx.y) * cb + t] =
-      __ldg(luma + b * H * W + static_cast<size_t>(row) * W + col);
-}
-
-__global__ void gather_warps(const float* __restrict__ luma,
-                             const int* __restrict__ seam,
-                             float* __restrict__ bands, int H, int W, int n,
-                             int co, int half, int strip_w) {
-  const int cb = strip_w + n - 1;
-  const int r = blockIdx.y * blockDim.y + threadIdx.y;
-  if (r >= H * n) return;
-  const int i = r / n, dy = r - i * n;
-  const size_t b = blockIdx.z;
-  const int start = start_of(seam[b * H + i], half, W, strip_w);
-  const int row = min(max(i + co + dy, 0), H - 1);
-  const float* src = luma + b * H * W + static_cast<size_t>(row) * W;
-  float* dst = bands + (b * H * n + r) * cb;
-  for (int t = threadIdx.x; t < cb; t += 32)
-    dst[t] = __ldg(src + min(max(start + co + t, 0), W - 1));
-}
-
-__global__ void scatter_rows(float* __restrict__ energy,
-                             const float* __restrict__ strip,
-                             const int* __restrict__ seam, int H, int W,
-                             int half, int strip_w) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= strip_w) return;
-  const int i = blockIdx.y;
-  const size_t b = blockIdx.z;
-  const int col = start_of(seam[b * H + i], half, W, strip_w) + c;
-  energy[b * H * W + static_cast<size_t>(i) * W + col] =
-      strip[(b * H + i) * strip_w + c];
-}
-
-__global__ void scatter_warps(float* __restrict__ energy,
-                              const float* __restrict__ strip,
-                              const int* __restrict__ seam, int H, int W,
-                              int half, int strip_w) {
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= H) return;
-  const size_t b = blockIdx.z;
-  const int start = start_of(seam[b * H + i], half, W, strip_w);
-  float* dst = energy + b * H * W + static_cast<size_t>(i) * W + start;
-  const float* src = strip + (b * H + i) * strip_w;
-  for (int c = threadIdx.x; c < strip_w; c += 32) dst[c] = src[c];
-}
-
-static int threads_for(int cols) {
-  const int t = (cols + 31) / 32 * 32;
-  return t < 256 ? t : 256;
-}
-
-extern "C" int sl_gather(int layout, const float* luma, const int* seam,
-                         float* bands, int B, int H, int W, int n, int co,
-                         int half, int strip_w, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  const int cb = strip_w + n - 1;
-  if (layout == 0) {
-    const int t = threads_for(cb);
-    gather_rows<<<dim3((cb + t - 1) / t, H * n, B), t, 0, s>>>(
-        luma, seam, bands, H, W, n, co, half, strip_w);
-  } else {
-    gather_warps<<<dim3(1, (H * n + 7) / 8, B), dim3(32, 8), 0, s>>>(
-        luma, seam, bands, H, W, n, co, half, strip_w);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int sl_scatter(int layout, float* energy, const float* strip,
-                          const int* seam, int B, int H, int W, int half,
-                          int strip_w, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (layout == 0) {
-    const int t = threads_for(strip_w);
-    scatter_rows<<<dim3((strip_w + t - 1) / t, H, B), t, 0, s>>>(
-        energy, strip, seam, H, W, half, strip_w);
-  } else {
-    scatter_warps<<<dim3(1, (H + 7) / 8, B), dim3(32, 8), 0, s>>>(
-        energy, strip, seam, H, W, half, strip_w);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-"""
-STRIP_LAYOUT_SHAPES = ((1, H, W), (NB, HB, WB), (NB_TIMED, HB, WB))
-STRIP_LAYOUT_NS = (2, 4, 8, 16)
-
-
 def tiled_forward() -> int:
     """Phase 0's build, then phase 1c's tiled forward alone: the split
     schedule's bitwise cases and `split_forwards` count (`split_1c`), its
@@ -4272,238 +4133,6 @@ def tiled_forward() -> int:
         log(f"FAILED: {f}")
     log(f"tiled forward: {len(chk.failures)} failures ({card})")
     return 1 if chk.failures else 0
-
-
-def strip_layouts() -> int:
-    """Build STRIP_LAYOUTS_CU with nvcc under build/, hold each layout's
-    gather and scatter bitwise against the shipped kernels at
-    STRIP_LAYOUT_SHAPES x STRIP_LAYOUT_NS, and log the device time per
-    call of each (`device_ms`, back to back)."""
-    import ctypes
-
-    import torch
-
-    from dct_carver_tpu_torch.kernels.build import NVCC_FLAGS
-    from dct_carver_tpu_torch.kernels.strip_kernel import (strip_gather,
-                                                           strip_scatter)
-    from dct_carver_tpu_torch.ops.carve import _strip_extent
-    from dct_carver_tpu_torch.ops.dct import window_offset
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    card = card_line()
-    out_dir = ROOT / "build" / "strip_layouts"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    src = out_dir / "strip_layouts.cu"
-    src.write_text(STRIP_LAYOUTS_CU)
-    lib_path = out_dir / "strip_layouts.so"
-    subprocess.run(["nvcc", *NVCC_FLAGS, "-shared", "-o", str(lib_path),
-                    str(src)], check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(str(lib_path))
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.sl_gather.argtypes = (I, P, P, P, *(I,) * 7, P)
-    lib.sl_scatter.argtypes = (I, P, P, P, *(I,) * 5, P)
-    rng = np.random.default_rng(SEED)
-    failed = []
-    for B, h, w in STRIP_LAYOUT_SHAPES:
-        shape = (h, w) if B == 1 else (B, h, w)
-        luma = torch.from_numpy(rng.random(shape, dtype=np.float32)).cuda()
-        seam = torch.from_numpy(rng.integers(0, w, shape[:-1],
-                                             dtype=np.int32)).cuda()
-        energy = torch.from_numpy(rng.random(shape, dtype=np.float32)).cuda()
-        stream = torch.cuda.current_stream().cuda_stream
-        for n in STRIP_LAYOUT_NS:
-            half, strip_w = _strip_extent(n, 1)
-            co = window_offset(n, "carve")
-            ref = strip_gather(luma, seam, n)
-            strip = torch.from_numpy(rng.random(
-                (*shape[:-1], strip_w), dtype=np.float32)).cuda()
-            e_ref = energy.clone()
-            strip_scatter(e_ref, strip, seam, n)
-            times = {"flat": (
-                device_ms(lambda: strip_gather(luma, seam, n), 50),
-                device_ms(lambda: strip_scatter(energy, strip, seam, n),
-                          50))}
-            for layout, name in enumerate(("rows", "warps")):
-                bands = torch.empty_like(ref)
-                e = energy.clone()
-
-                def gather():
-                    return lib.sl_gather(layout, luma.data_ptr(),
-                                         seam.data_ptr(), bands.data_ptr(),
-                                         B, h, w, n, co, half, strip_w,
-                                         stream)
-
-                def scatter():
-                    return lib.sl_scatter(layout, e.data_ptr(),
-                                          strip.data_ptr(), seam.data_ptr(),
-                                          B, h, w, half, strip_w, stream)
-
-                rcs = (gather(), scatter())
-                same = (rcs == (0, 0) and torch.equal(bands, ref)
-                        and torch.equal(e, e_ref))
-                if not same:
-                    failed.append(f"B={B} n={n} {name}: rc {rcs}")
-                times[name] = (device_ms(gather, 50), device_ms(scatter, 50))
-            for name, (g, sc) in times.items():
-                log(f"strip layout B={B} {h}x{w} n={n} {name:5s}: gather "
-                    f"{g * 1e3:.3f} us, scatter {sc * 1e3:.3f} us device "
-                    f"time a call back to back ({card})")
-    if failed:
-        print("strip layouts DIFFER:\n  " + "\n  ".join(failed),
-              file=sys.stderr)
-        return 1
-    log(json.dumps({"ok": True, "strip_layouts": "bitwise"}))
-    return 0
-
-
-# --band-variants: the band kernel (#13, csrc/strip_bands.cu) built once a
-# (threads a block aims at, lanes an output) pair from a copy of its source
-# with those two edited (band_variant_source); lanes 0: the shipped choice
-# by the call's size, else those lanes, at most n, for every call; the
-# first is the shipped kernel
-BAND_VARIANTS = ((256, 0), (256, 1), (256, 2), (256, 4), (256, 8), (256, 16),
-                 (128, 0), (512, 0))
-
-
-def band_variant_source(src: str, threads: int, lanes: int) -> str:
-    """strip_bands.cu's text `src` with kBandThreads = threads and, for
-    lanes > 0, every call on min(lanes, n) lanes an output: band_lanes
-    always takes the first branch, which launches that kernel."""
-    edits = [("constexpr int kBandThreads = 256;",
-              f"constexpr int kBandThreads = {threads};")]
-    if lanes:
-        edits += [("return outputs < kBandLargeOutputs ? n : 1;",
-                   "return n;"),
-                  ("launch_band<N, N>(",
-                   f"launch_band<N, ({lanes} < N ? {lanes} : N)>(")]
-    for old, new in edits:
-        if src.count(old) != 1:
-            raise ValueError(f"strip_bands.cu: {old!r} is not there once")
-        src = src.replace(old, new)
-    return src
-
-
-def band_variants() -> int:
-    """Build each of BAND_VARIANTS from an edited copy of this checkout's
-    strip_bands.cu into its own library under build/band_variants/ (one
-    nvcc each, all at once), hold each bitwise against the shipped band_energy at every
-    blocksize on the BAND_TIMED planes with bands gathered for delta_x = 1
-    and 4, and time each at delta_x = 1 (device ms a call).  Exits
-    non-zero if a variant does not build, launch or agree."""
-    import ctypes
-
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    from dct_carver_tpu_torch.kernels import build
-    from dct_carver_tpu_torch.kernels.energy_kernel import host_taps
-    from dct_carver_tpu_torch.kernels.strip_kernel import (band_energy,
-                                                           strip_gather)
-
-    card = card_line()
-    dev = torch.device("cuda", 0)
-    build.load()
-    out_dir = ROOT / "build" / "band_variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    shipped = (build.CSRC / "strip_bands.cu").read_text()
-    procs = {}
-    for t, g in BAND_VARIANTS:
-        lib = out_dir / f"band_{t}_{g}.so"
-        cu = out_dir / f"band_{t}_{g}.cu"
-        cu.write_text(band_variant_source(shipped, t, g))
-        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-shared",
-               f"-I{build.CSRC}", "-o", str(lib), str(cu)]
-        procs[(t, g)] = (lib, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    fns, failed = {}, []
-    for key, (lib, proc) in procs.items():
-        out = proc.communicate()[0]
-        if proc.returncode != 0:
-            failed.append(f"{key}: nvcc failed\n{out}")
-            continue
-        for line in out.splitlines():
-            if "band_energy" in line or ("registers" in line
-                                         and "spill" not in line):
-                log(f"  ptxas {key}: {line.strip()}")
-        fn = ctypes.CDLL(str(lib)).dc_band_energy
-        fn.argtypes = list(build.SIGNATURES["dc_band_energy"])
-        fn.restype = ctypes.c_int
-        fns[key] = fn
-    edges, textures = 0.3, 0.7
-    stream = torch.cuda.current_stream().cuda_stream
-    for name, luma in band_lumas(dev):
-        if name not in BAND_TIMED:
-            continue
-        for dx in (1, 4):
-            seam = walk_seams(luma, dx)
-            for n in (2, 4, 8, 16):
-                bands = strip_gather(luma, seam, n, delta_x=dx)
-                C = bands.shape[-1]
-                rows = bands.numel() // (n * C)
-                want = band_energy(bands, n, edges, textures)
-                got = torch.empty_like(want)
-                line = []
-                for key, fn in fns.items():
-                    def call(fn=fn):
-                        return fn(bands.data_ptr(), got.data_ptr(),
-                                  host_taps(n).ctypes.data, rows, n, C,
-                                  edges, textures, stream)
-
-                    got.fill_(float("nan"))
-                    rc = call()
-                    torch.cuda.synchronize()
-                    if rc != 0 or not torch.equal(got, want):
-                        failed.append(f"{key} {name} n={n} delta_x={dx}: "
-                                      f"rc {rc}")
-                        continue
-                    if dx == 1:
-                        ms = device_ms(call, 200 if luma.numel() < 2**25
-                                       else 10)
-                        line.append(f"{key[0]}/{key[1]} {ms!r}")
-                if line:
-                    log(f"band variants {name} n={n} (C={C}), threads/lanes "
-                        f"device ms: {', '.join(line)} ({card})")
-                del bands, want, got
-        torch.cuda.empty_cache()
-    if failed:
-        print("band variants FAILED:\n  " + "\n  ".join(failed),
-              file=sys.stderr)
-        return 1
-    log(json.dumps({"ok": True, "band_variants": "bitwise"}))
-    return 0
-
-
-def band_times_of(root: str) -> int:
-    """--band-times ROOT: band_times with the dct_carver_tpu_torch found
-    under ROOT (this checkout, or another commit's unpacked in a directory
-    .gitignore lists, to compare the two in turns, a fresh process each).
-    Prints one JSON line."""
-    import importlib
-
-    root_path = Path(root).resolve()
-    sys.path.insert(0, str(root_path))
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    pkg = importlib.import_module("dct_carver_tpu_torch")
-    if Path(pkg.__file__).resolve().parents[1] != root_path:
-        print(f"chip_smoke: dct_carver_tpu_torch comes from {pkg.__file__}, "
-              f"not from {root_path}", file=sys.stderr)
-        return 2
-    from dct_carver_tpu_torch.kernels import build
-
-    build.load()
-    times = band_times(band_lumas(torch.device("cuda", 0)), 0.3, 0.7)
-    print(json.dumps({"root": str(root_path), "card": card_line(),
-                      "times": times}), flush=True)
-    return 0
 
 
 # --first-carve: the carves of a one-shot process (a CLI call, a script that
@@ -4569,12 +4198,6 @@ def first_carve(root: str) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--first-carve"] and len(sys.argv) == 3:
         sys.exit(first_carve(sys.argv[2]))
-    if sys.argv[1:2] == ["--strip-layouts"] and len(sys.argv) == 2:
-        sys.exit(strip_layouts())
-    if sys.argv[1:2] == ["--band-variants"] and len(sys.argv) == 2:
-        sys.exit(band_variants())
-    if sys.argv[1:2] == ["--band-times"] and len(sys.argv) == 3:
-        sys.exit(band_times_of(sys.argv[2]))
     if sys.argv[1:2] == ["--multi-card"] and len(sys.argv) == 2:
         sys.exit(multi_card())
     if sys.argv[1:2] == ["--tiled-forward"] and len(sys.argv) == 2:
@@ -4596,8 +4219,7 @@ if __name__ == "__main__":
         sys.stderr.flush()
         os._exit(rc)
     if len(sys.argv) > 1:
-        print("usage: chip_smoke.py [--first-carve ROOT | --strip-layouts | "
-              "--band-variants | --band-times ROOT | --multi-card | "
+        print("usage: chip_smoke.py [--first-carve ROOT | --multi-card | "
               "--tiled-forward | --multiproc-worker RANK NPROC PORT BACKEND "
               "DIR]",
               file=sys.stderr)

@@ -7,9 +7,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.carver import (Carver, CarveResult, default_mesh,
-                            resolve_placement)
+from .models.carver import Carver, CarveResult
 from .utils.config import CarverConfig
+from .utils.placement import default_mesh, resolve_placement
 from .utils.profiling import span
 
 __all__ = ["carve", "CarveResult", "CarverConfig"]
@@ -30,7 +30,7 @@ def carve(image, seams_number: int, *, blocksize: int = 8,
     route's shards, the batch route's chunks; `device` then defaults to its
     first entry and may not name another.  With no `devices` the mesh of
     both routes is every visible card for `device` None or "cuda", else
-    `[device]` (`models/carver.py::default_mesh`).
+    `[device]` (`utils/placement.py::default_mesh`).
 
     Routing (`parallel=`): "batch" carves an image STACK — a (B, H, W[, C])
     array, whose result fields come back stacked over B — with one launch

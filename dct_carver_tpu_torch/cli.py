@@ -70,7 +70,7 @@ def _run_batch(args) -> int:
 
     import numpy as np
 
-    from .models.carver import default_mesh, resolve_device
+    from .utils.placement import default_mesh, resolve_device
     from .parallel.mesh import carve_batch
     from .utils.image import load_image, save_image
 

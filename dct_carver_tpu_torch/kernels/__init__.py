@@ -9,7 +9,8 @@ module's `KERNEL`; `dp_kernel.find_seams`, the batch route's DP, counts on
 sends a shape; three launches a call) on `dp_kernel.TILED_KERNEL`, which
 also counts the calls whose finish walked composed blocks of rows
 (`blocked_finishes`) and those whose forward took the split schedule
-(`split_forwards`; `reset_launches` clears both too),
+(`split_forwards`; `COUNTERS` lists every counter, and `reset_launches`
+clears them all),
 `strip_kernel`'s plugged-energy strip kernels
 on `GATHER_KERNEL`, `SCATTER_KERNEL` and `BAND_KERNEL`, and the spatial
 route's four on `spatial_kernel`'s records.  Every wrapper takes a (H, W)
@@ -21,7 +22,7 @@ take a stack of column shards of one image.
 from . import (apply_kernel, dp_kernel, energy_kernel, spatial_kernel,
                strip_kernel)
 
-__all__ = ["KERNELS", "reset_launches", "launch_counts"]
+__all__ = ["KERNELS", "COUNTERS", "reset_launches", "launch_counts"]
 
 KERNELS = (energy_kernel.KERNEL, dp_kernel.KERNEL, dp_kernel.BATCH_KERNEL,
            dp_kernel.TILED_KERNEL, apply_kernel.KERNEL, strip_kernel.KERNEL,
@@ -30,12 +31,16 @@ KERNELS = (energy_kernel.KERNEL, dp_kernel.KERNEL, dp_kernel.BATCH_KERNEL,
            spatial_kernel.BLOCK_KERNEL, spatial_kernel.PARTS_KERNEL,
            spatial_kernel.WALK_KERNEL, spatial_kernel.APPLY_KERNEL)
 
+# every (record, attribute) counter the wrappers move: what a seam step's
+# graph replay credits with what its capture counted (`utils/graphs.py`)
+COUNTERS = (*((k, "launches") for k in KERNELS),
+            (dp_kernel.TILED_KERNEL, "blocked_finishes"),
+            (dp_kernel.TILED_KERNEL, "split_forwards"))
+
 
 def reset_launches() -> None:
-    for k in KERNELS:
-        k.launches = 0
-    dp_kernel.TILED_KERNEL.blocked_finishes = 0
-    dp_kernel.TILED_KERNEL.split_forwards = 0
+    for k, attr in COUNTERS:
+        setattr(k, attr, 0)
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,5 +1,5 @@
 """Seam apply: the CUDA kernel `csrc/apply.cu` and its plain version
-(`ops/dp.py::remove_seam` on the three planes + `ops/carve.py::_edge_fill`).
+(`ops/dp.py::remove_seam` on the three planes + `ops/strip.py::_edge_fill`).
 
 Counterpart of `dct_carver_tpu/pallas/apply_kernel.py::apply_seam_pallas`
 together with its `new_edge_value`, and, for a (B, H, W) stack, of its
@@ -11,8 +11,8 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.carve import _edge_fill
 from ..ops.dp import remove_seam
+from ..ops.strip import _edge_fill
 from .build import Kernel, check_plane, launch
 
 __all__ = ["apply_seam", "KERNEL"]

@@ -1,25 +1,25 @@
 """Strip energy updates: four CUDA kernels and their plain versions.
 
 - `strip_update`: `csrc/strip.cu`, the DCT strip in one per-row kernel;
-  plain version `ops/carve.py::_recompute_strip`.  Counterpart of
+  plain version `ops/strip.py::_recompute_strip`.  Counterpart of
   `dct_carver_tpu/pallas/strip_kernel.py::strip_update_packed` (gather2 ->
   chains -> scatter2) and, for a (B, H, W) stack, of its batched form
   (reached under `jax.vmap` through `_strip_packed_cv`).
 - `strip_gather`, `strip_scatter`: `csrc/strip_bands.cu`, the two halves of
   a plugged energy's strip update around its own `bands_fn`; plain versions
-  `ops/carve.py::_gather_strip_bands` and `_scatter_strips`.  Counterparts
+  `ops/strip.py::_gather_strip_bands` and `_scatter_strips`.  Counterparts
   of `gather_slabs` (`_gather_slabs_call`) and `scatter_strips`
   (`_scatter_strips_call`).  Both are far shorter than their launch; in a
   carve on the card they run as nodes of the seam step's CUDA graph
-  (`ops/carve.py::SeamSteps`, `parallel/spatial.py`), launched by the
-  replay with no host work.
+  (`utils/graphs.py::GraphedSteps`), launched by the replay with no host
+  work.
 - `band_energy`: `csrc/strip_bands.cu`, the DCT energy of gathered bands;
   plain version `ops/dct.py::energy_from_bands`.  Counterpart of
   `strip_energy_pallas` (`_strip_energy_call`).
 
-All take the port's per-row strip geometry (`ops/carve.py::_strip_bounds`).
+All take the port's per-row strip geometry (`ops/strip.py::_strip_bounds`).
 `strip_update`, `strip_gather` and `strip_scatter` also take a stack of the
-column shards of one image (`shard=ops.carve.ShardOffset`, the spatial
+column shards of one image (`shard=ops.strip.ShardOffset`, the spatial
 route): each shard reads its luma with a halo, computes the overlap of each
 row's strip with its own columns, and writes only those.  This is the
 counterpart of `dct_carver_tpu/parallel/spatial.py::
@@ -31,9 +31,9 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.carve import (ShardOffset, _gather_strip_bands,
-                         _recompute_strip, _scatter_strips, _strip_extent)
 from ..ops.dct import BLOCKSIZES, energy_from_bands, window_offset
+from ..ops.strip import (ShardOffset, _gather_strip_bands, _recompute_strip,
+                         _scatter_strips, _strip_extent)
 from .build import Kernel, check_plane, launch
 from .energy_kernel import host_taps
 

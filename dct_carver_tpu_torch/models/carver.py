@@ -25,66 +25,10 @@ import torch
 from ..ops import carve as carve_ops
 from ..ops.energy import normalize_to_u8, to_luma
 from ..utils.config import CarverConfig
+from ..utils.placement import default_mesh, resolve_placement
 from ..utils.profiling import span
 
-__all__ = ["Carver", "CarveResult", "default_device", "default_mesh",
-           "resolve_device", "resolve_placement"]
-
-NO_CARD = ("no CUDA device is visible: pass device='cpu' (devices=['cpu'] "
-           "for a mesh, --device cpu on the command line) to run on the CPU")
-
-
-def default_device() -> torch.device:
-    """The first CUDA card.  Raises when none is visible: the port runs on
-    the card unless the caller asks for the CPU."""
-    if not torch.cuda.is_available():
-        raise RuntimeError(NO_CARD)
-    return torch.device("cuda")
-
-
-def resolve_device(device=None) -> torch.device:
-    """`device` as a torch device, `default_device()` for None; a CUDA
-    device raises when no card is visible."""
-    if device is None:
-        return default_device()
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(NO_CARD)
-    return device
-
-
-def resolve_placement(device=None, devices=None):
-    """The one placement of a carve on every route: (device, mesh).  A given
-    `devices` is the mesh and `device` defaults to its first entry; another
-    `device` raises.  Else the mesh is None (`default_mesh`)."""
-    if devices is None:
-        return resolve_device(device), None
-    from ..parallel.mesh import make_mesh
-
-    mesh = make_mesh(devices=devices)
-    if device is None:
-        return mesh[0], mesh
-    device = resolve_device(device)
-    if _card(device) != _card(mesh[0]):
-        raise ValueError(f"device {device} is not the mesh's first device "
-                         f"{mesh[0]}: name one placement")
-    return device, mesh
-
-
-def default_mesh(device: torch.device) -> list:
-    """The mesh when none is named: every visible card for a bare "cuda",
-    else the one device that `device` names."""
-    if device.type == "cuda" and device.index is None:
-        from ..parallel.mesh import make_mesh
-
-        return make_mesh()
-    return [device]
-
-
-def _card(device: torch.device) -> torch.device:
-    if device.type == "cuda" and device.index is None:
-        return torch.device("cuda", torch.cuda.current_device())
-    return device
+__all__ = ["Carver", "CarveResult"]
 
 
 @dataclasses.dataclass

@@ -22,7 +22,7 @@ import torch
 from ..ops import carve as carve_ops
 from ..ops.energy import to_luma
 from ..utils.config import CarverConfig
-from .carver import resolve_device
+from ..utils.placement import resolve_device
 
 __all__ = ["InteractiveRetargeter"]
 

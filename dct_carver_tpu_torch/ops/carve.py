@@ -22,16 +22,15 @@ compact the buffers around it (`kernels/apply_kernel.py`), and recompute
 the energy in a strip around it (`kernels/strip_kernel.py`).  JAX traces
 the whole carve into one jitted program; here the step runs over static
 buffers (`SeamSteps`: two sets that swap every seam, the width and the
-seam's label kept on the device), so on a card every seam after the first
+seam's label kept on the device) on the runner that every route shares
+(`utils/graphs.py::GraphedSteps`), so on a card every seam after the first
 is one CUDA graph replay, and a small cache keyed as the jit is
 (`step_key`) keeps the buffers and graphs for the next carve of a shape.
 The loop never waits for the device.
 
-Strip update: a pixel's energy can only change if its window overlaps a
-changed column, and the seam drifts <= delta_x columns a row, so row i
-recomputes the `strip_w` columns from clip(seam_i - half, 0, W - strip_w).
-Every recomputed value goes through the same energy chain as a full
-recompute, so strip == full bit for bit (docs/PARITY.md S5).
+The energy after a compaction (`update_energy`, on every route) is
+recomputed in a strip around the seam (`ops/strip.py`), bit for bit what a
+full recompute gives (docs/PARITY.md S5).
 
 A plugged energy (`energy_fn`, an `ops/energy_fn.py::EnergyFunction`)
 replaces the DCT: its first map is `energy_fn.energy_map`, and its strip
@@ -50,16 +49,21 @@ from typing import NamedTuple
 
 import torch
 
-from ..utils.debug import check_finite, checks_nans, eager_steps
+from ..kernels import COUNTERS, dp_kernel
+from ..kernels.apply_kernel import apply_seam
+from ..kernels.energy_kernel import dct_energy
+from ..kernels.strip_kernel import strip_gather, strip_scatter, strip_update
+from ..utils.debug import eager_steps
+from ..utils.graphs import GraphedSteps
 from ..utils.profiling import span
-from .dct import energy_from_bands, window_offset
 from .dp import check_tie, find_seam as find_seam_plain, mask_energy
+from .strip import ShardOffset, energy_window, strip_fits
 
-__all__ = ["CarveState", "ShardOffset", "make_state", "carve_n_seams",
-           "carve_seams", "carve_chunks", "SeamSteps", "StepParams",
-           "step_key", "kernel_dp", "graphed", "clear_step_cache",
-           "strip_fits",
-           "full_energy_map", "reconstruct_removed", "reconstruct_enlarged"]
+__all__ = ["CarveState", "make_state", "carve_n_seams", "carve_seams",
+           "carve_chunks", "SeamSteps", "StepParams", "step_params",
+           "step_key", "kernel_dp", "cards_of", "graph_cards", "graphed",
+           "update_energy", "clear_step_cache", "full_energy_map",
+           "reconstruct_removed", "reconstruct_enlarged"]
 
 
 class CarveState(NamedTuple):
@@ -87,143 +91,6 @@ def make_state(luma: torch.Tensor, width: int | None = None) -> CarveState:
     )
 
 
-class ShardOffset(NamedTuple):
-    """Where a (S, H, Wl) stack of column shards lies in one image (the
-    spatial route, `parallel/spatial.py`): shard s owns global columns
-    [lo + s*Wl, lo + (s+1)*Wl) of a buffer `width` columns wide, and its
-    luma plane carries the edge-clamped halo of an n-wide window, r-1
-    columns before its own and r after (r = n // 2), so it is Wl + n - 1
-    wide.  Strip starts are clamped to `width`, as on one device."""
-    lo: int
-    width: int
-
-
-def _shard_origins(shard: ShardOffset, S: int, Wl: int, device):
-    """(S,) int64: the global column of each shard's first owned column."""
-    return shard.lo + Wl * torch.arange(S, device=device)
-
-
-def _edge_fill(luma: torch.Tensor, width) -> torch.Tensor:
-    """Replicate column width-1 into the dead region (border clamp).
-    `width`: an int, or a tensor of one width an image ((B,) for a (B, H,
-    W) stack, (1,) for a plane)."""
-    col = torch.arange(luma.shape[-1], device=luma.device)
-    if not isinstance(width, torch.Tensor):
-        return torch.where(col < width, luma, luma[..., width - 1 : width])
-    w = width.to(torch.int64).reshape(*luma.shape[:-2], 1, 1)
-    edge = luma.gather(-1, (w - 1).expand(*luma.shape[:-1], 1))
-    return torch.where(col < w, luma, edge)
-
-
-def _strip_extent(blocksize: int, delta_x: int = 1) -> tuple[int, int]:
-    """(half, strip_w) of the per-row strip around a removed seam.
-
-    After removing column s_i in row i, pixel (i, j) has a changed window
-    iff some row r within the window's vertical extent has |j - s_r| <=
-    r_blk (+1 for the index shift), and |s_r - s_i| <= delta_x *
-    blocksize/2 within the extent, so half = blocksize/2 * (1 + delta_x) + 1
-    suffices; strip_w = 2 * half + 2 leaves a little slack.
-    """
-    half = (blocksize // 2) * (1 + delta_x) + 1
-    return half, 2 * half + 2
-
-
-def _strip_bounds(seam: torch.Tensor, blocksize: int, W: int,
-                  delta_x: int = 1):
-    """(start (..., H) int64, strip_w): row i's strip is columns
-    [start_i, start_i + strip_w)."""
-    half, strip_w = _strip_extent(blocksize, delta_x)
-    start = (seam.to(torch.int64) - half).clamp(0, max(W - strip_w, 0))
-    return start, strip_w
-
-
-def _gather_strip_bands(luma: torch.Tensor, seam: torch.Tensor, n: int,
-                        delta_x: int = 1,
-                        shard: ShardOffset | None = None) -> torch.Tensor:
-    """The plain version of the strip gather kernel: each row's band of the
-    compacted, edge-filled `luma` around the removed `seam`.  luma:
-    (..., H, W); seam: (..., H).  Returns (..., H, n, strip_w + n - 1):
-    bands[..., i, dy, t] = luma[..., clip(i + co + dy), clip(start_i + co
-    + t)] with co = window_offset(n, "carve").  With `shard`, luma is a
-    (S, H, Wl + n - 1) stack of shards with their halos, seam the (H,) seam
-    they share, and each band column is read at its global column (clamped
-    to the shard's plane)."""
-    H, Wx = luma.shape[-2:]
-    dev = luma.device
-    co = window_offset(n, "carve")
-    W = Wx if shard is None else shard.width
-    start, strip_w = _strip_bounds(seam, n, W, delta_x)
-    cols = start[..., None] + co + torch.arange(strip_w + n - 1, device=dev)
-    if shard is not None:
-        # luma column 0 of shard s is global column origin_s - (r - 1)
-        x0 = _shard_origins(shard, luma.shape[0], Wx - n + 1, dev) + co
-        cols = cols[None] - x0[:, None, None]
-    cols = cols.clamp(0, Wx - 1)
-    rows = (torch.arange(H, device=dev)[:, None] + co
-            + torch.arange(n, device=dev)[None, :]).clamp(0, H - 1)
-    # (B, H, n, strip_w+n-1): row i's band reads rows[i] at cols[..., i, :]
-    planes = luma.reshape(-1, H, Wx)
-    b = torch.arange(planes.shape[0], device=dev)[:, None, None, None]
-    bands = planes[b, rows[:, :, None],
-                   cols.reshape(-1, H, strip_w + n - 1)[:, :, None, :]]
-    return bands.reshape(*luma.shape[:-2], H, n, strip_w + n - 1)
-
-
-def _scatter_strips(energy: torch.Tensor, strip: torch.Tensor,
-                    seam: torch.Tensor, n: int, delta_x: int = 1,
-                    shard: ShardOffset | None = None) -> torch.Tensor:
-    """The plain version of the strip scatter kernel: write, in place, each
-    row's (..., H, strip_w) strip into the compacted `energy` at the row's
-    strip start, and return `energy`.  With `shard`, energy is a (S, H, Wl)
-    stack of shards and each keeps the strip columns it owns."""
-    W = energy.shape[-1]
-    dev = energy.device
-    start, strip_w = _strip_bounds(seam, n, W if shard is None
-                                   else shard.width, delta_x)
-    idx = start[..., None] + torch.arange(strip_w, device=dev)
-    if shard is None:
-        return energy.scatter_(-1, idx, strip.to(energy.dtype))
-    idx = idx[None] - _shard_origins(shard, energy.shape[0], W,
-                                     dev)[:, None, None]
-    # columns of other shards land in one extra column, which is dropped
-    idx = torch.where((idx >= 0) & (idx < W), idx, W)
-    spill = torch.zeros_like(energy[..., :1])
-    padded = torch.cat([energy, spill], dim=-1)
-    padded.scatter_(-1, idx, strip.to(energy.dtype))
-    return energy.copy_(padded[..., :W])
-
-
-def _recompute_strip(luma: torch.Tensor, energy: torch.Tensor,
-                     seam: torch.Tensor, blocksize: int, edges, textures,
-                     delta_x: int = 1,
-                     shard: ShardOffset | None = None) -> torch.Tensor:
-    """The plain version of the DCT strip kernel: overwrite, in place, each
-    row's strip of the compacted `energy` with the energy of the compacted,
-    edge-filled `luma`.  Returns `energy`.  luma, energy: (..., H, W);
-    seam: (..., H); with `shard`, a stack of shards (`ShardOffset`)."""
-    bands = _gather_strip_bands(luma, seam, blocksize, delta_x, shard)
-    strip = energy_from_bands(bands, blocksize, edges, textures)
-    return _scatter_strips(energy, strip, seam, blocksize, delta_x, shard)
-
-
-def _update_strip_fn(luma: torch.Tensor, energy: torch.Tensor,
-                     seam: torch.Tensor, energy_fn, delta_x: int,
-                     use_pallas: bool,
-                     shard: ShardOffset | None = None) -> torch.Tensor:
-    """The strip update of a plugged energy, in place: gather the bands
-    (kernel #11's counterpart), run `energy_fn.bands_fn` on them, scatter
-    the strips (kernel #12's counterpart).  `shard`: as `_recompute_strip`."""
-    from ..kernels.strip_kernel import strip_gather, strip_scatter
-
-    n = energy_fn.n
-    bands = strip_gather(luma, seam, n, delta_x=delta_x,
-                         use_pallas=use_pallas, shard=shard)
-    strip = energy_fn.bands_fn(bands.reshape(-1, *bands.shape[-2:]))
-    strip = strip.to(torch.float32).reshape(*bands.shape[:-2], -1)
-    return strip_scatter(energy, strip.contiguous(), seam, n,
-                         delta_x=delta_x, use_pallas=use_pallas, shard=shard)
-
-
 def full_energy_map(luma: torch.Tensor, blocksize: int, edges, textures,
                     center: str = "carve", use_pallas: bool = True,
                     energy_fn=None) -> torch.Tensor:
@@ -231,28 +98,18 @@ def full_energy_map(luma: torch.Tensor, blocksize: int, edges, textures,
     energy kernel on CUDA tensors, the plain version otherwise.  With a
     plugged `energy_fn` its own `energy_map` runs instead (plain torch, as
     the JAX package runs it in XLA)."""
-    from ..kernels.energy_kernel import dct_energy
-
     if energy_fn is not None:
         return energy_fn.energy_map(luma, center).to(torch.float32)
     return dct_energy(luma, blocksize, edges, textures, center=center,
                       use_pallas=use_pallas)
 
 
-def strip_fits(W: int, blocksize: int, delta_x: int = 1,
-               energy_fn=None) -> bool:
-    """Whether the per-row strip fits a buffer `W` wide; narrower buffers
-    recompute the full map every seam.  The window is the plugged energy's
-    `n` when there is one, else `blocksize`."""
-    n_eff = energy_fn.n if energy_fn is not None else blocksize
-    return W >= _strip_extent(n_eff, delta_x)[1]
-
-
 class StepParams(NamedTuple):
     """What a seam step is made of besides its buffers' shape: the
     counterpart of the JAX carve's `static_argnames`, plus what the
     kernels take by value (edges, textures, the energy's taps by
-    blocksize).  Part of the step cache's key."""
+    blocksize).  Part of the step cache's key.  The spatial route's
+    parameters are these and three of its own (`parallel/spatial.py`)."""
     blocksize: int
     edges: float
     textures: float
@@ -264,22 +121,84 @@ class StepParams(NamedTuple):
     energy_fn: object  # an EnergyFunction, or None for the DCT energy
 
 
-def kernel_dp(device: torch.device, p: StepParams) -> bool:
-    """Whether a step on `device` with `p` finds its seam with the
-    find-seam kernels: on a card with the kernels and the kernels' DP
-    (delta_x = 1, rigidity = 0)."""
-    return (device.type == "cuda" and p.use_pallas and p.delta_x == 1
-            and p.rigidity == 0.0)
+def step_params(blocksize, edges, textures, strip_update: bool = True,
+                use_pallas: bool = True, delta_x: int = 1,
+                rigidity: float = 0.0, tie: str = "leftmost",
+                energy_fn=None) -> StepParams:
+    """The checked parameters of a seam step on any route."""
+    if delta_x < 1:
+        raise ValueError(f"delta_x must be >= 1, got {delta_x}")
+    check_tie(tie)
+    return StepParams(int(blocksize), float(edges), float(textures),
+                      bool(strip_update), bool(use_pallas), int(delta_x),
+                      float(rigidity), tie, energy_fn)
+
+
+def kernel_dp(p) -> bool:
+    """Whether a step with parameters `p` (`StepParams`, or the spatial
+    route's) takes the kernels' DP: the kernels (`use_pallas`), delta_x = 1
+    and rigidity = 0.  Else it takes the plain scan, which allocates under
+    capture, so its steps are never captured."""
+    return p.use_pallas and p.delta_x == 1 and p.rigidity == 0.0
+
+
+def cards_of(devices) -> list | None:
+    """The CUDA cards among `devices`, in order and each once, or None when
+    one of them is no card."""
+    if any(d.type != "cuda" for d in devices):
+        return None
+    return list(dict.fromkeys(devices))
+
+
+def graph_cards(devices, p) -> list | None:
+    """The cards that a step over `devices` with `p` is captured on, the
+    capturing one first, or None: every step runs eagerly.  Captured when
+    every device is a card, with the kernels' DP (`kernel_dp`), outside
+    `utils/debug.py::debug_mode`."""
+    if not kernel_dp(p) or eager_steps():
+        return None
+    return cards_of(devices)
 
 
 def graphed(device: torch.device, p: StepParams) -> bool:
-    """Whether a step on `device` with `p` runs as CUDA graph replays: a
-    `kernel_dp` step outside `utils/debug.py::debug_mode`; every other step
-    runs eagerly and is never captured."""
-    return kernel_dp(device, p) and not eager_steps()
+    """Whether a step on `device` with `p` runs as CUDA graph replays."""
+    return graph_cards([device], p) is not None
 
 
-class SeamSteps:
+def update_energy(luma: torch.Tensor, energy: torch.Tensor,
+                  seam: torch.Tensor, p,
+                  shard: ShardOffset | None = None) -> None:
+    """Bring the compacted `energy` up to date, in place, after the removal
+    of `seam` left the compacted, edge-filled `luma`: the full map where
+    `p` takes no strip update, else the plugged energy's strip (gather the
+    bands, its `bands_fn`, scatter the strips) or the DCT strip.  luma,
+    energy: (..., H, W) with (..., H) seams; with `shard`, the (S, H, Wl +
+    n - 1) halo-extended luma and the (S, H, Wl) energy of a stack of
+    column shards of one image, and the (H,) seam they share."""
+    if not p.strip_update:
+        full = full_energy_map(luma, p.blocksize, p.edges, p.textures,
+                               use_pallas=p.use_pallas,
+                               energy_fn=p.energy_fn)
+        if shard is not None:  # the owned columns of the extended map
+            r = energy_window(p.blocksize, p.energy_fn) // 2
+            full = full[..., r - 1:r - 1 + energy.shape[-1]]
+        energy.copy_(full)
+    elif p.energy_fn is not None:
+        n = p.energy_fn.n
+        bands = strip_gather(luma, seam, n, delta_x=p.delta_x,
+                             use_pallas=p.use_pallas, shard=shard)
+        strip = p.energy_fn.bands_fn(bands.reshape(-1, *bands.shape[-2:]))
+        strip = strip.to(torch.float32).reshape(*bands.shape[:-2], -1)
+        strip_scatter(energy, strip.contiguous(), seam, n,
+                      delta_x=p.delta_x, use_pallas=p.use_pallas,
+                      shard=shard)
+    else:
+        strip_update(luma, energy, seam, p.blocksize, p.edges, p.textures,
+                     delta_x=p.delta_x, use_pallas=p.use_pallas,
+                     shard=shard)
+
+
+class SeamSteps(GraphedSteps):
     """A carve's seam step over static buffers, the counterpart of the JAX
     package's jitted N-seam carve: two (luma, origcol, energy) sets that
     swap every seam, the vmap, and on the device the logical width (one
@@ -287,35 +206,17 @@ class SeamSteps:
     label.  The step reads one set and writes the other, records the seam
     in the vmap with the device label (on a card, on a second stream, so
     that the graph runs the record beside the apply and the strip), then
-    decrements the width and increments the label on the device.  It
-    allocates nothing that outlives it and never waits for the device, so
-    a CUDA graph can capture it.
+    decrements the width and increments the label on the device.
 
-    On a card with the kernels (`use_pallas`, delta_x = 1, rigidity = 0)
-    the first seam of the object's first carve runs eagerly, which builds
-    the kernels and sets their shared-memory limits; then two graphs of
-    the step are captured, one for each direction between the sets, and
-    every later seam is one replay (`utils/graphs.py`), which credits the
-    kernels' launch counts with what its capture counted.  CPU tensors,
-    `use_pallas=False` and the plain scan DP (other delta_x / rigidity) run
-    the same step eagerly and never capture, and so does every step inside
-    `utils/debug.py::debug_mode`, the kernels included; with its NaN checks
-    the state is checked after every seam.  A capture or replay that
-    fails raises; nothing falls back to eager steps.
-
-    The first set and the vmap are `state`'s buffers, which the step owns
+    Graphed where `graph_cards` names the step's card; CPU tensors, the
+    plain path, the plain scan DP and `debug_mode` run it eagerly.  The
+    first set and the vmap are `state`'s buffers, which the step owns
     from then on; a carve whose state lies elsewhere is copied in."""
 
     def __init__(self, state: CarveState, p: StepParams):
-        from ..kernels import KERNELS
-        from ..kernels.dp_kernel import TILED_KERNEL
-        from ..utils.graphs import StepGraphs
-
         self.p = p
         planes = (state.luma, state.origcol, state.energy)
-        self.sets = [planes, tuple(torch.empty_like(x) for x in planes)]
         self.vmap = state.vmap
-        self.cur = 0
         dev = state.luma.device
         lead = state.luma.shape[0] if state.luma.ndim == 3 else 1
         # [label, width of each image]: one add a step moves them all
@@ -326,37 +227,29 @@ class SeamSteps:
                                      device=dev)
         self.step_delta[:1].fill_(1)
         name = p.energy_fn.name if p.energy_fn is not None else "dct"
-        self.kernel_dp = kernel_dp(dev, p)
-        self.graphs = StepGraphs(
-            [dev], f"seam step (energy {name!r})",
-            [*((k, "launches") for k in KERNELS),
-             (TILED_KERNEL, "blocked_finishes"),
-             (TILED_KERNEL, "split_forwards")]) if graphed(dev, p) else None
+        self.kernel_dp = kernel_dp(p) and cards_of([dev]) is not None
+        super().__init__([planes, tuple(torch.empty_like(x) for x in planes)],
+                         graph_cards([dev], p),
+                         f"seam step (energy {name!r})", COUNTERS)
         # the vmap record's stream: in the graph, a branch beside the apply
         # and the strip, which neither read nor write what it touches
-        self.side = torch.cuda.Stream(dev) if self.graphs is not None \
+        self.side = torch.cuda.Stream(dev) if self.graph_cards is not None \
             else None
-        self.warm = False
 
     def _find(self, energy: torch.Tensor) -> torch.Tensor:
         """The seam of each image over its live columns [0, width)."""
-        from ..kernels.dp_kernel import BATCH_KERNEL, KERNEL, _find_seams_cuda
-
         p = self.p
         if self.kernel_dp:
             if energy.ndim == 3:
-                return _find_seams_cuda(BATCH_KERNEL, energy, self.width, 0,
-                                        p.tie)
-            return _find_seams_cuda(KERNEL, energy[None], self.width, 0,
-                                    p.tie)[0]
+                return dp_kernel._find_seams_cuda(
+                    dp_kernel.BATCH_KERNEL, energy, self.width, 0, p.tie)
+            return dp_kernel._find_seams_cuda(
+                dp_kernel.KERNEL, energy[None], self.width, 0, p.tie)[0]
         width = self.width if energy.ndim == 3 else self.width[0]
         return find_seam_plain(mask_energy(energy, width), p.delta_x,
                                p.rigidity, p.tie).to(torch.int32)
 
     def _step(self, src: int) -> None:
-        from ..kernels.apply_kernel import apply_seam
-        from ..kernels.strip_kernel import strip_update as update_strip
-
         p = self.p
         luma, origcol, energy = self.sets[src]
         out = self.sets[1 - src]
@@ -373,18 +266,7 @@ class SeamSteps:
                                         use_pallas=p.use_pallas)):
             if x is not o:  # the plain version returns new tensors
                 o.copy_(x)
-        luma, _, energy = out
-        if not p.strip_update:
-            energy.copy_(full_energy_map(luma, p.blocksize, p.edges,
-                                         p.textures, use_pallas=p.use_pallas,
-                                         energy_fn=p.energy_fn))
-        elif p.energy_fn is not None:
-            _update_strip_fn(luma, energy, seam, p.energy_fn, p.delta_x,
-                             p.use_pallas)
-        else:
-            update_strip(luma, energy, seam, p.blocksize, p.edges,
-                         p.textures, delta_x=p.delta_x,
-                         use_pallas=p.use_pallas)
+        update_energy(out[0], out[2], seam, p)
         if self.side is not None:
             main.wait_stream(self.side)
         self.ctr.add_(self.step_delta)
@@ -395,6 +277,10 @@ class SeamSteps:
         orig = origcol.gather(-1, seam[..., None].to(torch.int64))
         self.vmap.scatter_(-1, orig.to(torch.int64),
                            self.label.expand(orig.shape))
+
+    def _checked(self, width: int) -> CarveState:
+        luma, origcol, energy = self.sets[self.cur]
+        return CarveState(luma, origcol, self.vmap, width, energy)
 
     def carve(self, state: CarveState, first: int,
               count: int) -> CarveState:
@@ -414,37 +300,8 @@ class SeamSteps:
                     dst.copy_(x)
             self.label.fill_(first + 1)
             self.width.fill_(state.width)
-            nan_checks = checks_nans()
-            done = 0
-            if count and self.graphs is not None and not self.warm:
-                with span("carve.seam.eager"):
-                    self._step(self.cur)
-                self.warm = True
-                self._advance(state.width, first, 0, nan_checks)
-                done = 1
-            for k in range(done, count):
-                if self.graphs is not None:
-                    if not self.graphs.captured:
-                        self.graphs.capture(self._step,
-                                            (self.cur, 1 - self.cur))
-                    self.graphs.replay(self.cur)
-                else:
-                    self._step(self.cur)
-                self._advance(state.width, first, k, nan_checks)
-        luma, origcol, energy = self.sets[self.cur]
-        return CarveState(luma, origcol, self.vmap, state.width - count,
-                          energy)
-
-    def _advance(self, width: int, first: int, k: int,
-                 nan_checks: bool) -> None:
-        """After seam first+k+1 of a carve from `width`: swap the sets, and
-        with NaN checks check the state (the kernels' writes, which no
-        torch op sees)."""
-        self.cur ^= 1
-        if nan_checks:
-            luma, origcol, energy = self.sets[self.cur]
-            check_finite(CarveState(luma, origcol, self.vmap, width - k - 1,
-                                    energy), f"after seam {first + k + 1}")
+            self.run_seams(first, state.width, count)
+        return self._checked(state.width - count)
 
 
 # The step cache, the counterpart of jax.jit's compile cache: the last
@@ -523,14 +380,6 @@ def _run(steps: SeamSteps, cached: bool, state: CarveState, first: int,
         _keep_steps(key, steps)
 
 
-def _params(blocksize, edges, textures, strip_update, use_pallas, delta_x,
-            rigidity, tie, energy_fn) -> StepParams:
-    check_tie(tie)
-    return StepParams(int(blocksize), float(edges), float(textures),
-                      bool(strip_update), bool(use_pallas), int(delta_x),
-                      float(rigidity), tie, energy_fn)
-
-
 def carve_chunks(state: CarveState, first: int, counts, blocksize: int,
                  edges, textures, strip_update: bool = True,
                  use_pallas: bool = True, delta_x: int = 1,
@@ -542,8 +391,8 @@ def carve_chunks(state: CarveState, first: int, counts, blocksize: int,
     knobs (`SeamSteps`; a cached one replays the graphs it captured before,
     and a carve's chunks share one capture).  What it yields aliases no
     cached buffer.  Never waits for the device."""
-    p = _params(blocksize, edges, textures, strip_update, use_pallas,
-                delta_x, rigidity, tie, energy_fn)
+    p = step_params(blocksize, edges, textures, strip_update, use_pallas,
+                    delta_x, rigidity, tie, energy_fn)
     steps = _take_steps(state.luma, p)
     cached = steps is not None
     if not cached:
@@ -588,16 +437,14 @@ def carve_n_seams(luma: torch.Tensor, n_seams: int, blocksize: int, edges,
         raise ValueError(f"luma must be (H, W) or (B, H, W), got "
                          f"{tuple(luma.shape)}")
     W = luma.shape[-1]
-    if delta_x < 1:
-        raise ValueError(f"delta_x must be >= 1, got {delta_x}")
     if not 0 <= n_seams < W:
         raise ValueError(f"cannot remove {n_seams} seams from width {W}")
     # strips wider than the buffer would index out of bounds: full
     # recompute for tiny images
-    strip_update = strip_update and strip_fits(W, blocksize, delta_x,
-                                               energy_fn)
-    p = _params(blocksize, edges, textures, strip_update, use_pallas,
-                delta_x, rigidity, tie, energy_fn)
+    p = step_params(blocksize, edges, textures,
+                    strip_update and strip_fits(W, blocksize, delta_x,
+                                                energy_fn),
+                    use_pallas, delta_x, rigidity, tie, energy_fn)
     steps = _take_steps(luma, p)
     cached = steps is not None
     if cached:  # the first state straight into the step's current set

@@ -11,7 +11,7 @@ Here the carve loop itself takes the leading B (`ops/carve.py`), so each
 seam step is one launch per kernel for the whole batch on a device.
 
 With no devices named the batch goes over every visible card, as JAX's
-default mesh takes every device (`models/carver.py::default_mesh`).  Over
+default mesh takes every device (`utils/placement.py::default_mesh`).  Over
 several devices the batch is cut into contiguous chunks, one per device,
 and the results are joined in order on the first device.  Every chunk's
 copy to its card is queued before any carve (a copy between cards runs
@@ -26,36 +26,13 @@ from __future__ import annotations
 
 import torch
 
-from ..models.carver import (NO_CARD, default_mesh, resolve_device,
-                             resolve_placement)
 from ..ops import carve as carve_ops
 from ..ops.energy import to_luma
 from ..ops.energy_fn import resolve_energy
+from ..utils.placement import default_mesh, make_mesh, resolve_placement
 from ..utils.profiling import span
 
 __all__ = ["make_mesh", "carve_batch", "batch_carve_states"]
-
-
-def make_mesh(n_devices: int | None = None,
-              devices=None) -> list[torch.device]:
-    """The ordered devices of a 1-D mesh: `devices` when given, else the
-    first `n_devices` visible CUDA cards (default: all of them).  Entries
-    may repeat: `["cuda:0"] * 4` is four shards on one card, and
-    `["cpu"] * 8` the CPU counterpart of the JAX tests' 8-device mesh.
-    Raises when no device is named and no card is visible."""
-    if devices is None:
-        count = torch.cuda.device_count()
-        if count == 0:
-            raise RuntimeError(NO_CARD)
-        devices = [f"cuda:{i}" for i in range(count)]
-    devices = [torch.device(d) for d in devices]
-    if n_devices is not None:
-        devices = devices[:n_devices]
-    if not devices:
-        raise ValueError("a mesh needs at least one device")
-    for d in devices:
-        resolve_device(d)
-    return devices
 
 
 def batch_carve_states(images: torch.Tensor, n_seams: int, blocksize: int,
@@ -109,7 +86,7 @@ def carve_batch(images, n_seams: int, *, blocksize: int = 8,
 
     images: (B, H, W[, C]) u8/float, a numpy array or a tensor.  `devices`:
     the torch devices to split the batch over (default: every visible CUDA
-    card, `models/carver.py::default_mesh`; pass `["cpu"]` to run on the
+    card, `utils/placement.py::default_mesh`; pass `["cpu"]` to run on the
     CPU).  Returns (carved (B, H, W - n_seams[, C]) | None, vmaps (B, H, W)
     int32), tensors on the first device.  `energy`: None/'dct', a builtin
     name or an `EnergyFunction`.

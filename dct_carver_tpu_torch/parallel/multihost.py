@@ -29,6 +29,8 @@ import time
 import torch
 import torch.distributed as dist
 
+from ..utils.placement import NO_CARD
+
 __all__ = ["initialize", "is_distributed", "barrier", "process_health",
            "failed_processes"]
 
@@ -69,8 +71,6 @@ def initialize(coordinator_address: str | None = None,
         return  # single-process mode
     if backend is None:
         if not torch.cuda.is_available():
-            from ..models.carver import NO_CARD
-
             raise RuntimeError(f"{NO_CARD}; with several processes, pass "
                                "backend='gloo'")
         backend = "nccl"

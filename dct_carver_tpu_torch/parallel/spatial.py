@@ -37,17 +37,13 @@ Per seam, with collectives blocked every K rows (K = `frontier_block`):
   shard writing the overlap of each row's strip with its own columns.
 * the vmap record is deferred to one scatter a chunk.
 
-The step writes into static buffers (`_SeamSteps`): two sets of planes that
-swap every seam, the extended M, and the logical width on the device, which
-the step decrements.  So with the kernels, on one card or on several cards
-of this controller, it is captured once a carve in two CUDA graphs, one
-for each direction between the sets, and every seam after the first
-replays one: the port's counterpart of the JAX package's jitted chunk
-(`_spatial_chunk_jit`, `jax.jit` over `shard_map` over `lax.fori_loop`).
-Over several cards one graph holds every card's kernels and the copies
-between the cards (`utils/graphs.py::StepGraphs`).  Meshes with a CPU
-stack, the plain path and the generalized DP (`delta_x`/`rigidity` other
-than (1, 0)) run the same step eagerly (`_graph_cards`).
+The step writes into static buffers (`_SeamSteps`, on every route's runner
+`utils/graphs.py::GraphedSteps`), so with the kernels, on one card or on
+several cards of this controller, every seam after a carve's first replays
+a CUDA graph: the counterpart of the JAX package's jitted chunk
+(`_spatial_chunk_jit`).  Over several cards one graph holds every card's
+kernels and the copies between them.  Meshes with a CPU stack, the plain
+path and the generalized DP run the same step eagerly (`_graph_cards`).
 
 A carve's phases carry the port's spans (`utils/profiling.py::span`, the
 table in `PERF.md`): `carve.spatial.shard` (padding and splitting the
@@ -78,24 +74,23 @@ and `measure_collectives_per_seam` counts the exchanges of a real seam step.
 from __future__ import annotations
 
 import math
+from collections import namedtuple
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..kernels import KERNELS
+from ..kernels import COUNTERS
 from ..kernels.spatial_kernel import (block_dp, block_dp_parts, scan_rows,
                                       seg_walk, sharded_apply, walk_rows)
-from ..kernels.strip_kernel import strip_update as dct_strip_update
-from ..ops.carve import (ShardOffset, _update_strip_fn, full_energy_map,
-                         strip_fits)
-from ..ops.dp import check_tie
+from ..ops.carve import (StepParams, graph_cards, kernel_dp, step_params,
+                         update_energy)
 from ..ops.energy_fn import resolve_energy
-from ..utils.debug import check_finite, checks_nans, eager_steps
-from ..utils.graphs import StepGraphs
+from ..ops.strip import ShardOffset, energy_window, strip_fits
+from ..utils.graphs import GraphedSteps
+from ..utils.placement import make_mesh, resolve_card
 from ..utils.profiling import span
 from . import multihost
-from .mesh import make_mesh
 from .shards import ProcessMesh, ShardMesh, shard_count, shard_mesh
 
 __all__ = ["spatial_carve_n_seams", "spatial_enlarge_n_seams",
@@ -167,48 +162,19 @@ class SpatialCarveResult:
                                   self.capture_seconds)
 
 
-class _Params(NamedTuple):
-    blocksize: int
-    edges: float
-    textures: float
-    W: int                 # the image's own width (strip starts clamp to it)
-    K: int
-    strip_update: bool
-    delta_x: int
-    rigidity: float
-    use_pallas: bool
-    energy_fn: object
-    tie: str
-    dead_max: int | None
-
-
-def _kernel_dp(p: _Params) -> bool:
-    """Whether the DP and the walk take the kernels (#16-18): with the
-    kernels and the kernels' DP (delta_x = 1, rigidity = 0); else the plain
-    scan and walk, whose steps are never captured."""
-    return p.use_pallas and p.delta_x == 1 and p.rigidity == 0.0
+# A sharded step's parameters: the shared `StepParams`, then the image's own
+# width W (strip starts clamp to it), K (rows per DP/backtrack exchange) and
+# dead_max (a bound on the dead region over the carve, or None)
+_Params = namedtuple("_Params", StepParams._fields + ("W", "K", "dead_max"))
 
 
 def _graph_cards(mesh: ShardMesh, p: _Params) -> list | None:
     """The cards a carve's seam step is captured on, the capturing one
-    first, or None: every step runs eagerly.  Captured with the kernels' DP
-    (`_kernel_dp`), outside `utils/debug.py::debug_mode`, when every stack
-    of the mesh lies on a CUDA card of this process, one card or several,
-    and, on a process mesh, its exchanges stay on its card (NCCL).  Eager:
-    meshes with a CPU stack, gloo process meshes (host-staged exchanges),
-    the plain path and the generalized DP (whose scan allocates under
-    capture)."""
-    if not _kernel_dp(p) or eager_steps():
-        return None
-    cards = []
-    for st in mesh.stacks:
-        if st.device.type != "cuda":
-            return None
-        card = torch.device("cuda", st.device.index
-                            if st.device.index is not None
-                            else torch.cuda.current_device())
-        if card not in cards:
-            cards.append(card)
+    first, or None: every step runs eagerly (`ops/carve.py::graph_cards`
+    over the cards of the mesh's stacks).  On a process mesh only when its
+    exchanges stay on its card (NCCL): a gloo mesh stages them through the
+    host."""
+    cards = graph_cards([resolve_card(st.device) for st in mesh.stacks], p)
     if isinstance(mesh, ProcessMesh) and mesh.wire != mesh.stacks[0].device:
         return None
     return cards
@@ -216,16 +182,16 @@ def _graph_cards(mesh: ShardMesh, p: _Params) -> list | None:
 
 # ------------------------------------------------------------- energy -----
 
-def _sharded_energy(mesh: ShardMesh, luma, p: _Params):
-    """Each shard's energy, bitwise equal to the unsharded map: the
-    edge-clamped r-1 / r column halo, the full map of the extended plane,
-    its owned columns."""
-    n = p.energy_fn.n if p.energy_fn is not None else p.blocksize
-    r = n // 2
+def _sharded_energy(mesh: ShardMesh, luma, energy, seam, p: _Params):
+    """Each stack's `energy` brought up to date from its `luma`, in place,
+    bitwise equal to the unsharded map: the edge-clamped r-1 / r column
+    halo, then `update_energy` with the stack's shard offset (the full map
+    where `p` takes no strip update, and `seam` may be None)."""
+    r = energy_window(p.blocksize, p.energy_fn) // 2
     ext = mesh.edge_clamped_halo(luma, r - 1, r)
-    return [full_energy_map(x, n, p.edges, p.textures,
-                            use_pallas=p.use_pallas, energy_fn=p.energy_fn)
-            [..., r - 1:r - 1 + mesh.Wl].contiguous() for x in ext]
+    for g, (x, e) in enumerate(zip(ext, energy)):
+        update_energy(x, e, None if seam is None else seam[g], p,
+                      ShardOffset(mesh.lo(g), p.W))
 
 
 # ----------------------------------------------------------------- DP -----
@@ -237,7 +203,7 @@ def _sharded_dp(mesh: ShardMesh, E, width, p: _Params, ext_M) -> int:
     H = E[0].shape[1]
     Wl, K, d = mesh.Wl, p.K, p.delta_x
     Hh = 2 * K * d
-    kernels = _kernel_dp(p)
+    kernels = kernel_dp(p)
     parts = kernels and Hh <= Wl
     prev = [torch.zeros_like(e[:, 0]) for e in E]
     for r0 in range(0, H, K):
@@ -295,7 +261,7 @@ def _sharded_backtrack(mesh: ShardMesh, ext_M, width, Hh: int, p: _Params):
                        for lm, gm, la in zip(lmin, gmin, larg)])
     j = [x.to(torch.int32).reshape(1) for x in j]
     j_last = j
-    kernels = _kernel_dp(p)
+    kernels = kernel_dp(p)
 
     def walk(r0: int, r1: int, entry):
         """Rows [r0, r1) of the seam from the entry column below them."""
@@ -449,21 +415,7 @@ def _seam_step(mesh: ShardMesh, st: _Planes, out: _Planes, width, new_width,
         o.copy_(r)
     if st.image is not None:
         _sharded_remove(mesh, st.image, seam, out.image)
-    if p.strip_update:
-        n = p.energy_fn.n if p.energy_fn is not None else p.blocksize
-        ext = mesh.edge_clamped_halo(out.luma, n // 2 - 1, n // 2)
-        for g in range(len(ext)):
-            shard = ShardOffset(mesh.lo(g), p.W)
-            if p.energy_fn is None:
-                dct_strip_update(ext[g], out.energy[g], seam[g], n, p.edges,
-                                 p.textures, delta_x=p.delta_x,
-                                 use_pallas=p.use_pallas, shard=shard)
-            else:
-                _update_strip_fn(ext[g], out.energy[g], seam[g], p.energy_fn,
-                                 p.delta_x, p.use_pallas, shard)
-    else:
-        for e, f in zip(out.energy, _sharded_energy(mesh, out.luma, p)):
-            e.copy_(f)
+    _sharded_energy(mesh, out.luma, out.energy, seam, p)
 
 
 def _record(mesh: ShardMesh, vmap, recs, base: int):
@@ -489,30 +441,18 @@ def _record(mesh: ShardMesh, vmap, recs, base: int):
         v += plane[:-1].view(S, H, Wl)
 
 
-class _SeamSteps:
+class _SeamSteps(GraphedSteps):
     """A carve's seam step over static buffers, the counterpart of JAX's
     `_spatial_chunk_jit`: two sets of planes that swap every seam, the
     halo-extended M, the logical width before and after the step on the
     device (the step decrements both), and the removed pixels' original
     columns, which are copied into a chunk's record after each step.
 
-    Where `_graph_cards` names the cards (every stack on a card of this
-    process, one or several, or on a process mesh one card with NCCL
-    exchanges; the kernels and their DP; no `debug_mode`), the carve's
-    first seam runs eagerly, which builds the kernels, sets their
-    shared-memory limits and, on a process mesh, opens every NCCL
-    connection the step uses, and every later seam replays one of two
-    CUDA graphs of the same step, captured once a carve on side streams,
-    one for each direction between the sets: the host issues one graph a
-    seam instead of ~420 launches a stack (and 141 exchanges: copies
-    between cards, or a process mesh's NCCL operations).  A replay credits
-    the kernels' launch counts and the mesh's exchange count with what its
-    capture counted.  Every other step
-    runs eagerly; inside `debug_mode` with its NaN checks the state is
-    checked after every seam.  A capture or replay that fails raises;
-    nothing falls back to eager steps.  Each process of a process mesh
-    captures on its own, and the processes agree on the outcome before
-    any replays (`_capture`)."""
+    Where `_graph_cards` names cards, a replay a seam takes the place of
+    ~420 launches a stack and 141 exchanges (copies between cards, or a
+    process mesh's NCCL operations), and credits the mesh's exchange count
+    too.  Each process of a process mesh captures on its own, and the
+    processes agree on the outcome before any replays (`_capture`)."""
 
     def __init__(self, mesh: ShardMesh, st: SpatialCarveState, p: _Params):
         self.mesh, self.p = mesh, p
@@ -522,26 +462,19 @@ class _SeamSteps:
         def like(xs):
             return None if xs is None else [torch.empty_like(x) for x in xs]
 
-        self.sets = [_Planes(st.luma, st.image, st.origcol, st.energy),
-                     _Planes(like(st.luma), like(st.image),
-                             like(st.origcol), like(st.energy))]
-        self.cur = 0
         self.ext_M = [torch.empty((x.shape[0], H, We), dtype=torch.float32,
                                   device=x.device) for x in st.luma]
         self.width, self.new_width, self.orig = (
             [torch.zeros(n, dtype=torch.int32, device=x.device)
              for x in st.luma] for n in (1, 1, H))
-        # the cards the step is captured on; None: every step runs eagerly
-        self.graph_cards = _graph_cards(mesh, p)
+        self.recs = []  # the running chunk's record, a (count, H) a stack
         name = p.energy_fn.name if p.energy_fn is not None else "dct"
-        self.graphs = StepGraphs(
-            self.graph_cards, f"spatial seam step (energy {name!r})",
-            [*((k, "launches") for k in KERNELS), (mesh, "exchanges")])
-        self.warm = False
-
-    @property
-    def capture_seconds(self) -> float:
-        return self.graphs.capture_seconds
+        super().__init__(
+            [_Planes(st.luma, st.image, st.origcol, st.energy),
+             _Planes(like(st.luma), like(st.image), like(st.origcol),
+                     like(st.energy))],
+            _graph_cards(mesh, p), f"spatial seam step (energy {name!r})",
+            [*COUNTERS, (mesh, "exchanges")])
 
     def set_width(self, width: int) -> None:
         """The logical width that the next step starts from."""
@@ -556,23 +489,17 @@ class _SeamSteps:
             w.sub_(1)
             nw.sub_(1)
 
-    def _replay(self, src: int) -> None:
-        if not self.graphs.captured:
-            self._capture()
-        self.graphs.replay(src)
-
     def _capture(self) -> None:
         """Capture the step both ways.  A process of a process mesh whose
         capture failed would leave the others waiting in the exchanges of
         their first replay, so the processes first agree on the outcome
         (`multihost.failed_processes`): if any failed, every one raises."""
-        sources = (self.cur, 1 - self.cur)
         if not isinstance(self.mesh, ProcessMesh):
-            self.graphs.capture(self._step, sources)
+            super()._capture()
             return
         error = None
         try:
-            self.graphs.capture(self._step, sources)
+            super()._capture()
         except Exception as e:  # raised below, on every process
             error = e
         failed = multihost.failed_processes(error is None)
@@ -582,6 +509,16 @@ class _SeamSteps:
                 f"process(es) {failed} of the process mesh, so every "
                 f"process stops the carve") from error
 
+    def _seam_done(self, k: int) -> None:
+        """Copy the removed pixels' original columns into the record."""
+        for r, o in zip(self.recs, self.orig):
+            r[k].copy_(o)
+
+    def _checked(self, width: int) -> SpatialCarveState:
+        planes = self.sets[self.cur]
+        return SpatialCarveState(self.mesh.join(planes.luma), None, None,
+                                 None, self.mesh.join(planes.energy), width)
+
     def carve(self, st: SpatialCarveState, base: int,
               count: int) -> SpatialCarveState:
         """Seams base+1 .. base+count from `st`, the state whose planes are
@@ -589,43 +526,15 @@ class _SeamSteps:
         H = st.luma[0].shape[1]
         with span("carve.seams"):
             self.set_width(st.width)
-            recs = [torch.empty((count, H), dtype=torch.int32,
-                                device=o.device) for o in self.orig]
-            nan_checks = checks_nans()
-            done = 0
-            if count and self.graph_cards is not None and not self.warm:
-                with span("carve.seam.eager"):
-                    self._step(self.cur)
-                self.warm = True
-                self._advance(recs, 0, base, st.width, nan_checks)
-                done = 1
-            for k in range(done, count):
-                if self.graph_cards is not None:
-                    self._replay(self.cur)
-                else:
-                    self._step(self.cur)
-                self._advance(recs, k, base, st.width, nan_checks)
+            self.recs = [torch.empty((count, H), dtype=torch.int32,
+                                     device=o.device) for o in self.orig]
+            self.run_seams(base, st.width, count)
             with span("carve.spatial.record"):
-                _record(self.mesh, st.vmap, recs, base)
+                _record(self.mesh, st.vmap, self.recs, base)
+            self.recs = []  # no record outlives its carve
         planes = self.sets[self.cur]
         return SpatialCarveState(planes.luma, planes.image, planes.origcol,
                                  st.vmap, planes.energy, st.width - count)
-
-    def _advance(self, recs, k: int, base: int, width: int,
-                 nan_checks: bool) -> None:
-        """After seam base+k+1 of a carve from `width`: swap the sets, copy
-        the removed pixels' original columns into row k of the record, and
-        with NaN checks check the state (the kernels' writes, which no
-        torch op sees)."""
-        self.cur ^= 1
-        for r, o in zip(recs, self.orig):
-            r[k].copy_(o)
-        if nan_checks:
-            planes = self.sets[self.cur]
-            check_finite(SpatialCarveState(
-                self.mesh.join(planes.luma), None, None, None,
-                self.mesh.join(planes.energy), width - k - 1),
-                f"after seam {base + k + 1}")
 
 
 def _params(W: int, H: int, *, blocksize: int = 8, edges: float = 0.0,
@@ -633,16 +542,12 @@ def _params(W: int, H: int, *, blocksize: int = 8, edges: float = 0.0,
             strip_update: bool = True, delta_x: int = 1,
             rigidity: float = 0.0, use_pallas: bool = True, energy=None,
             tie: str = "leftmost", dead_max: int | None = None) -> _Params:
-    if delta_x < 1:
-        raise ValueError(f"delta_x must be >= 1, got {delta_x}")
-    check_tie(tie)
     energy_fn = resolve_energy(energy)
-    return _Params(int(blocksize), float(edges), float(textures), W,
-                   max(1, min(frontier_block, H)),
-                   strip_update and strip_fits(W, blocksize, delta_x,
-                                               energy_fn),
-                   int(delta_x), float(rigidity), bool(use_pallas),
-                   energy_fn, tie, dead_max)
+    return _Params(*step_params(
+        blocksize, edges, textures,
+        strip_update and strip_fits(W, blocksize, delta_x, energy_fn),
+        use_pallas, delta_x, rigidity, tie, energy_fn),
+        W, max(1, min(frontier_block, H)), dead_max)
 
 
 def spatial_carve_seams(state: SpatialCarveState, mesh: ShardMesh,
@@ -830,7 +735,9 @@ def _make_state(luma: torch.Tensor, image, devices, p: _Params,
             image_s = mesh.split(_pad_to(torch.as_tensor(image).to(home),
                                          Wp))
     with span("carve.energy"):
-        energy = _sharded_energy(mesh, luma_s, p)
+        energy = [torch.empty_like(x) for x in luma_s]
+        _sharded_energy(mesh, luma_s, energy, None,
+                        p._replace(strip_update=False))
     return SpatialCarveState(luma_s, image_s, origcol, vmap, energy, W), mesh
 
 
@@ -971,7 +878,7 @@ def spatial_carve_n_seams(luma, n_seams: int, *, blocksize: int = 8,
         progress.end()
     with span("carve.spatial.gather"):
         return _result(mesh, state.vmap, state.image, W, W, mesh.Wl,
-                       state.width, steps.capture_seconds)
+                       state.width, steps.graphs.capture_seconds)
 
 
 def spatial_enlarge_n_seams(luma, n_seams: int, image, *, devices=None,

@@ -45,6 +45,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from ..utils.placement import resolve_device
+
 __all__ = ["CarverApp", "make_server", "serve"]
 
 _HTML_PATH = os.path.join(os.path.dirname(__file__), "app.html")
@@ -65,8 +67,6 @@ class CarverApp:
     raises when there is none and the CPU was not asked for)."""
 
     def __init__(self, image: np.ndarray, device=None):
-        from ..models.carver import resolve_device
-
         self.device = resolve_device(device)
         self.image = np.asarray(image)
         if self.image.ndim not in (2, 3):

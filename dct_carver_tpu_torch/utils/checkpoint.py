@@ -36,6 +36,7 @@ import torch
 
 from ..ops.carve import CarveState
 from .config import CarverConfig
+from .placement import default_device
 from .state import state_from_numpy, state_to_numpy
 
 __all__ = ["save_state", "load_state", "carve_resumable", "save_sharded",
@@ -114,8 +115,6 @@ def carve_resumable(luma, n_seams: int, config: CarverConfig, *,
         if isinstance(luma, torch.Tensor):
             device = luma.device
         else:
-            from ..models.carver import default_device
-
             device = default_device()
     if resume_from is not None:
         state, config, done, total = load_state(resume_from, device)

@@ -1,16 +1,17 @@
-"""Capture a carve's seam step as CUDA graphs, replay them, and credit the
-counters the captured launches would have moved.
+"""Run a carve's seam steps: the first eagerly, then as CUDA graph
+replays that credit the counters the captured launches would have moved.
 
 The counterpart of JAX tracing the whole N-seam carve into one jitted
 program (`dct_carver_tpu/ops/carve.py`, `jax.jit` over `lax.fori_loop`):
 here the seam step runs over static buffers, two sets that swap every
 seam, so one graph a direction between the sets covers every seam, and
-the host issues one replay a seam instead of a launch a kernel.  Both seam
-loops use it: the single-image and batch routes (`ops/carve.py::
-SeamSteps`) and the spatial route (`parallel/spatial.py::_SeamSteps`), on
-one controller, one card or several (one graph then holds every card's
-work and the copies between the cards), and, over NCCL, on each process
-of a process mesh, whose exchanges the graph then holds as nodes.
+the host issues one replay a seam instead of a launch a kernel.  Every
+route's steps extend one runner (`GraphedSteps`): the single-image and
+batch routes (`ops/carve.py::SeamSteps`) and the spatial route
+(`parallel/spatial.py::_SeamSteps`), on one controller, one card or
+several (one graph then holds every card's work and the copies between
+the cards), and, over NCCL, on each process of a process mesh, whose
+exchanges the graph then holds as nodes.
 
 A capture runs the step once on a side stream without executing it; the
 kernel wrappers count their launches as they are captured.  Those counts
@@ -28,9 +29,10 @@ import time
 
 import torch
 
+from .debug import check_finite, checks_nans
 from .profiling import span
 
-__all__ = ["StepGraphs", "CAPTURES"]
+__all__ = ["GraphedSteps", "StepGraphs", "CAPTURES"]
 
 # every capture of this process: graphs captured and their host seconds,
 # read around a carve as the kernels' launch counts are
@@ -204,3 +206,54 @@ def _release_retired() -> None:
     """Delete the retired pools whose replays have all run; waits for
     nothing."""
     _RETIRED[:] = [r for r in _RETIRED if not all(e.query() for e in r[0])]
+
+
+class GraphedSteps:
+    """The runner of every route's seam step: `sets`, two buffer sets that
+    swap every seam (`sets[cur]` the current one), and `cards`, the cards
+    the step is captured on, the capturing one first (None: every seam
+    runs eagerly); `what`, `counters`: as `StepGraphs`.  On the cards the
+    object's first seam runs eagerly, which builds the kernels, sets their
+    shared-memory limits and opens a process mesh's connections; the next
+    captures the step both ways, and every later seam is a replay.  Under
+    `debug_mode`'s NaN checks the state is checked after every seam.
+
+    A route supplies `_step(src)` (one seam from set `src` into the other,
+    allocating nothing that outlives it and never waiting for a device),
+    `_seam_done(k)` (after a run's k-th seam) and `_checked(width)` (the
+    state the NaN check reads)."""
+
+    def __init__(self, sets, cards, what: str, counters):
+        self.sets = sets
+        self.cur = 0
+        self.graph_cards = cards
+        self.graphs = StepGraphs(cards, what, counters)
+        self.warm = False
+
+    def run_seams(self, first: int, width: int, count: int) -> None:
+        """Seams first+1 .. first+count from the current set, whose logical
+        width is `width`; never waits for a device."""
+        nan_checks = checks_nans()
+        for k in range(count):
+            if self.graph_cards is None:
+                self._step(self.cur)
+            elif not self.warm:
+                with span("carve.seam.eager"):
+                    self._step(self.cur)
+                self.warm = True
+            else:
+                if not self.graphs.captured:
+                    self._capture()
+                self.graphs.replay(self.cur)
+            self.cur ^= 1
+            self._seam_done(k)
+            if nan_checks:  # the kernels' writes, which no torch op sees
+                check_finite(self._checked(width - k - 1),
+                             f"after seam {first + k + 1}")
+
+    def _capture(self) -> None:
+        """Capture the step both ways between the sets."""
+        self.graphs.capture(self._step, (self.cur, 1 - self.cur))
+
+    def _seam_done(self, k: int) -> None:
+        pass

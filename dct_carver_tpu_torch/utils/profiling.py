@@ -25,6 +25,8 @@ import time
 
 import torch
 
+from .placement import resolve_device
+
 __all__ = ["trace", "span", "profile_carve"]
 
 _OFF = contextlib.nullcontext()  # every span while no profiler runs
@@ -65,7 +67,6 @@ def profile_carve(luma, n_seams: int, blocksize: int = 8, *, log_dir: str,
     """Trace one full carve of a (H, W) luma plane (edges 0, textures 1)
     on `device` (default: the first CUDA card) for kernel-level
     inspection; returns its CarveState."""
-    from ..models.carver import resolve_device
     from ..ops.carve import carve_n_seams
 
     dev = resolve_device(device)

@@ -20,8 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models.carver import resolve_device
 from ..ops.carve import CarveState
+from .placement import resolve_device
 
 __all__ = ["state_from_numpy", "state_to_numpy",
            "spatial_state_from_numpy", "spatial_state_to_numpy"]
@@ -29,7 +29,7 @@ __all__ = ["state_from_numpy", "state_to_numpy",
 
 def state_from_numpy(arrays, device=None) -> CarveState:
     """Mapping of numpy arrays -> CarveState on `device` (copies; default
-    the first CUDA card, `models/carver.py::resolve_device`, as JAX's
+    the first CUDA card, `utils/placement.py::resolve_device`, as JAX's
     `jnp.asarray` puts it on the default device).  `luma` keeps its float
     dtype and is (H, W), or (B, H, W) for a batch; `width` is an int or a
     0-d array, or for a batch a (B,) array of equal widths."""

@@ -198,7 +198,7 @@ def test_state_loaders_raise_with_no_card(entry, monkeypatch, tmp_path):
     device (dct_carver_tpu/utils/checkpoint.py:207-221): with no card
     visible they raise NO_CARD's message instead of carrying on on the
     CPU, and `device="cpu"` still loads."""
-    from dct_carver_tpu_torch.models.carver import NO_CARD
+    from dct_carver_tpu_torch.utils.placement import NO_CARD
     from dct_carver_tpu_torch.utils import checkpoint as tckpt
 
     state = tcarve.make_state(torch.arange(24.0).reshape(4, 6) / 24)

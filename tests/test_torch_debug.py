@@ -65,7 +65,7 @@ def test_switches_are_scoped_and_per_thread():
                                            "disable_jit": True}):
         with tdebug.debug_mode(**kw):
             assert not tcarve.graphed(card, P)
-            assert tcarve.kernel_dp(card, P)
+            assert tcarve.kernel_dp(P)
             assert tdebug.checks_nans() == kw.get("nan_checks", True)
             with tdebug.debug_mode(nan_checks=False):  # nested: still eager
                 assert not tcarve.graphed(card, P)
@@ -93,7 +93,7 @@ def test_carve_in_debug_mode_checks_every_seam(layout, monkeypatch):
         widths.append((state.width, where))
         tdebug.check_finite(state, where)
 
-    monkeypatch.setattr(tcarve, "check_finite", check)
+    monkeypatch.setattr(tgraphs, "check_finite", check)
     with tdebug.debug_mode():
         got = tcarve.carve_n_seams(torch.from_numpy(luma), 6, 8, EDGES,
                                    TEXTURES)
@@ -138,10 +138,10 @@ def test_eager_steps_keep_the_kernels_and_capture_nothing(monkeypatch):
     def no_graphs(*args, **kwargs):
         raise AssertionError("a step inside debug_mode made CUDA graphs")
 
-    monkeypatch.setattr(tcarve, "kernel_dp", lambda device, p: (
-        p.use_pallas and p.delta_x == 1 and p.rigidity == 0.0))
+    monkeypatch.setattr(tcarve, "cards_of", lambda devices: list(devices))
     monkeypatch.setattr(dp_kernel, "_find_seams_cuda", find)
-    monkeypatch.setattr(tgraphs, "StepGraphs", no_graphs)
+    monkeypatch.setattr(tgraphs.StepGraphs, "capture", no_graphs)
+    monkeypatch.setattr(tgraphs.StepGraphs, "replay", no_graphs)
     tcarve.clear_step_cache()
     luma = torch.from_numpy(_structured_luma("edges", 20, 32))
     for kw in ({"disable_jit": True}, {}):
@@ -164,7 +164,7 @@ def test_spatial_carve_in_debug_mode(monkeypatch):
         seen.append((state.width, tuple(state.energy.shape)))
         tdebug.check_finite(state, where)
 
-    monkeypatch.setattr(tspatial, "check_finite", check)
+    monkeypatch.setattr(tgraphs, "check_finite", check)
     with tdebug.debug_mode():
         got = tspatial.spatial_carve_n_seams(luma, 4, devices=["cpu"] * 2)
     assert seen == [(32 - k, (16, 32)) for k in range(1, 5)]

@@ -34,6 +34,7 @@ from dct_carver_tpu_torch.kernels.strip_kernel import (band_energy,
                                                        strip_scatter)
 from dct_carver_tpu_torch.models.carver import Carver
 from dct_carver_tpu_torch.ops import carve as tcarve
+from dct_carver_tpu_torch.ops import strip as tstrip
 from dct_carver_tpu_torch.ops.dct import energy_from_bands, rows_to_bands
 from dct_carver_tpu_torch.ops.energy_fn import (
     BUILTIN_ENERGIES, ENERGY_NULL, GRAD_NORM, GRAD_SUMABS, GRAD_XABS,
@@ -173,8 +174,8 @@ def test_window_of_the_energy_sizes_the_strip():
     """The strip extent and the narrow-image guard come from the energy's n,
     not from `blocksize`: a 2-wide gradient under blocksize=16 keeps its
     strip on an 11-wide image."""
-    assert tcarve.strip_fits(11, 16, 1, GRAD_NORM)
-    assert not tcarve.strip_fits(11, 16)
+    assert tstrip.strip_fits(11, 16, 1, GRAD_NORM)
+    assert not tstrip.strip_fits(11, 16)
     luma = torch.from_numpy(_rand_luma(16, 11, seed=9))
     strip = tcarve.carve_n_seams(luma, 4, 16, 0.0, 1.0, energy_fn=GRAD_NORM)
     full = tcarve.carve_n_seams(luma, 4, 16, 0.0, 1.0, energy_fn=GRAD_NORM,
@@ -234,8 +235,9 @@ def test_strip_update_equals_jax_pallas_gather_scatter(name):
     assert jcarve.strip_pallas_ok(H, W, 2)
     luma = _rand_luma(H, W, seed=11)
     l1, e1, seam, E0 = _after_one_seam(luma, builtin_energy(name))
-    got = tcarve._update_strip_fn(l1, e1.clone(), seam, builtin_energy(name),
-                                  1, True)
+    got = e1.clone()
+    tcarve.update_energy(l1, got, seam, tcarve.step_params(
+        8, 0.0, 1.0, energy_fn=builtin_energy(name)))
     mid = jcarve.make_state(jnp.asarray(luma))._replace(
         luma=jnp.asarray(l1.numpy()), energy=jnp.asarray(E0.numpy()),
         width=jnp.int32(W - 1))
@@ -256,7 +258,7 @@ def test_strip_gather_reads_each_rows_band(n, delta_x):
     seam = torch.from_numpy(rng.integers(0, 40, (2, 12)).astype(np.int32))
     kernels.reset_launches()
     bands = strip_gather(luma, seam, n, delta_x=delta_x)
-    half, strip_w = tcarve._strip_extent(n, delta_x)
+    half, strip_w = tstrip._strip_extent(n, delta_x)
     assert bands.shape == (2, 12, n, strip_w + n - 1)
     full = rows_to_bands(luma, n)  # (2, 12, n, 40 + n - 1)
     for b in range(2):
@@ -310,7 +312,7 @@ def test_band_energy_plain_equals_eager_jax(n, delta_x, stack):
     t = torch.from_numpy(luma if stack else luma[0])
     seam = torch.from_numpy(seams if stack else seams[0])
     bands = strip_gather(t, seam, n, delta_x=delta_x)
-    half, strip_w = tcarve._strip_extent(n, delta_x)
+    half, strip_w = tstrip._strip_extent(n, delta_x)
     assert bands.shape == (*seam.shape, n, strip_w + n - 1)
     got = band_energy(bands, n, 0.3, 0.8)
     want = np.asarray(jdct.energy_from_bands(
@@ -320,7 +322,7 @@ def test_band_energy_plain_equals_eager_jax(n, delta_x, stack):
     energy = torch.full_like(t, -1.0)
     strip_scatter(energy, got, seam, n, delta_x=delta_x)
     full = energy_from_bands(rows_to_bands(t, n), n, 0.3, 0.8)
-    start, _ = tcarve._strip_bounds(seam, n, 96, delta_x)
+    start, _ = tstrip._strip_bounds(seam, n, 96, delta_x)
     for e, f, st in zip(energy.reshape(B, 24, 96), full.reshape(B, 24, 96),
                         start.reshape(B, 24)):
         for i, s in enumerate(st.tolist()):

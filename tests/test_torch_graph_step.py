@@ -28,7 +28,9 @@ from dct_carver_tpu_torch.kernels.apply_kernel import apply_seam
 from dct_carver_tpu_torch.kernels.dp_kernel import find_seam, find_seams
 from dct_carver_tpu_torch.kernels.strip_kernel import strip_update
 from dct_carver_tpu_torch.ops import carve as tcarve
+from dct_carver_tpu_torch.ops import strip as tstrip
 from dct_carver_tpu_torch.ops.energy_fn import builtin_energy
+from dct_carver_tpu_torch.parallel import spatial as tsp
 from dct_carver_tpu_torch.utils import checkpoint as tckpt
 from dct_carver_tpu_torch.utils import graphs as tgraphs
 from dct_carver_tpu_torch.utils.config import CarverConfig
@@ -52,7 +54,7 @@ def _eager_loop(luma, n_seams, blocksize, tie, energy_fn):
     state = tcarve.make_state(luma.clone())
     energy = tcarve.full_energy_map(state.luma, blocksize, EDGES, TEXTURES,
                                     energy_fn=energy_fn)
-    strip = tcarve.strip_fits(W, blocksize, 1, energy_fn)
+    strip = tstrip.strip_fits(W, blocksize, 1, energy_fn)
     lum, origcol, vmap, width = state.luma, state.origcol, state.vmap, W
     for k in range(1, n_seams + 1):
         find = find_seams if energy.ndim == 3 else find_seam
@@ -65,7 +67,8 @@ def _eager_loop(luma, n_seams, blocksize, tie, energy_fn):
             energy = tcarve.full_energy_map(lum, blocksize, EDGES, TEXTURES,
                                             energy_fn=energy_fn)
         elif energy_fn is not None:
-            tcarve._update_strip_fn(lum, energy, seam, energy_fn, 1, True)
+            tcarve.update_energy(lum, energy, seam, tcarve.step_params(
+                blocksize, EDGES, TEXTURES, energy_fn=energy_fn))
         else:
             strip_update(lum, energy, seam, blocksize, EDGES, TEXTURES)
     return lum, vmap, energy, width
@@ -195,8 +198,8 @@ def sim_card(monkeypatch):
     from dct_carver_tpu_torch.ops.dp import find_seam as plain, mask_energy
 
     asked, waits = [], []
-    monkeypatch.setattr(tcarve, "kernel_dp", lambda device, p: (
-        p.use_pallas and p.delta_x == 1 and p.rigidity == 0.0))
+    monkeypatch.setattr(tcarve, "cards_of",
+                        lambda devices: list(dict.fromkeys(devices)))
     monkeypatch.setattr(tgraphs, "StepGraphs", _EagerGraphs)
     monkeypatch.setattr(dp_kernel, "_find_seams_cuda", lambda k, e, w, lo,
                         tie: plain(mask_energy(e, w), 1, 0.0, tie)
@@ -215,11 +218,36 @@ def sim_card(monkeypatch):
     tcarve.clear_step_cache()
 
 
-@pytest.mark.parametrize("layout", ["plane", "stack"])
+def _spatial_carve(luma, n_seams):
+    """The spatial route's seam step over 4 CPU shards of `luma`: (the
+    steps, the whole luma, vmap and energy after `n_seams` seams)."""
+    H, W = luma.shape
+    st, mesh = tsp.spatial_make_state(luma, devices=["cpu"] * 4,
+                                      edges=EDGES, textures=TEXTURES)
+    steps = tsp._SeamSteps(mesh, st, tsp._params(
+        W, H, edges=EDGES, textures=TEXTURES, dead_max=n_seams))
+    end = steps.carve(st, 0, n_seams)
+    return steps, [mesh.join(x) for x in (end.luma, end.vmap, end.energy)]
+
+
+@pytest.mark.parametrize("layout", ["plane", "stack", "spatial"])
 def test_graphed_step_replays_every_seam_after_the_first(sim_card, layout):
     """On a (simulated) card the first carve of a key runs its first seam
     eagerly and replays the rest; the next carve of the key replays every
-    seam.  Both equal the eager loop."""
+    seam.  Both equal the eager loop.  The spatial route's step runs on
+    the same runner: its first seam eagerly, the rest replayed, equal to
+    the eager loop on the live columns; it keeps no step between carves."""
+    if layout == "spatial":
+        luma = torch.from_numpy(_luma("plane", seed=4))
+        lum, vmap, e, width = _eager_loop(luma, 7, 8, "leftmost", None)
+        for _ in range(2):
+            steps, got = _spatial_carve(luma, 7)
+            assert steps.graph_cards and steps.graphs.replays == 6
+            np.testing.assert_array_equal(got[1].numpy(), vmap.numpy())
+            for a, b in zip((got[0], got[2]), (lum, e)):
+                np.testing.assert_array_equal(a[:, :width].numpy(),
+                                              b[:, :width].numpy())
+        return
     luma = torch.from_numpy(_luma(layout, seed=4))
     for want in (6, 7):
         got = tcarve.carve_n_seams(luma, 7, 8, EDGES, TEXTURES)

@@ -262,6 +262,7 @@ from dct_carver_tpu.ops import carve as jcarve  # noqa: E402
 from dct_carver_tpu.parallel import multihost as jmultihost  # noqa: E402
 from dct_carver_tpu.parallel.mesh import batch_carve_states  # noqa: E402
 from dct_carver_tpu_torch import api as tapi  # noqa: E402
+from dct_carver_tpu_torch.ops.carve import kernel_dp  # noqa: E402
 from dct_carver_tpu_torch.parallel import multihost  # noqa: E402
 from dct_carver_tpu_torch.parallel import shards as tshards  # noqa: E402
 from dct_carver_tpu_torch.parallel import spatial as tsp  # noqa: E402
@@ -615,9 +616,9 @@ def test_generalized_dp_steps_are_never_captured():
     """The spatial step captures a CUDA graph only with the kernels' DP:
     the plain scan of delta_x/rigidity other than (1, 0) allocates under
     capture (found by dryrun_multichip's generalized-DP case on a card)."""
-    assert tsp._kernel_dp(tsp._params(64, 16))
+    assert kernel_dp(tsp._params(64, 16))
     for kw in (dict(delta_x=2), dict(rigidity=0.5), dict(use_pallas=False)):
-        assert not tsp._kernel_dp(tsp._params(64, 16, **kw))
+        assert not kernel_dp(tsp._params(64, 16, **kw))
 
 
 @pytest.mark.parametrize("n", [2, 4, 8])

@@ -370,7 +370,7 @@ def test_one_placement_on_every_route(monkeypatch):
     """`devices` places the batch route as it does the spatial one, a
     `device` that is not the mesh's first raises, and with no `devices` the
     mesh follows `device`."""
-    from dct_carver_tpu_torch.models.carver import default_mesh
+    from dct_carver_tpu_torch.utils.placement import default_mesh
     from dct_carver_tpu_torch.parallel import mesh as tmesh
 
     _, img = _luma(12, 20, seed=5)

@@ -20,7 +20,7 @@ from dct_carver_tpu_torch.kernels.spatial_kernel import (
     block_dp, block_dp_parts, scan_rows, seg_walk, sharded_apply, walk_rows)
 from dct_carver_tpu_torch.kernels.strip_kernel import (
     strip_gather, strip_scatter, strip_update)
-from dct_carver_tpu_torch.ops.carve import ShardOffset, _strip_extent
+from dct_carver_tpu_torch.ops.strip import ShardOffset, _strip_extent
 
 
 def _energy(rng, shape, quantized=False):
