@@ -68,17 +68,22 @@ scatter inside the graphed carve; 4c carves 8 1024x1024 images with
 grad_norm on the batch route against the single-image route; 4d drives the CLI in-process
 (carve with checkpoints and progress, a resume from the 32-seam checkpoint,
 energy, batch).  Phase 5 runs the spatial route (BASELINE config 5) with
-four column shards on the one card: 5a holds the block DP (the parts form
-at the 8K shard shape, the message form at the small-shard carve's
-shapes), the segment walk (at both carves' segment shapes, windows clamped
-at either end, unaligned rows, K = 200; timed also with the L2 flushed),
+four column shards on the one card: 5a holds the block DP over its
+column tiles (the parts form at the 8K shard shape, short last blocks,
+widths ending inside a tile and inside a halo, a frontier that makes cells
+reach the ends of their cones, the one-CTA fallback past 96 rows; the
+message form at the small-shard carve's shapes)
+and its `tiled_blocks` count, times both forms alone and inside a graph
+replay, the tiled schedule against one CTA a shard, the segment walk (at
+both carves' segment shapes, windows clamped at either end, unaligned
+rows, K = 200; timed also with the L2 flushed),
 the sharded apply (also at 65536 rows, and timed with the L2 flushed
 between calls) and the strip kernels with a shard offset against their
 plain versions; 5b carves 64 seams from a 4320x7680 luma through
 `spatial_carve_n_seams` (the seam step as CUDA graph replays) with the
-launch counters and the replays read around it, against the single-device
-carve and, for 4 seams, the plain spatial path, a chunked carve against the
-unchunked one, launches and exchanges a seam under replay, the two routes
+launch counters, `tiled_blocks` and the replays read around it, against
+the single-device carve and, for 4 seams, the plain spatial path, a
+chunked carve against the unchunked one, launches and exchanges a seam under replay, the two routes
 timed in turns, the capture time and a profile, and drives a small-shard
 carve through `api.carve` (the message form); 5c runs `api.carve` and the
 CLI on the spatial route against the single-image route, enlargement, a
@@ -2358,14 +2363,215 @@ IN_GRAPH: dict[str, float] = {}
 FLOOR: dict = {}
 
 
+def graph_ms(fn, launches: int, replays: int = 20):
+    """fn() `launches` times captured as one CUDA graph: (ms a launch
+    between CUDA events around `replays` replays, the gaps between the
+    graph's kernels included; device ms a launch under torch.profiler, the
+    kernels alone, None where it recorded nothing)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    ms = cuda_ms(graph.replay, replays) / launches
+    dev_ms = device_ms(graph.replay, replays)
+    return ms, (dev_ms / launches if DEVICE_SOURCE_LAST[0] == "profiler"
+                else None)
+
+
+def block_dp_5a(dev, chk: Checks, card: str, rng, times: dict) -> None:
+    """The block DP (#16, #17) against its plain version, bitwise, over
+    the shapes its column tiles meet: the 8K shard shape (S = 4, Wl = 1920,
+    Hh = 192) at Kb = 96 and short last blocks, widths ending inside a
+    tile and inside a shard's right halo (dead columns past the width), an
+    extended row that is no multiple of the tile, halo-heavy and unaligned
+    rows, the message form at the small-shard carve's shapes, and
+    tile_plan's one-CTA fallback; then
+    `tiled_blocks`, and both forms timed alone and inside a graph replay,
+    the tiled schedule against one CTA a shard."""
+    import torch
+
+    from dct_carver_tpu_torch import kernels
+    from dct_carver_tpu_torch.kernels.build import load
+    from dct_carver_tpu_torch.kernels.spatial_kernel import (
+        BLOCK_KERNEL, PARTS_KERNEL, block_dp, block_dp_parts, tile_plan)
+
+    S, Wl, K = SHARDS, W8 // SHARDS, K8
+    Hh = 2 * K
+    We = Wl + 2 * Hh
+
+    def on_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def width(w):
+        return torch.tensor([w], dtype=torch.int32, device=dev)
+
+    def parts(S_, Wl_, Hh_, Kb):
+        return [on_dev(rng.random(shape, dtype=np.float32)) for shape in (
+            (S_, Wl_), (S_, Kb, Wl_), (S_, Kb + 1, Hh_), (S_, Kb + 1, Hh_))]
+
+    E = on_dev(rng.random((S, 2 * K, Wl), dtype=np.float32))
+    M = on_dev(rng.random((S, 2 * K + 1, We), dtype=np.float32))
+    prev = M[:, 0, Hh:Hh + Wl]          # the frontier, a strided view
+    # widths: the whole row; ending inside a tile of shard 3; inside shard
+    # 1's 64-column tile 3 (and shard 0's right halo); inside shard 1's
+    # right halo; 3 short of the row
+    widths = (W8, W8 - 700, Wl + 30, 2 * Wl + 50, W8 - 3)
+    for Kb, w in ([(K, w) for w in widths]
+                  + [(K - 1, W8), (37, W8 - 3), (17, 2 * Wl + 50),
+                     (3, Wl + 30), (3, W8)]):
+        blk = E[:, K:K + Kb]
+        lh = on_dev(rng.random((S, Kb + 1, Hh), dtype=np.float32))
+        rh = on_dev(rng.random((S, Kb + 1, Hh), dtype=np.float32))
+        want = block_dp_parts(prev, blk, lh, rh, 0, width(w),
+                              use_pallas=False)
+        got = block_dp_parts(prev, blk, lh, rh, 0, width(w),
+                             out=M[:, 1:1 + Kb])
+        chk.equal("block_dp_parts", f"S={S} Wl={Wl} Kb={Kb} width={w} plan "
+                  f"{tile_plan(Kb, We)}", got, want)
+    # a frontier far above the block's energy: many cells take their value
+    # from the far end of their cone, so ghost zones short of Kb would show
+    big = prev * 1e6
+    for Kb in (K, K - 1):
+        args = (big, E[:, K:K + Kb],
+                *(on_dev(rng.random((S, Kb + 1, Hh), dtype=np.float32))
+                  for _ in range(2)), 0, width(W8))
+        chk.equal("block_dp_parts", f"S={S} Wl={Wl} Kb={Kb} frontier x 1e6",
+                  block_dp_parts(*args), block_dp_parts(*args,
+                                                        use_pallas=False))
+    # tile_plan's fallback (one CTA a shard: blocks of more than 96 rows)
+    # at the 8K shard shape; an extended row of 2284 columns, no multiple
+    # of the tile
+    for S3, Wl3, Hh3, Kb3 in ((S, Wl, Hh, 97), (S, Wl, Hh, 200),
+                              (S, 1900, Hh, K)):
+        args = parts(S3, Wl3, Hh3, Kb3)
+        for w in (S3 * Wl3, Wl3 + 30):
+            chk.equal("block_dp_parts", f"S={S3} Wl={Wl3} Hh={Hh3} Kb={Kb3} "
+                      f"width={w} plan {tile_plan(Kb3, Wl3 + 2 * Hh3)}",
+                      block_dp_parts(*args, 0, width(w)),
+                      block_dp_parts(*args, 0, width(w), use_pallas=False))
+    # halo-heavy shards (halos wider than the owned columns), and extended
+    # rows that are no multiple of 4 (4-byte staging and stores)
+    for S3, Wl3, Hh3, Kb3 in ((4, 48, Hh, K), (3, 50, Hh, 41), (2, 7, 64, 32)):
+        args = parts(S3, Wl3, Hh3, Kb3)
+        for w in (S3 * Wl3, S3 * Wl3 - 5):
+            chk.equal("block_dp_parts", f"S={S3} Wl={Wl3} Hh={Hh3} Kb={Kb3} "
+                      f"width={w}", block_dp_parts(*args, 0, width(w)),
+                      block_dp_parts(*args, 0, width(w), use_pallas=False))
+        msg3 = on_dev(rng.random((S3, Kb3 + 1, Wl3 + 2 * Hh3),
+                                 dtype=np.float32))
+        chk.equal("block_dp", f"S={S3} Wl={Wl3} Hh={Hh3} Kb={Kb3}",
+                  block_dp(msg3, 0, width(S3 * Wl3 - 3), Hh3),
+                  block_dp(msg3, 0, width(S3 * Wl3 - 3), Hh3,
+                           use_pallas=False))
+
+    # the message form on 8 shards of 32 columns: at K = 96 the shapes of
+    # phase 5b's small-shard carve (256 rows: a six-hop halo, blocks of 96
+    # and 64 rows written into its (S, H, We) M), at K = 32 a two-hop halo
+    S2, Wl2, H2 = 8, 32, 256
+    for K2, Kbs in ((K, (K, H2 % K, 17, 3)), (32, (32,))):
+        We2 = Wl2 + 4 * K2
+        M2 = torch.zeros((S2, H2, We2), device=dev)
+        for Kb in Kbs:
+            for w in (S2 * Wl2, S2 * Wl2 - 45, 3 * Wl2 + 5):
+                msg = on_dev(rng.random((S2, Kb + 1, We2), dtype=np.float32))
+                chk.equal("block_dp", f"S={S2} Wl={Wl2} K={K2} Kb={Kb} "
+                          f"width={w} plan {tile_plan(Kb, We2)}",
+                          block_dp(msg, 0, width(w), 2 * K2,
+                                   out=M2[:, H2 - Kb:]),
+                          block_dp(msg, 0, width(w), 2 * K2,
+                                   use_pallas=False))
+    del M2
+
+    # tiled_blocks: a launch of more than one tile a shard counts once
+    We2 = Wl2 + 4 * K
+    msg = on_dev(rng.random((S2, K + 1, We2), dtype=np.float32))
+    args = (prev, E[:, K:], on_dev(rng.random((S, K + 1, Hh),
+                                              dtype=np.float32)),
+            on_dev(rng.random((S, K + 1, Hh), dtype=np.float32)), 0,
+            width(W8))
+    one = parts(2, 7, 64, 32)  # 135 columns: one tile
+    kernels.reset_launches()
+    block_dp_parts(*args)
+    block_dp(msg, 0, width(S2 * Wl2), Hh)
+    block_dp_parts(*one, 0, width(14))
+    got = (PARTS_KERNEL.tiled_blocks, BLOCK_KERNEL.tiled_blocks,
+           PARTS_KERNEL.launches, BLOCK_KERNEL.launches)
+    chk.require(got == (1, 1, 2, 1), f"tiled_blocks (parts, message) and "
+                f"launches after 2 + 1 calls, one of a single tile: {got}")
+    kernels.reset_launches()
+
+    # times: alone and inside a graph replay (45 launches, a seam's
+    # blocks), the tiled plan against one CTA a shard through the C entry
+    out = M[:, 1:1 + K]
+    time_kernel(times, "block_dp_parts",
+                lambda: block_dp_parts(*args, out=out),
+                lambda: block_dp_parts(*args, use_pallas=False), 50, 3)
+    BOUNDS["block_dp_parts"] = (
+        4 * (S * Wl + S * K * Wl + 2 * S * (K + 1) * Hh + S * K * We),
+        3 * S * K * We)
+    out2, w2 = torch.empty((S2, K, We2), device=dev), width(S2 * Wl2)
+    time_kernel(times, "block_dp", lambda: block_dp(msg, 0, w2, Hh, out=out2),
+                lambda: block_dp(msg, 0, w2, Hh, use_pallas=False), 50, 3)
+    BOUNDS["block_dp"] = (4 * (S2 * (K + 1) * We2 + S2 * K * We2),
+                          3 * S2 * K * We2)
+    lib = load()
+    want = block_dp_parts(*args, use_pallas=False)
+    want2 = block_dp(msg, 0, w2, Hh, use_pallas=False)
+    p_, e_, lh_, rh_ = args[:4]
+
+    def stream():  # the capturing stream inside a graph's capture
+        return torch.cuda.current_stream(dev).cuda_stream
+
+    def parts_call(plan):
+        return lambda: lib.dc_block_dp_parts(
+            p_.data_ptr(), p_.stride(0), e_.data_ptr(), e_.stride(0),
+            lh_.data_ptr(), rh_.data_ptr(), out.data_ptr(), out.stride(0), S,
+            K, Wl, Hh, 0, args[5].data_ptr(), *plan, stream())
+
+    def msg_call(plan):
+        return lambda: lib.dc_block_dp(
+            msg.data_ptr(), out2.data_ptr(), out2.stride(0), S2, K, Wl2, Hh,
+            0, w2.data_ptr(), *plan, stream())
+
+    for form, call, ref, dst, We_ in (("block_dp_parts", parts_call, want,
+                                       out, We),
+                                      ("block_dp", msg_call, want2, out2,
+                                       We2)):
+        plans = [tile_plan(K, We_), (0, We_, 0)]
+        if form == "block_dp_parts":
+            plans[1:1] = [(66, 32, 96)]  # tiles of 32 owned columns
+            # a plan whose last tile spans more than a warp is refused
+            err = call((32, 64, 96))()
+            chk.require(err == 1, f"{form} plan (32, 64, 96) refused: "
+                        f"cudaError_t {err}, cudaErrorInvalidValue is 1")
+        for plan in plans:
+            dst.fill_(-1.0)
+            err = call(plan)()
+            torch.cuda.synchronize()
+            chk.require(err == 0, f"{form} plan {plan}: cudaError_t {err}")
+            chk.equal(form, f"plan {plan} through the C entry", dst, ref)
+            alone = cuda_ms(call(plan), 200), device_ms(call(plan), 200)
+            in_graph = graph_ms(call(plan), 45)
+            if plan == plans[0]:
+                IN_GRAPH[form] = in_graph[1] or in_graph[0]
+            log(f"  {form} plan {plan} (T, Wt, Hg): alone {alone[0]!r} ms "
+                f"between events, device {alone[1]!r} ms; in a graph of 45 "
+                f"{in_graph[0]!r} ms a launch between events, device "
+                f"{in_graph[1]!r} ms; {(in_graph[1] or in_graph[0]) * 1e6 / K!r} ns a row ({card})")
+
+
 def phase_5a(dev, chk: Checks, card: str, rng, times: dict) -> None:
     """The spatial route's kernels against their plain versions, bitwise,
     at the shapes of its main path, on the views the route hands them."""
     import torch
     from benchlib.work import dct_ops
 
-    from dct_carver_tpu_torch.kernels.spatial_kernel import (
-        block_dp, block_dp_parts, seg_walk, sharded_apply)
+    from dct_carver_tpu_torch.kernels.spatial_kernel import (seg_walk,
+                                                             sharded_apply)
     from dct_carver_tpu_torch.kernels.strip_kernel import (
         strip_gather, strip_scatter, strip_update)
     from dct_carver_tpu_torch.ops.dct import window_offset
@@ -2386,69 +2592,9 @@ def phase_5a(dev, chk: Checks, card: str, rng, times: dict) -> None:
 
     log(f"phase 5a: spatial kernels vs plain versions on the card ({S} "
         f"shards of {H8}x{Wl}, K={K})")
-    E = on_dev(rng.random((S, 2 * K, Wl), dtype=np.float32))
-    M = on_dev(rng.random((S, 2 * K + 1, We), dtype=np.float32))
-    prev = M[:, 0, Hh:Hh + Wl]          # the frontier, a strided view
-    for Kb, w in ((K, W8), (K, W8 - 700), (37, W8 - 3)):
-        blk = E[:, K:K + Kb]
-        lh = on_dev(rng.random((S, Kb + 1, Hh), dtype=np.float32))
-        rh = on_dev(rng.random((S, Kb + 1, Hh), dtype=np.float32))
-        want = block_dp_parts(prev, blk, lh, rh, 0, width(w),
-                              use_pallas=False)
-        got = block_dp_parts(prev, blk, lh, rh, 0, width(w),
-                             out=M[:, 1:1 + Kb])
-        chk.equal("block_dp_parts", f"S={S} Wl={Wl} Kb={Kb} width={w}", got,
-                  want)
-    # halo-heavy shards (halos wider than the owned columns), and extended
-    # rows that are no multiple of 4 (4-byte staging and stores)
-    for S3, Wl3, Hh3, Kb3 in ((4, 48, Hh, K), (3, 50, Hh, 41), (2, 7, 64, 32)):
-        parts = [on_dev(rng.random(shape, dtype=np.float32)) for shape in (
-            (S3, Wl3), (S3, Kb3, Wl3), (S3, Kb3 + 1, Hh3), (S3, Kb3 + 1, Hh3))]
-        for w in (S3 * Wl3, S3 * Wl3 - 5):
-            chk.equal("block_dp_parts", f"S={S3} Wl={Wl3} Hh={Hh3} Kb={Kb3} "
-                      f"width={w}", block_dp_parts(*parts, 0, width(w)),
-                      block_dp_parts(*parts, 0, width(w), use_pallas=False))
-        msg3 = on_dev(rng.random((S3, Kb3 + 1, Wl3 + 2 * Hh3),
-                                 dtype=np.float32))
-        chk.equal("block_dp", f"S={S3} Wl={Wl3} Hh={Hh3} Kb={Kb3}",
-                  block_dp(msg3, 0, width(S3 * Wl3 - 3), Hh3),
-                  block_dp(msg3, 0, width(S3 * Wl3 - 3), Hh3,
-                           use_pallas=False))
-    out = M[:, 1:1 + K]
-    args = (prev, E[:, K:], on_dev(rng.random((S, K + 1, Hh),
-                                              dtype=np.float32)),
-            on_dev(rng.random((S, K + 1, Hh), dtype=np.float32)), 0,
-            width(W8))
-    time_kernel(times, "block_dp_parts",
-                lambda: block_dp_parts(*args, out=out),
-                lambda: block_dp_parts(*args, use_pallas=False), 50, 3)
-    BOUNDS["block_dp_parts"] = (
-        4 * (S * Wl + S * K * Wl + 2 * S * (K + 1) * Hh + S * K * We),
-        3 * S * K * We)
-
-    # the message form on 8 shards of 32 columns: at K = 96 the shapes of
-    # phase 5b's small-shard carve (256 rows: a six-hop halo, blocks of 96
-    # and 64 rows written into its (S, H, We) M), at K = 32 a two-hop halo
+    block_dp_5a(dev, chk, card, rng, times)
     S2, Wl2, H2 = 8, 32, 256
-    for K2, Kbs in ((K, (K, H2 % K)), (32, (32,))):
-        We2 = Wl2 + 4 * K2
-        M2 = torch.zeros((S2, H2, We2), device=dev)
-        for Kb in Kbs:
-            for w in (S2 * Wl2, S2 * Wl2 - 45):
-                msg = on_dev(rng.random((S2, Kb + 1, We2), dtype=np.float32))
-                chk.equal("block_dp", f"S={S2} Wl={Wl2} K={K2} Kb={Kb} "
-                          f"width={w}",
-                          block_dp(msg, 0, width(w), 2 * K2,
-                                   out=M2[:, H2 - Kb:]),
-                          block_dp(msg, 0, width(w), 2 * K2,
-                                   use_pallas=False))
     We2 = Wl2 + 4 * K
-    msg = on_dev(rng.random((S2, K + 1, We2), dtype=np.float32))
-    out2, w2 = torch.empty((S2, K, We2), device=dev), width(S2 * Wl2)
-    time_kernel(times, "block_dp", lambda: block_dp(msg, 0, w2, Hh, out=out2),
-                lambda: block_dp(msg, 0, w2, Hh, use_pallas=False), 50, 3)
-    BOUNDS["block_dp"] = (4 * (S2 * (K + 1) * We2 + S2 * K * We2),
-                          3 * S2 * K * We2)
 
     # the walk at phase 5b's small-shard shapes: the segments of rows
     # [191, 255), [95, 191) and [0, 95) of 8 shards' (256, 416) M, K = 96
@@ -2464,7 +2610,7 @@ def phase_5a(dev, chk: Checks, card: str, rng, times: dict) -> None:
                                    tie=tie),
                           seg_walk(rows_s[:, r0:r1], entry, 0, K, Hh,
                                    tie=tie, use_pallas=False))
-    del M2, rows_s
+    del rows_s
 
     # the walk: entries at shard and window edges, quantized M for ties
     rows_buf = on_dev((rng.integers(0, 3, (S, 2 * K, We)) / 2)
@@ -2717,6 +2863,8 @@ def phase_5(dev, chk: Checks, card: str, rng) -> list:
     import torch
 
     from dct_carver_tpu_torch import api, cli, kernels
+    from dct_carver_tpu_torch.kernels.spatial_kernel import (BLOCK_KERNEL,
+                                                             PARTS_KERNEL)
     from dct_carver_tpu_torch.ops.carve import (carve_n_seams,
                                                 reconstruct_enlarged)
     from dct_carver_tpu_torch.ops.energy import to_luma
@@ -2760,6 +2908,10 @@ def phase_5(dev, chk: Checks, card: str, rng) -> list:
             "find_seam_tiled": 0, "apply": 0}
     got = {k: launches[k] for k in want}
     chk.require(got == want, f"8K spatial launches {got}")
+    # every block ran over column tiles (33 a shard), replays credited
+    tiled = (PARTS_KERNEL.tiled_blocks, BLOCK_KERNEL.tiled_blocks)
+    chk.require(tiled == (nb * SEAMS_8K, 0),
+                f"8K spatial tiled_blocks (parts, message) {tiled}")
     log("  launches a seam: " + ", ".join(
         f"{k} {v / SEAMS_8K!r}" for k, v in launches.items() if v))
     single = carve_n_seams(luma8, SEAMS_8K, 8, 0.0, 1.0)
@@ -2879,6 +3031,9 @@ def phase_5(dev, chk: Checks, card: str, rng) -> list:
     chk.require(got == {"block_dp": 3 * 8, "block_dp_parts": 0,
                         "seg_walk": 3 * 8, "sharded_apply": 8},
                 f"small-shard spatial launches {got}")
+    chk.require(BLOCK_KERNEL.tiled_blocks == 3 * 8,
+                f"small-shard tiled_blocks {BLOCK_KERNEL.tiled_blocks}: 3 or "
+                f"4 tiles of the 416-column message rows, every block")
     one = api.carve(img_s, -8, device=dev.type, **kw)
     for field in ("image", "visibility_map", "energy_image"):
         same(getattr(sp, field), getattr(one, field),

@@ -13,7 +13,9 @@ also counts the calls whose finish walked composed blocks of rows
 clears them all),
 `strip_kernel`'s plugged-energy strip kernels
 on `GATHER_KERNEL`, `SCATTER_KERNEL` and `BAND_KERNEL`, and the spatial
-route's four on `spatial_kernel`'s records.  Every wrapper takes a (H, W)
+route's four on `spatial_kernel`'s records, whose block DPs
+(`BLOCK_KERNEL`, `PARTS_KERNEL`) also count the launches whose shards ran
+in more than one column tile (`tiled_blocks`).  Every wrapper takes a (H, W)
 plane or a (B, H, W) stack, one launch for the whole stack (`band_energy`
 takes bands with any leading dimensions, one launch); the spatial kernels
 take a stack of column shards of one image.
@@ -35,7 +37,9 @@ KERNELS = (energy_kernel.KERNEL, dp_kernel.KERNEL, dp_kernel.BATCH_KERNEL,
 # graph replay credits with what its capture counted (`utils/graphs.py`)
 COUNTERS = (*((k, "launches") for k in KERNELS),
             (dp_kernel.TILED_KERNEL, "blocked_finishes"),
-            (dp_kernel.TILED_KERNEL, "split_forwards"))
+            (dp_kernel.TILED_KERNEL, "split_forwards"),
+            (spatial_kernel.BLOCK_KERNEL, "tiled_blocks"),
+            (spatial_kernel.PARTS_KERNEL, "tiled_blocks"))
 
 
 def reset_launches() -> None:

@@ -61,12 +61,12 @@ SIGNATURES = {
     "dc_strip_scatter": (_P, _P, _P, *(_I,) * 9, _P),
     # bands, out, taps (host), rows, n, C, edges, textures, stream
     "dc_band_energy": (_P, _P, _P, _L, _I, _I, _F, _F, _P),
-    # msg, out, out_ss, S, Kb, Wl, Hh, lo, width, stream
-    "dc_block_dp": (_P, _P, _L, _I, _I, _I, _I, _I, _P, _P),
+    # msg, out, out_ss, S, Kb, Wl, Hh, lo, width, T, Wt, Hg, stream
+    "dc_block_dp": (_P, _P, _L, _I, _I, _I, _I, _I, _P, _I, _I, _I, _P),
     # prev, prev_ss, E, e_ss, lh, rh, out, out_ss, S, Kb, Wl, Hh, lo, width,
-    # stream
+    # T, Wt, Hg, stream
     "dc_block_dp_parts": (_P, _L, _P, _L, _P, _P, _P, _L, _I, _I, _I, _I,
-                          _I, _P, _P),
+                          _I, _P, _I, _I, _I, _P),
     # rows, rows_ss, S, Kb, Wl, Hh, K, lo, entry, rightmost, seg, stream
     "dc_seg_walk": (_P, _L, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P),
     # luma, origcol, energy, seam, edge, incoming, luma', origcol', energy',

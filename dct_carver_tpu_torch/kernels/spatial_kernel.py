@@ -3,9 +3,13 @@
 - `block_dp` (#16) and `block_dp_parts` (#17): K DP rows of every shard of
   a stack, from the halo-gathered message or from its four parts
   (`csrc/spatial_dp.cu`); counterparts of `dct_carver_tpu/pallas/
-  spatial_dp_kernel.py::block_dp_rows` and `block_dp_parts_rows`.  Plain
-  version: `scan_rows`, which with `delta_x`/`rigidity` other than (1, 0)
-  is also the route's only DP, as the JAX package's scan is.
+  spatial_dp_kernel.py::block_dp_rows` and `block_dp_parts_rows`.  Each
+  shard's extended row runs as T column tiles, a CTA each, of Wt owned
+  columns and Hg >= Kb ghost columns a side (`tile_plan`); a launch whose
+  shards ran in more than one tile counts on its record's
+  `tiled_blocks`.  Plain version: `scan_rows`, which with
+  `delta_x`/`rigidity` other than (1, 0) is also the route's only DP, as
+  the JAX package's scan is.
 - `seg_walk` (#18): one backtrack segment, walked on the shard that owns
   its entry column (`csrc/spatial_dp.cu`); counterpart of `seg_walk_rows`.
   Plain version: `walk_rows`.
@@ -33,8 +37,9 @@ from ..ops.dp import _argmin_tie, _rigidity_penalties, _shift_row, check_tie
 from .build import Kernel, launch
 
 __all__ = ["block_dp", "block_dp_parts", "seg_walk", "sharded_apply",
-           "scan_rows", "walk_rows", "apply_rows", "BLOCK_KERNEL",
-           "PARTS_KERNEL", "WALK_KERNEL", "APPLY_KERNEL", "MAX_EXT_WIDTH"]
+           "scan_rows", "walk_rows", "apply_rows", "tile_plan", "tile_bounds",
+           "BLOCK_KERNEL", "PARTS_KERNEL", "WALK_KERNEL", "APPLY_KERNEL",
+           "MAX_EXT_WIDTH"]
 
 _SRC = "dct_carver_tpu_torch/csrc/"
 _TPU = "dct_carver_tpu/pallas/spatial_dp_kernel.py:"
@@ -46,6 +51,8 @@ WALK_KERNEL = Kernel(name="seg_walk", source=_SRC + "spatial_dp.cu",
                      replaces=_TPU + "261")
 APPLY_KERNEL = Kernel(name="sharded_apply", source=_SRC + "sharded_apply.cu",
                       replaces=_TPU + "348")
+BLOCK_KERNEL.tiled_blocks = 0
+PARTS_KERNEL.tiled_blocks = 0
 
 # one block's shared memory (227 KB) holds at least one of the walk's
 # chunks: _WALK_ROWS rows of the window's 2K+1 columns, aligned down to 4
@@ -55,6 +62,10 @@ APPLY_KERNEL = Kernel(name="sharded_apply", source=_SRC + "sharded_apply.cu",
 _SMEM_LIMIT = 232448
 _WALK_ROWS = 16
 MAX_EXT_WIDTH = 32768
+# the block DP's tiles: the columns one warp computes (8 a lane,
+# csrc/spatial_dp.cu::kTileColumns), and the fewest owned columns a tile
+TILE_SPAN = 256
+TILE_MIN_OWNED = 64
 
 
 def _origins(lo: int, S: int, Wl: int, device) -> torch.Tensor:
@@ -107,6 +118,35 @@ def _check_width(We: int) -> None:
                          "row covers")
 
 
+def tile_plan(Kb: int, We: int) -> tuple[int, int, int]:
+    """The block DP's schedule for Kb rows of a We-column extended row:
+    (T, Wt, Hg), T tiles of the row (`tile_bounds`), each computed with
+    Hg >= Kb ghost columns a side (Wt and Hg multiples of 4) by one warp of
+    TILE_SPAN columns: the whole row where the warp holds it, else
+    Wt = TILE_SPAN - 2*Hg >= 64 owned columns a tile.  (0, We, 0): one CTA
+    a shard, where the warp holds no 64 owned columns and their ghosts
+    (Kb > 96 on rows wider than TILE_SPAN).  The kernel takes T as its
+    grid's width and checks only that the plan fits."""
+    Hg = -(-Kb // 4) * 4
+    if We <= TILE_SPAN:
+        return 1, We, Hg
+    Wt = TILE_SPAN - 2 * Hg
+    if Wt < TILE_MIN_OWNED:
+        return 0, We, 0
+    return -(-(We - 2 * Hg) // Wt), Wt, Hg
+
+
+def tile_bounds(We: int,
+                plan: tuple[int, int, int]) -> list[tuple[int, int]]:
+    """The owned columns [a, b) of each of a plan's T tiles of a We-column
+    row (twin of `csrc/spatial_dp.cu::Tile`): Wt each, and the first and
+    the last also the Hg columns their missing outer ghost zone frees, so
+    that no tile computes more than Wt + 2*Hg columns."""
+    T, Wt, Hg = plan
+    cuts = [0, *(t * Wt + Hg for t in range(1, T)), We]
+    return list(zip(cuts[:-1], cuts[1:]))
+
+
 # ------------------------------------------------------------ block DP ----
 
 def scan_rows(ext: torch.Tensor, col0: torch.Tensor, width, delta_x: int = 1,
@@ -155,10 +195,12 @@ def block_dp(msg: torch.Tensor, lo: int, width: torch.Tensor, Hh: int, *,
     _check_width(We)
     out = _out_rows(out, S, Kb1 - 1, We, dev)
     out_ss = _rows("out", out, 3, torch.float32, dev)
+    plan = tile_plan(Kb1 - 1, We)
     with torch.cuda.device(dev):
         launch(BLOCK_KERNEL, "dc_block_dp", msg.data_ptr(), out.data_ptr(),
                out_ss, S, Kb1 - 1, Wl, Hh, lo, _scalar("width", width, dev),
-               _stream(dev))
+               *plan, _stream(dev))
+    BLOCK_KERNEL.tiled_blocks += plan[0] > 1
     return out
 
 
@@ -194,11 +236,13 @@ def block_dp_parts(prev: torch.Tensor, E_blk: torch.Tensor, lh: torch.Tensor,
                              f"{dev}")
     out = _out_rows(out, S, Kb, We, dev)
     out_ss = _rows("out", out, 3, torch.float32, dev)
+    plan = tile_plan(Kb, We)
     with torch.cuda.device(dev):
         launch(PARTS_KERNEL, "dc_block_dp_parts", prev.data_ptr(), prev_ss,
                E_blk.data_ptr(), e_ss, lh.data_ptr(), rh.data_ptr(),
                out.data_ptr(), out_ss, S, Kb, Wl, Hh, lo,
-               _scalar("width", width, dev), _stream(dev))
+               _scalar("width", width, dev), *plan, _stream(dev))
+    PARTS_KERNEL.tiled_blocks += plan[0] > 1
     return out
 
 

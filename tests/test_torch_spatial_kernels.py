@@ -17,7 +17,8 @@ import jax.numpy as jnp
 from dct_carver_tpu.pallas import spatial_dp_kernel as jsp
 from dct_carver_tpu_torch import kernels
 from dct_carver_tpu_torch.kernels.spatial_kernel import (
-    block_dp, block_dp_parts, scan_rows, seg_walk, sharded_apply, walk_rows)
+    BLOCK_KERNEL, PARTS_KERNEL, TILE_SPAN, block_dp, block_dp_parts,
+    scan_rows, seg_walk, sharded_apply, tile_bounds, tile_plan, walk_rows)
 from dct_carver_tpu_torch.kernels.strip_kernel import (
     strip_gather, strip_scatter, strip_update)
 from dct_carver_tpu_torch.ops.strip import ShardOffset, _strip_extent
@@ -67,6 +68,134 @@ def test_block_dp_parts_equals_jax_and_block_dp():
             jnp.asarray(prev[s]), jnp.asarray(E[s]), jnp.asarray(lh[s]),
             jnp.asarray(rh[s]), lo + s * Wl - Hh, width, interpret=True)
         np.testing.assert_array_equal(got[s].numpy(), np.asarray(want))
+
+
+# ---------------------------------------------- the block DP's column tiles --
+
+def _check_tiles(Kb, We):
+    """tile_plan(Kb, We)'s T tiles cover [0, We) once, each with at least
+    min(Kb, what the row holds) ghost columns a side, in one warp's
+    TILE_SPAN columns; returns the plan and (a, b, x0, x1) a tile."""
+    plan = T, Wt, Hg = tile_plan(Kb, We)
+    assert T > 0 and Hg >= Kb and Hg % 4 == 0
+    bounds = tile_bounds(We, plan)
+    assert len(bounds) == T
+    assert bounds[0][0] == 0 and bounds[-1][1] == We
+    assert all(b0 == a1 for (_, b0), (a1, _) in zip(bounds, bounds[1:]))
+    tiles = []
+    for a, b in bounds:
+        assert a < b and (len(bounds) == 1 or a % 4 == 0)
+        x0, x1 = max(a - Hg, 0), min(b + Hg, We)
+        assert a - x0 >= min(Kb, a) and x1 - b >= min(Kb, We - b)
+        assert x1 - x0 <= TILE_SPAN
+        tiles.append((a, b, x0, x1))
+    return plan, tiles
+
+
+@pytest.mark.parametrize("S,Wl,Hh,Kb,widths", [
+    (4, 1920, 192, 96, (7680, 6980, 1950, 3890)),  # the 8K shard shape
+    (4, 1920, 192, 95, (7680,)),      # the last block of a 4320-row seam
+    (4, 1920, 192, 17, (3890,)),      # short blocks: wider tiles
+    (4, 1920, 192, 3, (1950, 7680)),
+    (4, 1900, 192, 96, (7600, 1930)),  # We = 2284: no multiple of the tile
+    (2, 1920, 192, 60, (3840, 1950)),  # 136 owned columns a tile
+    (1, 1920, 192, 1, (1920,)),       # 248 owned columns a tile
+    (8, 32, 192, 96, (256, 211, 101)),  # the message form's small shards
+    (8, 32, 192, 64, (256, 211)),
+    (8, 32, 64, 32, (256, 211)),
+    (4, 48, 192, 96, (192, 187)),     # halos wider than the owned columns
+    (3, 50, 192, 41, (150, 145)),     # rows no multiple of 4
+    (2, 7, 64, 32, (14, 9)),          # a row of one tile
+])
+def test_tiles_rebuild_the_block_bitwise(S, Wl, Hh, Kb, widths):
+    """The exactness the tiled block DP (csrc/spatial_dp.cu) rests on: each
+    tile of `tile_plan`, scanned alone on its span (its owned columns and
+    ghost zones, clamped to the extended row, +inf beyond) by the plain
+    `scan_rows`, gives owned columns bitwise equal to `scan_rows` over the
+    whole extended row, dead columns past the width included.  The
+    frontier is scaled far above a block's energy, so that a cell's value
+    often comes from the far end of its cone: ghost zones 4 columns short
+    of Kb make the 8K and small-shard cases differ."""
+    We = Wl + 2 * Hh
+    plan, tiles = _check_tiles(Kb, We)
+    rng = np.random.default_rng(S * 1000 + Wl + Kb)
+    msg = torch.from_numpy(_energy(rng, (S, Kb + 1, We)))
+    msg[:, 0] *= 1e6
+    col0 = Wl * torch.arange(S) - Hh
+    for width in widths:
+        w = torch.tensor([width], dtype=torch.int32)
+        whole = scan_rows(msg, col0, w)
+        got = torch.full_like(whole, float("nan"))
+        for a, b, x0, x1 in tiles:
+            part = scan_rows(msg[:, :, x0:x1].contiguous(), col0 + x0, w)
+            got[:, :, a:b] = part[:, :, a - x0:b - x0]
+        np.testing.assert_array_equal(got.numpy(), whole.numpy(),
+                                      err_msg=f"plan {plan} width {width}")
+
+
+@pytest.mark.parametrize("Kb,We,plan", [
+    (96, 2304, (33, 64, 96)),         # the 8K shard shape: 132 CTAs
+    (95, 2304, (33, 64, 96)),
+    (3, 2304, (10, 248, 4)),
+    (96, 416, (4, 64, 96)),           # 8 shards of 32 columns, K = 96
+    (32, 160, (1, 160, 32)),          # a row one warp holds
+    (60, 2284, (16, 136, 60)),        # We no multiple of the tile
+    (96, 257, (2, 64, 96)),           # one column past the warp
+    (200, 256, (1, 256, 200)),        # a tall block on a narrow row
+    (1, 40000, (162, 248, 4)),
+])
+def test_tile_plan(Kb, We, plan):
+    """A warp of TILE_SPAN columns holds the whole row, or 64 owned
+    columns or more and Kb ghost columns a side; T tiles cover the row
+    once."""
+    got, tiles = _check_tiles(Kb, We)
+    assert got == plan and len(tiles) == plan[0]
+
+
+def test_tile_plan_falls_back_to_one_cta_a_shard():
+    """No warp holds 64 owned columns and more than 96 ghost columns a
+    side: a row wider than TILE_SPAN columns takes one CTA a shard, whose
+    one tile owns the whole row."""
+    for Kb, We in ((97, 2304), (200, 257), (1000, 1025), (4320, 32768)):
+        assert tile_plan(Kb, We) == (0, We, 0)
+        assert tile_bounds(We, tile_plan(Kb, We)) == [(0, We)]
+    assert tile_plan(96, 2304)[0] == 33
+
+
+def test_tiled_blocks_is_a_counter_reset_with_the_launches():
+    """`tiled_blocks` sits in COUNTERS (so graph replays credit it) on both
+    block-DP records, and reset_launches clears it; the plain path counts
+    nothing."""
+    assert (BLOCK_KERNEL, "tiled_blocks") in kernels.COUNTERS
+    assert (PARTS_KERNEL, "tiled_blocks") in kernels.COUNTERS
+    BLOCK_KERNEL.tiled_blocks = PARTS_KERNEL.tiled_blocks = 7
+    kernels.reset_launches()
+    assert BLOCK_KERNEL.tiled_blocks == PARTS_KERNEL.tiled_blocks == 0
+    rng = np.random.default_rng(1)
+    msg = torch.from_numpy(_energy(rng, (4, 9, 48)))
+    block_dp(msg, 0, torch.tensor([64], dtype=torch.int32), 16)
+    assert BLOCK_KERNEL.tiled_blocks == PARTS_KERNEL.tiled_blocks == 0
+    assert "tiled_blocks" not in kernels.launch_counts()
+
+
+def test_spatial_steps_credit_tiled_blocks(monkeypatch):
+    """The spatial route's seam step hands its graphs every counter of
+    COUNTERS, `tiled_blocks` among them, so that replays credit it."""
+    from dct_carver_tpu_torch.parallel import spatial as tspatial
+    from dct_carver_tpu_torch.utils import graphs as tgraphs
+
+    seen = []
+
+    class Recorder:
+        def __init__(self, devices, what, counters):
+            seen.extend(counters)
+
+    monkeypatch.setattr(tgraphs, "StepGraphs", Recorder)
+    st, mesh = tspatial.spatial_make_state(torch.zeros((8, 32)),
+                                           devices=["cpu"] * 2)
+    tspatial._SeamSteps(mesh, st, tspatial._params(32, 8))
+    assert (PARTS_KERNEL, "tiled_blocks") in seen
+    assert (BLOCK_KERNEL, "tiled_blocks") in seen
 
 
 def test_scan_rows_generalized_dp_equals_jax_scan():
